@@ -12,7 +12,9 @@ Layer map:
                 PyTorch versions, and the gather oracle (LowestLevel_Resample)
   lowlevel      phase-accumulator streaming (LowLevel_Init/Adjust/Resample)
   highlevel     buffered streaming with edge padding (HighLevel_*)
-  farm          many same-ratio streams as lanes of one launch
+  farm          many same-ratio streams as lanes of one launch; mixed-ratio
+                fleets as one such farm per ratio
+  batch         independent streams, each with its own ratio, per chunk call
   interop       tables and stream state carried over from the JAX package
   utils/        host staging engine loader, PCM/WAV helpers
 
@@ -21,8 +23,9 @@ default is the CPU, where the kernels' plain versions run.
 """
 
 from clownresampler_tpu_torch import fixedpoint
+from clownresampler_tpu_torch.batch import make_batch_state, resample_batch, stack_states
 from clownresampler_tpu_torch.configure import MAXIMUM_CHANNELS, Configuration, configure
-from clownresampler_tpu_torch.farm import UniformStreamFarm
+from clownresampler_tpu_torch.farm import MixedStreamFarm, UniformStreamFarm
 from clownresampler_tpu_torch.highlevel import HighLevelResampler
 from clownresampler_tpu_torch.lowlevel import LowLevelResampler, resample_array, resample_chunk
 from clownresampler_tpu_torch.models import (
@@ -31,6 +34,11 @@ from clownresampler_tpu_torch.models import (
     LOW_COST_MODEL,
     KernelModel,
     lanczos_kernel_table,
+)
+from clownresampler_tpu_torch.ops.resample import (
+    resample_strided_phases,
+    resample_strided_phases_wide,
+    resample_wide_taps,
 )
 
 __version__ = "0.1.0"
@@ -48,7 +56,14 @@ __all__ = [
     "LowLevelResampler",
     "HighLevelResampler",
     "UniformStreamFarm",
+    "MixedStreamFarm",
     "resample_chunk",
     "resample_array",
+    "resample_batch",
+    "make_batch_state",
+    "stack_states",
+    "resample_strided_phases",
+    "resample_strided_phases_wide",
+    "resample_wide_taps",
     "__version__",
 ]

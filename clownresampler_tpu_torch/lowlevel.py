@@ -31,18 +31,24 @@ from clownresampler_tpu_torch import fixedpoint as fx
 from clownresampler_tpu_torch.configure import Configuration, configure
 from clownresampler_tpu_torch.models import DEFAULT_MODEL, KernelModel, table_tensor
 from clownresampler_tpu_torch.ops.convolve import ConfigScalars, convolve_frames
-from clownresampler_tpu_torch.ops.resample import multi_resample, plan_uniform
+from clownresampler_tpu_torch.ops.resample import (
+    multi_resample,
+    plan_uniform,
+    wide_launch_frames,
+)
 
 # Keep n*increment_lo inside int32 (fixedpoint.positions_from_state).
 MAX_CHUNK_OUTPUT_FRAMES = 1 << 14
 
-# Tap widths above this have no kernel yet (the wide class): the gather
-# oracle serves them on every device.
+# Tap widths above this take the wide class (wide_mac_kernel), whatever the
+# increment; at or below it the increment's class (plan_uniform) serves,
+# except that general-class launches (d >= 2, nonzero fraction) from
+# GENERAL_WIDE_MIN_TAPS taps take the wide class too. On the H100, over
+# 1024-frame launches the wide kernel measured 1.2x faster than
+# general_mac_kernel at 248 taps and 2.2x at 352; over 64-frame launches it
+# lost 6-27 us up to 352 taps (PERF.md; chip_smoke.py times the two).
 FAST_KERNEL_MAX_TAPS = 1024
-
-# Bound on frames x taps of one gather-oracle launch: the gather materialises
-# (frames, taps, channels) windows.
-ORACLE_MAX_GATHER = 1 << 22
+GENERAL_WIDE_MIN_TAPS = 256
 
 Scalar = Union[int, torch.Tensor]
 OutputCallback = Callable[[np.ndarray], bool]
@@ -64,6 +70,18 @@ def make_device_state(position_integer: int, position_fractional: int,
     pos = pos.to(device)
     return DeviceState(pos[0], pos[1],
                        ConfigScalars.from_configuration(cfg, increment, device))
+
+
+def launch_kind(increment: int, taps: int) -> tuple:
+    """(kind, d, cand) of a uniform-ratio launch at this increment and tap
+    width: "wide" past FAST_KERNEL_MAX_TAPS and for general launches from
+    GENERAL_WIDE_MIN_TAPS, else plan_uniform's class ("tiled", "general" or
+    "strided"); cand is None outside the tiled class."""
+    plan = plan_uniform(increment, 0)
+    if taps > FAST_KERNEL_MAX_TAPS or (plan["kernel"] == "general"
+                                       and taps >= GENERAL_WIDE_MIN_TAPS):
+        return "wide", increment >> 16, None
+    return plan["kernel"], plan["d"], plan.get("cand")
 
 
 def natural_output_count(p0, f0, inc_hi, inc_lo, total_input_frames):
@@ -225,27 +243,29 @@ class LowLevelResampler:
     def _compute_frames(self, padded_input: np.ndarray, n_frames: int) -> np.ndarray:
         """Convolve output frames [0, n_frames) from the current state.
 
-        Dispatch by ``plan_uniform``: the tiled and general classes take
-        their entry points in ops/resample.py (the CUDA kernels on a CUDA
-        device, their plain versions on the CPU); the strided class and tap
-        widths past FAST_KERNEL_MAX_TAPS take the gather oracle. Launches
-        are tiled to MAX_CHUNK_OUTPUT_FRAMES frames with exact host-int
-        p0/f0 between tiles, and run at the current ratio's tap width (any
-        width >= the current class is bit-exact: surplus taps are masked).
+        Dispatch by ``launch_kind``: every class takes its entry point in
+        ops/resample.py (the CUDA kernels on a CUDA device, their plain
+        versions on the CPU). Launches are tiled to MAX_CHUNK_OUTPUT_FRAMES
+        frames (wide_launch_frames for the wide class) with exact
+        host-int p0/f0 between tiles, and run at the current ratio's tap
+        width (any width >= the current class is bit-exact: surplus taps are
+        masked).
         """
         if n_frames <= 0:
             return np.zeros((0, self.channels), np.int32)
         dev = self.device
         cfg = self.config
         taps = min(self._max_taps, fx.round_up(2 * cfg.integer_stretched_kernel_radius, 8))
-        plan = plan_uniform(self.increment, 0)
-        kind = plan["kernel"] if taps <= FAST_KERNEL_MAX_TAPS else "wide"
+        kind, d, cand = launch_kind(self.increment, taps)
+        step = MAX_CHUNK_OUTPUT_FRAMES
+        if kind == "wide":
+            step = min(step, wide_launch_frames(taps))
         table = self._cached(("table", dev), lambda: table_tensor(self.model.table(), dev))
         scalars = self._cached(
             ("cfg", cfg, self.increment),
             lambda: ConfigScalars.from_configuration(cfg, self.increment, dev))
         tstr = None
-        if kind in ("tiled", "general"):
+        if kind != "strided":
             tstr = self._cached(
                 ("strided", cfg.kernel_step_size, taps),
                 lambda: table_tensor(self.model.strided_table(cfg.kernel_step_size, taps), dev))
@@ -260,15 +280,12 @@ class LowLevelResampler:
         xs, states, plans, tiles = [], [], [], []
         done = 0
         while done < n_frames:
-            tile = min(n_frames - done, MAX_CHUNK_OUTPUT_FRAMES)
-            if kind not in ("tiled", "general"):
-                tile = min(tile, max(8, ORACLE_MAX_GATHER // taps))
+            tile = min(n_frames - done, step)
             t = self.position_fractional + done * self.increment
             p0 = self.position_integer + (t >> 16)
             xs.append(x[p0:])
             states.append(DeviceState(0, t & 0xFFFF, scalars))
-            plans.append((kind, plan.get("d"), plan.get("cand"), taps,
-                          fx.round_up(tile, 8), False))
+            plans.append((kind, d, cand, taps, fx.round_up(tile, 8), False))
             tiles.append(tile)
             done += tile
         outs = multi_resample(table, tuple(xs), tuple(states), tuple(plans),

@@ -8,20 +8,27 @@ computed once per launch by ``precompute_launch`` (torch ops) and broadcast
 across lanes. What is left is the dense multiply-accumulate with the C
 reference's per-term truncation, which the kernels in csrc/ perform.
 
-Ratio classes (``plan_uniform``):
+Ratio classes (``plan_uniform``, then the tap width):
   tiled   -- d = increment >> 16 in {0, 1}: every upsample and every
              downsample under 2x (the farm's headline 48k->44.1k included).
              ``tiled_mac_kernel`` stages each block's shared window in
              shared memory.
   general -- d >= 2 with a nonzero fraction (e.g. 44.1k->8k).
              ``general_mac_kernel`` reads each frame's window directly.
-  strided -- exact integer strides (fraction 0, d >= 2). No kernel yet: the
-             gather oracle (ops/convolve.py) serves it on every device.
+  strided -- exact integer strides (fraction 0, d >= 2, e.g. 96k->48k).
+             One tap vector and one reciprocal serve the launch;
+             ``strided_mac_kernel`` stages each block's windows.
+  wide    -- tap widths past 1024 (lowlevel.FAST_KERNEL_MAX_TAPS, e.g.
+             44.1k->132), any increment, and general-class launches from
+             lowlevel.GENERAL_WIDE_MIN_TAPS taps. ``wide_mac_kernel`` splits
+             the tap axis across blocks and a fold kernel sums and
+             normalises.
 
 Each entry point takes the tensor's device as the route: a CUDA tensor goes
 to the kernel (and raises if it cannot launch), a CPU tensor to the plain
 PyTorch version beside it (``*_reference``). ``ROUTES`` counts which route
-every launch took.
+every launch took. The gather oracle (ops/convolve.py) is the reference all
+of them are tested against; it serves only an explicit "oracle" launch.
 """
 
 from __future__ import annotations
@@ -39,6 +46,24 @@ FRAMES_PER_TILE = 8
 # Frames per thread block of tiled_mac_kernel; the block's shared window
 # spans at most 63*d + 9*(cand - 1) + max_taps rows (tiled_window_rows).
 TILED_FRAMES_PER_BLOCK = 64
+# strided_mac_kernel stages (F - 1)*d + T rows of 32 lanes per block; F is
+# the largest power of two up to 64 whose window fits this budget (48 KiB
+# keeps four 256-thread blocks on an SM), else 1 (strided_frames_per_block).
+STRIDED_MAX_FRAMES_PER_BLOCK = 64
+STRIDED_SHARED_BUDGET = 48 * 1024
+# Taps per wide_mac_kernel block: 96-128 measured fastest, or within 10% of
+# it, on the H100 from 352 to 6016 taps at 64 to 4096 frames (PERF.md).
+WIDE_TAP_BLOCK = 128
+# Bound on frames x taps of one wide launch (the dispatchers tile longer
+# emits, wide_launch_frames): the launch precompute's (N, T) tap matrix
+# costs N*T*4 bytes, 24.6 MB here (1024 frames at 6016 taps).
+WIDE_MAX_TAP_MATRIX = 1024 * 6016
+# Taps per step of the wide plain version's gather ((N, block, lanes) ints).
+WIDE_REFERENCE_TAP_BLOCK = 64
+# Bound on frames x taps of one gather of the oracle: convolve_frames
+# materialises (frames, taps, lanes) windows, so oracle_launch splits its
+# frames into gathers of at most ORACLE_MAX_GATHER // max_taps.
+ORACLE_MAX_GATHER = 1 << 22
 
 # (kind, impl) -> launches, impl in {"cuda", "reference", "oracle"}.
 ROUTES: collections.Counter = collections.Counter()
@@ -121,16 +146,24 @@ def _lane_range(x, lanes, lane_offset):
     return lanes
 
 
-def mac_reference(x, rows, kvals, q, lanes, lane_offset, clamp_s16):
-    """The plain PyTorch multiply-accumulate both kernels implement, on the
-    kernels' own inputs (launch rows, masked taps, reciprocals): one
-    (N, lanes) row gather per tap, C-truncated product, int32 accumulate,
-    17.15 normalise, optional s16 clamp."""
+def mac_reference(x, rows, kvals, q, lanes, lane_offset, clamp_s16, tap_block=1):
+    """The plain PyTorch multiply-accumulate the kernels implement, on the
+    kernels' own inputs (launch rows, masked taps, reciprocals): one row
+    gather per tap (``tap_block`` taps at a time), C-truncated product,
+    int32 accumulate, 17.15 normalise, optional s16 clamp. The tap sum is a
+    plain sum of independently truncated terms, so the blocking does not
+    change the result."""
     xs = x[:, lane_offset : lane_offset + lanes]
-    acc = torch.zeros((rows.shape[0], lanes), dtype=torch.int32, device=x.device)
-    for t in range(kvals.shape[1]):
-        win = xs.index_select(0, rows + t)
-        acc += fx.fixed_mul_trunc(win, kvals[:, t : t + 1])
+    n = rows.shape[0]
+    acc = torch.zeros((n, lanes), dtype=torch.int32, device=x.device)
+    taps = kvals.shape[1]
+    j = torch.arange(taps, dtype=torch.int32, device=x.device)
+    for t0 in range(0, taps, tap_block):
+        blk = min(tap_block, taps - t0)
+        idx = (rows[:, None] + j[t0 : t0 + blk]).reshape(-1)
+        win = xs.index_select(0, idx).view(n, blk, lanes)
+        terms = fx.fixed_mul_trunc(win, kvals[:, t0 : t0 + blk, None])
+        acc += terms[:, 0] if blk == 1 else terms.sum(dim=1, dtype=torch.int32)
     out = fx.mul_shift15(acc, q[:, None])
     if clamp_s16:
         out = out.clamp(-0x7FFF, 0x7FFF).to(torch.int16)
@@ -243,21 +276,162 @@ def resample_uniform_lanes_general(
 
 
 # ---------------------------------------------------------------------------
+# Strided class: exact integer strides (fraction 0, d >= 2)
+# ---------------------------------------------------------------------------
+
+def strided_setup(table, state, *, max_taps: int, n_out: int, d: int):
+    """One frame's geometry serves a strided launch (the fraction is
+    constant): returns (rows (n_out,), r0 (1,), k0 (T,), q0 (1,)), with
+    rows[n] = r0 + n*d unclamped, k0 the masked taps and q0 the 17.15
+    reciprocal of frame 0. No (N, T) tap matrix is built."""
+    rows8, kvals, q, _eps, _tile_rows = precompute_launch(
+        table, state, max_taps=max_taps, n_out=FRAMES_PER_TILE)
+    rows = rows8[0] + d * torch.arange(n_out, dtype=torch.int32, device=rows8.device)
+    return rows, rows8[:1], kvals[0].contiguous(), q[:1]
+
+
+def strided_frames_per_block(d: int, max_taps: int) -> int:
+    """Frames per strided_mac_kernel block: the largest power of two up to
+    STRIDED_MAX_FRAMES_PER_BLOCK whose staged window fits
+    STRIDED_SHARED_BUDGET, else 1 (a single window, opted in up to the
+    card's limit)."""
+    f = STRIDED_MAX_FRAMES_PER_BLOCK
+    while f > 1 and _build.strided_shared_bytes(f, d, max_taps) > STRIDED_SHARED_BUDGET:
+        f //= 2
+    return f
+
+
+def resample_strided_reference(
+    table, x, state, *, max_taps: int, n_out: int, d: int, clamp_s16: bool = False,
+    lanes: Optional[int] = None, lane_offset: int = 0,
+):
+    """Plain PyTorch version of ``resample_strided_phases``, the port of the
+    JAX package's XLA path ``resample_integer_stride``: one row take per tap
+    at rows r0 + n*d (padding frames clamped by ``launch_rows``), the
+    C-truncated product with the constant tap, 17.15 normalise."""
+    _check_x(x)
+    lanes = _lane_range(x, lanes, lane_offset)
+    rows, _r0, k0, q0 = strided_setup(table, state, max_taps=max_taps, n_out=n_out, d=d)
+    rl = launch_rows(rows, x.shape[0], max_taps)
+    out = mac_reference(x, rl, k0.expand(n_out, -1), q0.expand(n_out), lanes, lane_offset,
+                        clamp_s16)
+    return out, rows
+
+
+def resample_strided_phases(
+    table, x, state, *, max_taps: int, n_out: int, d: int, group: int = 8,
+    clamp_s16: bool = False, lanes: Optional[int] = None, lane_offset: int = 0,
+):
+    """Exact-integer-stride resample (increment fraction 0, d = increment >> 16
+    >= 2, e.g. 96k->48k). ``group`` is accepted for the JAX signature and has
+    no effect. The caller pads x so that every real frame's window fits;
+    padding frames' windows are clamped into x. Returns (out (n_out, lanes)
+    int32 -- int16 when ``clamp_s16`` -- and rows (n_out,))."""
+    _check_x(x)
+    if d < 2:
+        raise ValueError(f"strided launches need d >= 2, got {d}")
+    if _takes_reference(x, "strided"):
+        return resample_strided_reference(
+            table, x, state, max_taps=max_taps, n_out=n_out, d=d, clamp_s16=clamp_s16,
+            lanes=lanes, lane_offset=lane_offset)
+    lanes = _lane_range(x, lanes, lane_offset)
+    rows, r0, k0, q0 = strided_setup(table, state, max_taps=max_taps, n_out=n_out, d=d)
+    out = _build.strided_mac(
+        x, r0, k0, q0, n_out=n_out, d=d, lanes=lanes, lane_offset=lane_offset,
+        frames_per_block=strided_frames_per_block(d, max_taps), clamp_s16=clamp_s16)
+    ROUTES[("strided", "cuda")] += 1
+    return out, rows
+
+
+def resample_strided_phases_wide(
+    table, x, state, *, max_taps: int, n_out: int, d: int, group: int = 8,
+    clamp_s16: bool = False, lanes: Optional[int] = None, lane_offset: int = 0,
+):
+    """The JAX package's large-buffer strided entry. Its TPU kernel exists
+    for the v5e's VMEM budget; here ``strided_mac_kernel`` serves every
+    buffer size, so this is ``resample_strided_phases``."""
+    return resample_strided_phases(
+        table, x, state, max_taps=max_taps, n_out=n_out, d=d, group=group,
+        clamp_s16=clamp_s16, lanes=lanes, lane_offset=lane_offset)
+
+
+# ---------------------------------------------------------------------------
+# Wide class: tap widths past lowlevel.FAST_KERNEL_MAX_TAPS, any increment
+# ---------------------------------------------------------------------------
+
+def wide_launch_frames(max_taps: int) -> int:
+    """Most frames a dispatcher gives one wide launch: its (N, T) tap matrix
+    stays within WIDE_MAX_TAP_MATRIX ints (1024 frames at 6016 taps, 24,064
+    at 256), in whole 8-frame tiles."""
+    return max(FRAMES_PER_TILE,
+               WIDE_MAX_TAP_MATRIX // max_taps // FRAMES_PER_TILE * FRAMES_PER_TILE)
+
+
+def resample_wide_taps_reference(
+    table, x, state, *, max_taps: int, n_out: int, d: int, clamp_s16: bool = False,
+    lanes: Optional[int] = None, lane_offset: int = 0, table_strided=None,
+    pipeline: Optional[bool] = None,
+):
+    """Plain PyTorch version of ``resample_wide_taps``: ``mac_reference`` on
+    the launch precompute's rows, taps and reciprocals, gathered
+    WIDE_REFERENCE_TAP_BLOCK taps at a time."""
+    _check_x(x)
+    lanes = _lane_range(x, lanes, lane_offset)
+    rows, kvals, q, _eps, _tile_rows = precompute_launch(
+        table, state, max_taps=max_taps, n_out=n_out, table_strided=table_strided)
+    rl = launch_rows(rows, x.shape[0], max_taps)
+    out = mac_reference(x, rl, kvals, q, lanes, lane_offset, clamp_s16,
+                        tap_block=WIDE_REFERENCE_TAP_BLOCK)
+    return out, rows
+
+
+def resample_wide_taps(
+    table, x, state, *, max_taps: int, n_out: int, d: int, clamp_s16: bool = False,
+    lanes: Optional[int] = None, lane_offset: int = 0, table_strided=None,
+    pipeline: Optional[bool] = None,
+):
+    """Any-ratio resample for wide tap windows: the dispatchers send every
+    width past 1024 (up to 6016 at radius 3007) and general-class widths
+    from lowlevel.GENERAL_WIDE_MIN_TAPS. ``d`` (increment >> 16) and
+    ``pipeline`` are accepted for the JAX signature and have no effect. Same
+    contract and return as the tiled entry; the dispatchers keep n_out <=
+    wide_launch_frames(max_taps)."""
+    _check_x(x)
+    if _takes_reference(x, "wide"):
+        return resample_wide_taps_reference(
+            table, x, state, max_taps=max_taps, n_out=n_out, d=d, clamp_s16=clamp_s16,
+            lanes=lanes, lane_offset=lane_offset, table_strided=table_strided)
+    lanes = _lane_range(x, lanes, lane_offset)
+    rows, kvals, q, _eps, _tile_rows = precompute_launch(
+        table, state, max_taps=max_taps, n_out=n_out, table_strided=table_strided)
+    out = _build.wide_mac(
+        x, launch_rows(rows, x.shape[0], max_taps), kvals, q, lanes=lanes,
+        lane_offset=lane_offset, tap_block=WIDE_TAP_BLOCK, clamp_s16=clamp_s16)
+    ROUTES[("wide", "cuda")] += 1
+    return out, rows
+
+
+# ---------------------------------------------------------------------------
 # Several launches in a row, and the oracle route
 # ---------------------------------------------------------------------------
 
 def oracle_launch(table, x, state, *, kind: str, max_taps: int, n_out: int,
                   clamp_s16: bool = False, lanes: Optional[int] = None,
                   lane_offset: int = 0):
-    """A launch through the gather oracle (ops/convolve.py), for the classes
-    without a kernel (``kind`` names the class for ROUTES)."""
+    """A launch through the gather oracle (ops/convolve.py), the reference
+    every class is tested against (``kind`` names it for ROUTES). Its frames
+    go in gathers of at most ORACLE_MAX_GATHER // max_taps frames, so a
+    gather holds at most ORACLE_MAX_GATHER x lanes ints."""
     lanes = _lane_range(x, lanes, lane_offset)
     n = torch.arange(n_out, dtype=torch.int32, device=x.device)
     pos, frac = fx.positions_from_state(
         state.position_integer, state.position_fractional,
         state.cfg.increment_hi, state.cfg.increment_lo, n)
-    out = convolve_frames(table, x[:, lane_offset : lane_offset + lanes], pos, frac,
-                          state.cfg, max_taps)
+    xs = x[:, lane_offset : lane_offset + lanes]
+    step = max(1, ORACLE_MAX_GATHER // max_taps)
+    out = torch.cat([convolve_frames(table, xs, pos[i : i + step], frac[i : i + step],
+                                     state.cfg, max_taps)
+                     for i in range(0, n_out, step)])
     if clamp_s16:
         out = out.clamp(-0x7FFF, 0x7FFF).to(torch.int16)
     ROUTES[(kind, "oracle")] += 1
@@ -270,8 +444,10 @@ def multi_resample(table, xs: tuple, states: tuple, plans: tuple,
     current stream.
 
     ``plans[i]`` is (kind, d, cand, max_taps, n_out, clamp_s16[, lanes,
-    lane_offset]): kind "tiled" and "general" take their entry points; any
-    other kind ("strided", "wide", "oracle") goes to the gather oracle.
+    lane_offset]): kind "tiled", "general", "wide" take their entry points,
+    "strided" and "strided_xla" (the JAX package's name for its XLA strided
+    path) the strided entry, and "oracle" the gather oracle. ``tstrs[i]`` is
+    the launch's strided kernel table or None (the strided entry takes none).
     Returns a tuple of outputs.
     """
     if tstrs is None:
@@ -280,19 +456,22 @@ def multi_resample(table, xs: tuple, states: tuple, plans: tuple,
     for x, st, p, tstr in zip(xs, states, plans, tstrs):
         kind, d, cand, max_taps, n_out, clamp = p[:6]
         lanes, lane_offset = (p[6], p[7]) if len(p) > 6 else (None, 0)
+        common = dict(max_taps=max_taps, n_out=n_out, clamp_s16=clamp, lanes=lanes,
+                      lane_offset=lane_offset)
         if kind == "tiled":
-            out, _ = resample_uniform_lanes_tiled(
-                table, x, st, max_taps=max_taps, n_out=n_out, d=d, cand=cand,
-                clamp_s16=clamp, lanes=lanes, lane_offset=lane_offset,
-                table_strided=tstr)
+            out, _ = resample_uniform_lanes_tiled(table, x, st, d=d, cand=cand,
+                                                  table_strided=tstr, **common)
         elif kind == "general":
-            out, _ = resample_uniform_lanes_general(
-                table, x, st, max_taps=max_taps, n_out=n_out, clamp_s16=clamp,
-                lanes=lanes, lane_offset=lane_offset, table_strided=tstr)
+            out, _ = resample_uniform_lanes_general(table, x, st, table_strided=tstr,
+                                                    **common)
+        elif kind in ("strided", "strided_xla"):
+            out, _ = resample_strided_phases(table, x, st, d=d, **common)
+        elif kind == "wide":
+            out, _ = resample_wide_taps(table, x, st, d=d, table_strided=tstr, **common)
+        elif kind == "oracle":
+            out = oracle_launch(table, x, st, kind=kind, **common)
         else:
-            out = oracle_launch(table, x, st, kind=kind, max_taps=max_taps,
-                                n_out=n_out, clamp_s16=clamp, lanes=lanes,
-                                lane_offset=lane_offset)
+            raise ValueError(f"unknown launch kind {kind!r}")
         outs.append(out)
     return tuple(outs)
 
@@ -305,8 +484,12 @@ def plan_uniform(increment: int, n_out: int) -> dict:
     """Choose a ratio class + static params for a launch at this increment.
 
     tiled   — tiled_mac_kernel; d = increment>>16 in {0,1}
-    strided — no kernel yet (gather oracle); fractional part == 0, d >= 2
+    strided — strided_mac_kernel; fractional part == 0, d >= 2
     general — general_mac_kernel; any other ratio (wide downsampling)
+
+    Tap widths past lowlevel.FAST_KERNEL_MAX_TAPS, and general launches from
+    lowlevel.GENERAL_WIDE_MIN_TAPS, take the wide class (wide_mac_kernel)
+    whatever this returns (lowlevel.launch_kind).
     """
     d = increment >> 16
     lo = increment & 0xFFFF

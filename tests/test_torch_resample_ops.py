@@ -91,25 +91,28 @@ def test_torch_plan_uniform_matches_jax():
 
 
 def test_torch_multi_resample_routes_on_cpu():
-    """Tiled and general plans take the plain versions on the CPU; any other
-    kind takes the gather oracle; ROUTES records each; all are bit-equal to
-    the oracle."""
+    """Tiled, general, strided and wide plans take their plain versions on
+    the CPU; only an explicit "oracle" plan takes the gather oracle; ROUTES
+    records each; all are bit-equal to the oracle."""
     launches = []
     for rates, kind in (((48000, 44100), "tiled"), ((44100, 8000), "general"),
-                        ((96000, 48000), "strided")):
-        j, p, m = _launch(*rates, torch.device("cpu"))
+                        ((96000, 48000), "strided"), ((44100, 132), "wide"),
+                        ((44100, 8000), "oracle")):
+        j, p, m = _launch(*rates, torch.device("cpu"), n_out=16 if kind == "wide" else 64)
         plan = m["plan"]
-        assert plan["kernel"] == kind
-        launches.append((p, (kind, plan.get("d"), plan.get("cand"), m["taps"], 64, False), m))
+        assert kind in (plan["kernel"], "oracle") or m["taps"] > 1024
+        launches.append((p, (kind, plan.get("d"), plan.get("cand"), m["taps"],
+                             16 if kind == "wide" else 64, False), m))
     rs.ROUTES.clear()
     outs = rs.multi_resample(launches[0][0]["table"], tuple(p["x"] for p, _, _ in launches),
                              tuple(p["state"] for p, _, _ in launches),
                              tuple(plan for _, plan, _ in launches))
     assert dict(rs.ROUTES) == {("tiled", "reference"): 1, ("general", "reference"): 1,
-                               ("strided", "oracle"): 1}
+                               ("strided", "reference"): 1, ("wide", "reference"): 1,
+                               ("oracle", "oracle"): 1}
     for out, (p, plan, m) in zip(outs, launches):
         want = rs.oracle_launch(p["table"], p["x"], p["state"], kind="check",
-                                max_taps=m["taps"], n_out=64)
+                                max_taps=m["taps"], n_out=plan[4])
         np.testing.assert_array_equal(out.numpy(), want.numpy(), err_msg=plan[0])
 
 
