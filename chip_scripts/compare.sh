@@ -20,7 +20,8 @@ run change2 .
 run parent2 "$parent"
 t0=$SECONDS
 JAX_PLATFORMS=cpu python3 -m pytest tests/test_torch_resample_ops.py tests/test_torch_strided_wide.py \
-  tests/test_torch_scan.py tests/test_torch_tiled_kernel.py -q -m cuda -p no:cacheprovider \
+  tests/test_torch_scan.py tests/test_torch_tiled_kernel.py tests/test_torch_strided_wide_kernel.py \
+  -q -m cuda -p no:cacheprovider \
   > chiprun_out/cuda_tests.log 2>&1
 echo "cuda tests rc=$? seconds=$(( SECONDS - t0 ))"
 tail -n 2 chiprun_out/cuda_tests.log

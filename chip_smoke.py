@@ -15,9 +15,10 @@ tiled one with no host sync too), farm checkpoints restored on the card,
 and the CLI on the card -- checks that every launch of those paths took a
 CUDA kernel, checks their outputs against the gather oracle, the oracle
 scan, CPU replays and a golden md5, times the kernels beside their bounds,
-the farms and the scan, counts the device launches of one tiled entry call
-(one), and prints one line per phase. It runs in under a minute of command
-time on an H100 (24-33 s). Its last line is
+the farms and the scan, counts the device launches of one tiled, strided
+and wide entry call (one, one and two: each entry computes its own launch
+geometry), and prints one line per phase. It runs in under a minute of
+command time on an H100. Its last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -99,10 +100,46 @@ TILED_CASES = (
     ("48k->44.1k one stereo stream", (48000, 44100), 4096, 2, {}),
 )
 STRIDED_RATIOS = ((96000, 48000), (192000, 48000), (132300, 44100), (529200, 44100))
-# (rates, frames, lanes, p0, f0): the 44.1k -> 262 case (taps 1016) is in
-# the general class by its width and is sent to the wide kernel directly.
-WIDE_CASES = (((44100, 132), 64, 1024, 7, 0x8421), ((44100, 44), 64, 256, 3, 0x1111),
-              ((96000, 480), 64, 1024, 5, 0), ((44100, 262), 64, 1024, 9, 0x8421))
+# The strided kernel against its plain version: (label, rates, n_out, x
+# lanes, options), options as TILED_CASES' (cut: frames of d rows taken off
+# x's end). Every ratio of STRIDED_RATIOS (d 2, 4, 3 and 12; 529.2k -> 44.1k
+# has 72 taps, past the unrolled set) as is, on a lane slice, clamped to s16
+# and with a clamped tail; the state as ints at f0 65535; a reserve of 40
+# taps for 12 live; 400 taps (too wide to stage); a stereo launch; 48k->8k.
+STRIDED_CASES = (
+    *((f"{a}->{b}{label}", (a, b), 8192, 2048, opts) for a, b in STRIDED_RATIOS
+      for label, opts in (("", {}), (" lane slice 517+1000", dict(lanes=1000, lane_offset=517)),
+                          (" p0=5 clamp_s16", dict(p0=5, clamp_s16=True)),
+                          (" p0=5 clamped tail", dict(p0=5, cut=40)))),
+    ("96k->48k state as ints p0=3 f0=65535", (96000, 48000), 8192, 2048,
+     dict(p0=3, f0=65535, ints=True)),
+    ("96k->48k T=40 (radius-17 reserve, 12 live)", (96000, 48000), 8192, 2048,
+     dict(max_taps=40)),
+    ("96k->48k T=400 (unstaged)", (96000, 48000), 2048, 512, dict(max_taps=400)),
+    ("96k->48k one stereo stream", (96000, 48000), 4096, 2, {}),
+    ("48k->8k d=6", (48000, 8000), 2048, 512, dict(p0=1)),
+)
+# The wide kernel against its plain version, as STRIDED_CASES (cut: rows
+# 8d + 8 taken off x's end; flat: the flat LUT instead of the strided one):
+# 272 to 6016 taps, f0 at 0x8421 and 0xFFFF; 44.1k -> 262 and 44.1k -> 1000
+# are general ratios that resample_array sends to the wide kernel by width.
+WIDE_RATES = (("44.1k->132 taps 2008", (44100, 132), 64, 1024, dict(p0=7, f0=0x8421)),
+              ("44.1k->44 taps 6016", (44100, 44), 64, 256, dict(p0=3, f0=0x1111)),
+              ("96k->480", (96000, 480), 64, 1024, dict(p0=5)),
+              ("44.1k->262 taps 1016", (44100, 262), 64, 1024, dict(p0=9, f0=0x8421)),
+              ("44.1k->1000 taps 272", (44100, 1000), 512, 1024, dict(p0=2, f0=0xFFFF)))
+WIDE_CASES = (
+    *((f"{label}{more}", rates, n_out, lanes, dict(opts, **extra))
+      for label, rates, n_out, lanes, opts in WIDE_RATES
+      for more, extra in (("", {}), (" clamp_s16", dict(clamp_s16=True)),
+                          (" clamped tail", dict(cut=True)))),
+    ("44.1k->132 state as ints f0=0xFFFF", (44100, 132), 64, 1024,
+     dict(p0=4, f0=0xFFFF, ints=True)),
+    ("44.1k->132 flat LUT", (44100, 132), 64, 1024, dict(p0=7, f0=0x8421, flat=True)),
+    ("44.1k->132 lane slice 517+500", (44100, 132), 64, 1024, dict(lanes=500, lane_offset=517)),
+    ("44.1k->132 one stereo stream", (44100, 132), 256, 2, dict(f0=0x8421)),
+    ("44.1k->132 1024 frames x 512 lanes", (44100, 132), 1024, 512, {}),
+)
 # General-class ratios at taps 184, 248, 272, 312, 352 and 1016, and 2008:
 # the general kernel against the wide kernel across their crossover.
 CROSSOVER_RATES = ((44100, 1500), (44100, 1100), (44100, 1000), (44100, 850), (44100, 760),
@@ -219,6 +256,52 @@ def run_tiled_case(case, gen) -> tuple:
     return got, want, rows, rows_ref
 
 
+def _case_launch(case, gen, kind: str) -> tuple:
+    """(launch_case dict, x, state, the entry's arguments) of a STRIDED_CASES
+    or WIDE_CASES entry on the card."""
+    from clownresampler_tpu_torch.lowlevel import DeviceState
+
+    label, (a, b), n_out, lanes, opts = case
+    o = dict(opts)
+    c = launch_case(a, b, lanes, n_out, gen, p0=o.pop("p0", 0), f0=o.pop("f0", 0),
+                    max_taps=o.pop("max_taps", None))
+    if kind == "strided" and c["plan"]["kernel"] != "strided":
+        raise AssertionError(f"{label} is not a strided launch")
+    cut = o.pop("cut", 0)
+    cut = cut * c["d"] if kind == "strided" else (8 * c["d"] + 8 if cut else 0)
+    x = c["x"][: c["x"].shape[0] - cut]
+    state = c["state"]
+    if o.pop("ints", False):
+        state = DeviceState(int(state.position_integer), int(state.position_fractional),
+                            state.cfg)
+    args = dict(max_taps=c["max_taps"], n_out=n_out, d=c["d"], **o)
+    if kind == "wide":
+        args["table_strided"] = None if args.pop("flat", False) else c["table_strided"]
+    return c, x, state, args
+
+
+def run_strided_case(case, gen) -> tuple:
+    """(got, want, rows, rows_ref): one STRIDED_CASES launch through the
+    strided entry (the kernel) and its plain version, on the same inputs."""
+    from clownresampler_tpu_torch.ops import resample as rs
+
+    c, x, state, args = _case_launch(case, gen, "strided")
+    got, rows = rs.resample_strided_phases(c["table"], x, state, **args)
+    want, rows_ref = rs.resample_strided_reference(c["table"], x, state, **args)
+    return got, want, rows, rows_ref
+
+
+def run_wide_case(case, gen) -> tuple:
+    """(got, want, rows, rows_ref): one WIDE_CASES launch through the wide
+    entry (the kernels) and its plain version, on the same inputs."""
+    from clownresampler_tpu_torch.ops import resample as rs
+
+    c, x, state, args = _case_launch(case, gen, "wide")
+    got, rows = rs.resample_wide_taps(c["table"], x, state, **args)
+    want, rows_ref = rs.resample_wide_taps_reference(c["table"], x, state, **args)
+    return got, want, rows, rows_ref
+
+
 def _compare(results, kernel, name, got, want, rows=None, rows_ref=None):
     err = (got.long() - want.long()).abs().max().item()
     if err or got.dtype != want.dtype or got.shape != want.shape or (
@@ -230,9 +313,6 @@ def _compare(results, kernel, name, got, want, rows=None, rows_ref=None):
 def check_kernels(gen) -> dict:
     """Each kernel against its plain version on the same inputs on the card,
     exact equality over every frame of the launch (padding frames included)."""
-    from clownresampler_tpu_torch import fixedpoint as fx
-    from clownresampler_tpu_torch.configure import configure
-    from clownresampler_tpu_torch.lowlevel import make_device_state
     from clownresampler_tpu_torch.ops import resample as rs
 
     results = {name: [] for name in KERNELS}
@@ -247,38 +327,10 @@ def check_kernels(gen) -> dict:
         want, _ = rs.resample_uniform_lanes_general_reference(
             c["table"], c["x"], c["state"], **args)
         _compare(results, "general_mac_kernel", f"{a}->{b}", got, want)
-    for a, b in STRIDED_RATIOS:
-        # One x per ratio, sized for the largest p0; the clamped-tail case
-        # cuts it so that the last frames' windows clamp into the buffer.
-        c = launch_case(a, b, HEADLINE["lanes"], HEADLINE["n_out"], gen, p0=5)
-        if c["plan"]["kernel"] != "strided":
-            raise AssertionError(f"{a}->{b} is not a strided launch")
-        cfg = configure(a, b, max(a, b))
-        inc = fx.calculate_ratio(a, b)
-        cases = [(0, "", {}, c["x"]),
-                 (1, "lane slice", dict(lanes=1000, lane_offset=517), c["x"]),
-                 (5, "clamp_s16", dict(clamp_s16=True), c["x"]),
-                 (5, "clamped tail", {}, c["x"][: -40 * c["d"]])]
-        for p0, label, opts, x in cases:
-            state = make_device_state(p0, 0, cfg, inc, x.device)
-            args = dict(max_taps=c["max_taps"], n_out=c["n_out"], d=c["d"], **opts)
-            got, rows = rs.resample_strided_phases(c["table"], x, state, **args)
-            want, rows_ref = rs.resample_strided_reference(c["table"], x, state, **args)
-            _compare(results, "strided_mac_kernel", f"{a}->{b} d={c['d']} p0={p0} {label}",
-                     got, want, rows, rows_ref)
-    for (a, b), n_out, lanes, p0, f0 in WIDE_CASES:
-        c = launch_case(a, b, lanes, n_out, gen, p0=p0, f0=f0)
-        if c["max_taps"] <= 1024 and (a, b) != (44100, 262):
-            raise AssertionError(f"{a}->{b} is not a wide launch")
-        for label, opts, x in (("", {}, c["x"]), ("clamp_s16", dict(clamp_s16=True), c["x"]),
-                               ("clamped tail", {}, c["x"][: -8 * c["d"] - 8])):
-            args = dict(max_taps=c["max_taps"], n_out=n_out, d=c["d"],
-                        table_strided=c["table_strided"], **opts)
-            got, rows = rs.resample_wide_taps(c["table"], x, c["state"], **args)
-            want, rows_ref = rs.resample_wide_taps_reference(c["table"], x, c["state"], **args)
-            _compare(results, "wide_mac_kernel",
-                     f"{a}->{b} taps {c['max_taps']} {n_out}x{lanes} p0={p0} f0={f0} {label}",
-                     got, want, rows, rows_ref)
+    for case in STRIDED_CASES:
+        _compare(results, "strided_mac_kernel", case[0], *run_strided_case(case, gen))
+    for case in WIDE_CASES:
+        _compare(results, "wide_mac_kernel", case[0], *run_wide_case(case, gen))
     torch.cuda.synchronize()
     return results
 
@@ -349,13 +401,13 @@ def device_launches(fn) -> tuple:
 
 def time_kernels(gen) -> dict:
     """Per-launch device times, with each launch's bound (launch_bound): the
-    tiled entry, which is one kernel launch that computes its own geometry
-    (count_tiled_launches), against its plain version, at the headline
-    tiled launch; the general, strided and wide kernels alone and their
-    plain versions alone on the same precomputed inputs, and their entry
-    points (precompute included), at a 44.1k->8k general launch, the
-    96k->48k strided farm launch and the 44.1k->132 wide launch; then the
-    general kernel against the wide kernel from 184 to 2008 taps
+    tiled, strided and wide entries, each its kernel launches alone (they
+    compute their own geometry; count_entry_launches), against their plain
+    entries, at the headline tiled launch, the 96k->48k strided farm launch
+    (and the same at a 40-tap reserve) and the 44.1k->132 wide launch; the
+    general kernel alone and its plain version alone on the same precomputed
+    inputs, and its entry (precompute included), at a 44.1k->8k launch; then
+    the general kernel against the wide entry from 184 to 2008 taps
     (CROSSOVER_RATES), and the wide entry's time per frame against its
     launch size."""
     from clownresampler_tpu_torch.ops import _build
@@ -392,51 +444,42 @@ def time_kernels(gen) -> dict:
         shape=f"x ({g['x'].shape[0]}, 2048) int32, n_out {g['n_out']}, taps {g['max_taps']}",
     )
     s = launch_case(*STRIDED_FARM["rates"], 2048, HEADLINE["n_out"], gen)
-    rows, r0, k0, q0 = rs.strided_setup(s["table"], s["state"], max_taps=s["max_taps"],
-                                        n_out=s["n_out"], d=s["d"])
-    rl = rs.launch_rows(rows, s["x"].shape[0], s["max_taps"])
-    fpb = rs.strided_frames_per_block(s["d"], s["max_taps"])
     sargs = dict(max_taps=s["max_taps"], n_out=s["n_out"], d=s["d"])
+    strided_entry = lambda taps: (lambda: rs.resample_strided_phases(
+        s["table"], s["x"], s["state"], **dict(sargs, max_taps=taps))[0])
     out["strided_mac_kernel"] = dict(
-        ms=cuda_ms(lambda: _build.strided_mac(
-            s["x"], r0, k0, q0, n_out=s["n_out"], d=s["d"], lanes=2048, lane_offset=0,
-            frames_per_block=fpb, clamp_s16=False)),
-        plain_ms=cuda_ms(lambda: rs.mac_reference(
-            s["x"], rl, k0.expand(s["n_out"], -1), q0.expand(s["n_out"]), 2048, 0, False)),
-        entry_ms=cuda_ms(lambda: rs.resample_strided_phases(
+        ms=cuda_ms(strided_entry(s["max_taps"])),
+        plain_ms=cuda_ms(lambda: rs.resample_strided_reference(
             s["table"], s["x"], s["state"], **sargs)[0]),
-        reference_entry_ms=cuda_ms(lambda: rs.resample_strided_reference(
-            s["table"], s["x"], s["state"], **sargs)[0]),
-        frames_per_block=fpb, **launch_bound(s, 2048, peaks),
+        reserve40_ms=cuda_ms(strided_entry(40)),
+        stage=dict(zip(("frames", "window_rows"), rs.strided_stage_plan(s["d"], s["max_taps"]))),
+        **launch_bound(s, 2048, peaks, rows_out=True),
         shape=f"x ({s['x'].shape[0]}, 2048) int32, n_out {s['n_out']}, d {s['d']}, "
               f"taps {s['max_taps']}",
     )
+    k = out["strided_mac_kernel"]
+    k["reserve40_over_reserve16"] = k["reserve40_ms"] / k["ms"]
     crossover = {}
     for rates in CROSSOVER_RATES:
         for n_out, lanes in ((64, 1024), (1024, 512)):
             w = launch_case(*rates, lanes, n_out, gen, f0=0x4321)
             rl, kv, q = _precomputed(w)
-            wide_fn = lambda: _build.wide_mac(w["x"], rl, kv, q, lanes=lanes, lane_offset=0,
-                                              tap_block=rs.WIDE_TAP_BLOCK, clamp_s16=False)
+            wargs = dict(max_taps=w["max_taps"], n_out=n_out, d=w["d"],
+                         table_strided=w["table_strided"])
+            wide_fn = lambda: rs.resample_wide_taps(w["table"], w["x"], w["state"], **wargs)[0]
             general_fn = lambda: _build.general_mac(w["x"], rl, kv, q, lanes=lanes,
                                                     lane_offset=0, clamp_s16=False)
             if not torch.equal(wide_fn(), general_fn()):
                 raise AssertionError(f"wide and general kernels disagree at {rates}")
             key = f"{rates[0]}->{rates[1]} taps {w['max_taps']}, {n_out} frames x {lanes} lanes"
-            crossover[key] = dict(general_ms=cuda_ms(general_fn), wide_ms=cuda_ms(wide_fn))
+            crossover[key] = dict(general_kernel_ms=cuda_ms(general_fn),
+                                  wide_entry_ms=cuda_ms(wide_fn))
             if (rates, n_out) == ((44100, 132), 64):
-                wargs = dict(max_taps=w["max_taps"], n_out=n_out, d=w["d"],
-                             table_strided=w["table_strided"])
                 out["wide_mac_kernel"] = dict(
-                    ms=crossover[key]["wide_ms"],
-                    plain_ms=cuda_ms(lambda: rs.mac_reference(
-                        w["x"], rl, kv, q, lanes, 0, False,
-                        tap_block=rs.WIDE_REFERENCE_TAP_BLOCK), reps=5),
-                    entry_ms=cuda_ms(lambda: rs.resample_wide_taps(
-                        w["table"], w["x"], w["state"], **wargs)[0]),
-                    reference_entry_ms=cuda_ms(lambda: rs.resample_wide_taps_reference(
+                    ms=crossover[key]["wide_entry_ms"],
+                    plain_ms=cuda_ms(lambda: rs.resample_wide_taps_reference(
                         w["table"], w["x"], w["state"], **wargs)[0], reps=5),
-                    **launch_bound(w, lanes, peaks),
+                    **launch_bound(w, lanes, peaks, rows_out=True),
                     shape=f"x ({w['x'].shape[0]}, {lanes}) int32, n_out {n_out}, "
                           f"taps {w['max_taps']}")
     launch_frames = {}
@@ -453,20 +496,40 @@ def time_kernels(gen) -> dict:
                 wide_launch_frames_taps2008=launch_frames)
 
 
-def count_tiled_launches(gen) -> dict:
-    """The device activities of one tiled entry call at the headline launch
-    (torch.profiler): exactly one, the tiled kernel -- no precompute, no
-    copy -- and its device time."""
+# Entry -> the kernels one call may run on the card, in launch order: the
+# whole of the entry's device work (no precompute, no copy).
+ENTRY_KERNELS = {"tiled": ("tiled_mac_kernel",), "strided": ("strided_mac_kernel",),
+                 "wide": ("wide_mac_kernel", "wide_fold_kernel")}
+
+
+def count_entry_launches(gen) -> dict:
+    """The device activities of one call of the tiled, strided and wide
+    entries at their timed launches (torch.profiler): exactly their kernels
+    (ENTRY_KERNELS), one for tiled and strided, two for wide, and their
+    device time."""
     from clownresampler_tpu_torch.ops import resample as rs
 
     c = launch_case(*HEADLINE["rates"], HEADLINE["lanes"], HEADLINE["n_out"], gen)
-    args = dict(max_taps=c["max_taps"], n_out=c["n_out"], d=c["plan"]["d"],
-                cand=c["plan"]["cand"], table_strided=c["table_strided"])
-    names, device_ms = device_launches(
-        lambda: rs.resample_uniform_lanes_tiled(c["table"], c["x"], c["state"], **args))
-    if len(names) != 1 or "tiled_mac_kernel" not in names[0]:
-        raise AssertionError(f"one tiled entry call ran {names} on the card, not one kernel")
-    return dict(device_activities=names, kernel_ms=device_ms)
+    s = launch_case(*STRIDED_FARM["rates"], 2048, HEADLINE["n_out"], gen)
+    w = launch_case(44100, 132, 1024, 64, gen, f0=0x4321)
+    calls = {
+        "tiled": lambda: rs.resample_uniform_lanes_tiled(
+            c["table"], c["x"], c["state"], max_taps=c["max_taps"], n_out=c["n_out"],
+            d=c["plan"]["d"], cand=c["plan"]["cand"], table_strided=c["table_strided"]),
+        "strided": lambda: rs.resample_strided_phases(
+            s["table"], s["x"], s["state"], max_taps=s["max_taps"], n_out=s["n_out"], d=s["d"]),
+        "wide": lambda: rs.resample_wide_taps(
+            w["table"], w["x"], w["state"], max_taps=w["max_taps"], n_out=w["n_out"], d=w["d"],
+            table_strided=w["table_strided"]),
+    }
+    res = {}
+    for kind, fn in calls.items():
+        names, device_ms = device_launches(fn)
+        want = ENTRY_KERNELS[kind]
+        if len(names) != len(want) or any(sum(k in n for n in names) != 1 for k in want):
+            raise AssertionError(f"one {kind} entry call ran {names} on the card, not {want}")
+        res[kind] = dict(device_activities=names, kernel_ms=device_ms)
+    return res
 
 
 def run_goldens() -> list:
@@ -1024,7 +1087,7 @@ def main() -> int:
     timing = time_kernels(gen)
     phase("timing", nvidia_smi=smi, **timing)
     phase("scan_timing", nvidia_smi=smi, **time_scan(gen))
-    phase("tiled_entry_launches", nvidia_smi=smi, **count_tiled_launches(gen))
+    phase("entry_launches", nvidia_smi=smi, **count_entry_launches(gen))
 
     kernels = []
     for name, (kind, source, replaces) in KERNELS.items():

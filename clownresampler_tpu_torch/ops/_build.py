@@ -45,10 +45,12 @@ LIBRARIES = {
         "crt_general_mac": [_p, _i, _i, _i, _i, _p, _p, _p, _i, _i, _p, _i, _i, _p],
     }),
     "strided": ("strided_kernels.cu", {
-        "crt_strided_mac": [_p, _i, _i, _i, _i, _p, _i, _p, _p, _i, _i, _i, _p, _i, _i, _p],
+        "crt_strided_mac": [_p, _i, _i, _i, _i, _p, _i, _p, _i, _p, _p, _p, _p, _p, _p,
+                            _p, _i, _i, _i, _i, _i, _i, _i, _p, _p, _i, _i, _p],
     }),
     "wide": ("wide_kernels.cu", {
-        "crt_wide_mac": [_p, _i, _i, _i, _p, _p, _p, _i, _i, _i, _i, _p, _p, _i, _i, _p],
+        "crt_wide_mac": [_p, _i, _i, _i, _i, _p, _i, _p, _i, _p, _p, _p, _p, _p, _p,
+                         _p, _i, _p, _i, _i, _i, _i, _i, _i, _p, _p, _p, _p, _i, _i, _p],
     }),
 }
 
@@ -163,13 +165,16 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-# Lanes of one tiled_mac_kernel tile (32 threads x 4 lanes); its staged
-# window rows are this many ints.
+# Lanes of one staged tile of the tiled and strided kernels (32 threads x 4
+# lanes); a staged window row is this many ints.
 TILED_LANES = 128
-# The ConfigScalars fields the tiled kernel reads, in its argument order.
+# The ConfigScalars fields the kernels read, in their argument order.
 TILED_CONFIG_FIELDS = ("increment_hi", "increment_lo", "stretched_kernel_radius",
                        "stretched_kernel_radius_delta", "integer_stretched_kernel_radius",
                        "kernel_step_size")
+# Input rows of one staged run of wide_mac_kernel (wide_kernels.cu
+# WIDE_RUN_ROWS); 64 measured faster than 32 and 128 on the H100 (PERF.md).
+WIDE_RUN_ROWS = 64
 
 
 def tiled_shared_bytes(frames: int, win_rows: int, taps: int) -> int:
@@ -177,6 +182,19 @@ def tiled_shared_bytes(frames: int, win_rows: int, taps: int) -> int:
     a window of win_rows x TILED_LANES ints and its frames' taps, rows and
     reciprocals."""
     return 2 * 4 * (win_rows * TILED_LANES + frames * (taps + 2))
+
+
+def strided_shared_bytes(taps: int, win_rows: int) -> int:
+    """Dynamic shared memory of one strided_mac_kernel block: the tap vector
+    k0 (padded to a multiple of 4), its sum and 3 ints of padding, and two
+    stages of win_rows x TILED_LANES ints."""
+    return 4 * (-(-taps // 4) * 4 + 4 + 2 * win_rows * TILED_LANES)
+
+
+def wide_slots(taps: int) -> int:
+    """Partial-sum slots of one frame in wide_mac_kernel's scratch: the most
+    runs of WIDE_RUN_ROWS rows a window of ``taps`` rows can meet."""
+    return (taps + WIDE_RUN_ROWS - 2) // WIDE_RUN_ROWS + 1
 
 
 def _scalar_arg(v, x, name: str) -> tuple:
@@ -193,6 +211,31 @@ def _scalar_arg(v, x, name: str) -> tuple:
     return None, v
 
 
+def _geometry_args(x, p0, f0, cfg) -> list:
+    """The C entries' GeometryArgs: p0 and f0 (pointer, value) and the
+    pointers of TILED_CONFIG_FIELDS, which must be tensors on x's device."""
+    scalars = [_scalar_arg(getattr(cfg, f), x, f)[0] for f in TILED_CONFIG_FIELDS]
+    if None in scalars:
+        raise ValueError("the kernels read ConfigScalars as tensors on x's device")
+    return [*_scalar_arg(p0, x, "position_integer"), *_scalar_arg(f0, x, "position_fractional"),
+            *scalars]
+
+
+def _vec(x, lanes: int, lane_offset: int) -> int:
+    """1 when x, its rows and the lane slice are 4-lane aligned (the kernels'
+    16-byte path), else 0."""
+    return int(x.data_ptr() % 16 == 0 and x.shape[1] % 4 == 0 and lane_offset % 4 == 0
+               and lanes % 4 == 0)
+
+
+def _check_taps(x, max_taps: int, table_strided=None) -> None:
+    if table_strided is not None and table_strided.shape[1] != max_taps:
+        raise ValueError(f"strided table has {table_strided.shape[1]} taps, "
+                         f"launch has {max_taps}")
+    if not 0 < max_taps <= x.shape[0]:
+        raise ValueError(f"{max_taps} taps exceed the {x.shape[0]}-row input")
+
+
 def tiled_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int, lanes: int,
               lane_offset: int, frames_per_stage: int, win_rows: int,
               clamp_s16: bool) -> tuple:
@@ -207,24 +250,14 @@ def tiled_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int
     if table_strided is not None:
         tables["table_strided"] = (table_strided, 2)
     _check_tensors(x, lanes, lane_offset, **tables)
-    if table_strided is not None and table_strided.shape[1] != max_taps:
-        raise ValueError(f"strided table has {table_strided.shape[1]} taps, "
-                         f"launch has {max_taps}")
-    if not 0 < max_taps <= x.shape[0]:
-        raise ValueError(f"{max_taps} taps exceed the {x.shape[0]}-row input")
+    _check_taps(x, max_taps, table_strided)
     if frames_per_stage not in (8, 16, 32, 64) or win_rows < 0:
         raise ValueError(f"bad tiled stage: {frames_per_stage} frames, {win_rows} rows")
     smem = tiled_shared_bytes(frames_per_stage, win_rows, max_taps)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"tiled stages of {smem} bytes exceed {MAX_SHARED_BYTES} bytes "
                          f"of shared memory")
-    scalars = [_scalar_arg(getattr(cfg, f), x, f)[0] for f in TILED_CONFIG_FIELDS]
-    if None in scalars:
-        raise ValueError("the tiled kernel reads ConfigScalars as tensors on x's device")
-    p0_ptr, p0_val = _scalar_arg(p0, x, "position_integer")
-    f0_ptr, f0_val = _scalar_arg(f0, x, "position_fractional")
-    vec = (x.data_ptr() % 16 == 0 and x.shape[1] % 4 == 0 and lane_offset % 4 == 0
-           and lanes % 4 == 0)
+    geometry = _geometry_args(x, p0, f0, cfg)
     lib = library("resample")
     out = _out(n_out, lanes, clamp_s16, x.device)
     rows = torch.empty(n_out, dtype=torch.int32, device=x.device)
@@ -232,9 +265,9 @@ def tiled_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int
         tstr_ptr, tstr_rows = ((None, 0) if table_strided is None
                                else (table_strided.data_ptr(), table_strided.shape[0]))
         err = lib.crt_tiled_mac(
-            x.data_ptr(), x.shape[0], x.shape[1], lane_offset, lanes, p0_ptr, p0_val,
-            f0_ptr, f0_val, *scalars, table.data_ptr(), table.shape[0], tstr_ptr, tstr_rows,
-            n_out, max_taps, frames_per_stage, win_rows, int(vec), out.data_ptr(),
+            x.data_ptr(), x.shape[0], x.shape[1], lane_offset, lanes, *geometry,
+            table.data_ptr(), table.shape[0], tstr_ptr, tstr_rows, n_out, max_taps,
+            frames_per_stage, win_rows, _vec(x, lanes, lane_offset), out.data_ptr(),
             rows.data_ptr(), int(clamp_s16), x.device.index, _stream(x))
         _raise_on(err, "tiled_mac_kernel")
     return out, rows
@@ -256,53 +289,75 @@ def general_mac(x, rows, kv, q, *, lanes: int, lane_offset: int,
     return out
 
 
-def strided_shared_bytes(frames_per_block: int, d: int, taps: int) -> int:
-    """Dynamic shared memory of one strided_mac_kernel block: k0 plus the
-    staged window of (frames_per_block - 1)*d + taps rows x 32 lanes."""
-    return 4 * (taps + ((frames_per_block - 1) * d + taps) * 32)
-
-
-def strided_mac(x, r0, k0, q0, *, n_out: int, d: int, lanes: int, lane_offset: int,
-                frames_per_block: int, clamp_s16: bool) -> torch.Tensor:
-    """Launch strided_mac_kernel: frame n's window starts at r0[0] + n*d
-    (clamped into x), taps k0 (T,), reciprocal q0[0]; returns (n_out, lanes)
-    int32 (int16 if clamped)."""
-    _check_tensors(x, lanes, lane_offset, r0=(r0, 1), k0=(k0, 1), q0=(q0, 1))
-    t = k0.shape[0]
-    if r0.shape[0] < 1 or q0.shape[0] < 1 or not 0 < t <= x.shape[0] or d < 1:
-        raise ValueError(f"bad strided launch: r0 {tuple(r0.shape)}, q0 {tuple(q0.shape)}, "
-                         f"{t} taps over {x.shape[0]} rows, d {d}")
-    if strided_shared_bytes(frames_per_block, d, t) > MAX_SHARED_BYTES:
-        raise ValueError(f"strided window of {frames_per_block} frames at d {d}, {t} taps "
-                         f"exceeds {MAX_SHARED_BYTES} bytes of shared memory")
+def strided_mac(x, table, p0, f0, cfg, *, max_taps: int, n_out: int, d: int, lanes: int,
+                lane_offset: int, frames_per_tile: int, win_rows: int,
+                clamp_s16: bool) -> tuple:
+    """Launch strided_mac_kernel, which computes the launch's geometry itself
+    from the launch state (p0, f0: 0-dim int32 tensors on x's device, or
+    ints) and ``cfg`` (ConfigScalars on x's device): frame n's window starts
+    at r0 + n*d (clamped into x), its taps are frame 0's masked taps k0 from
+    the flat LUT ``table``. Tiles of ``frames_per_tile`` frames stage
+    ``win_rows`` rows each (0: read x directly). Returns (out (n_out, lanes)
+    int32 -- int16 if clamped --, rows (n_out,) int32, the unclamped first
+    window rows)."""
+    _check_tensors(x, lanes, lane_offset, table=(table, 1))
+    _check_taps(x, max_taps)
+    if d < 1 or frames_per_tile not in (8, 16, 32, 64) or win_rows < 0:
+        raise ValueError(f"bad strided launch: d {d}, {frames_per_tile} frames, "
+                         f"{win_rows} rows")
+    smem = strided_shared_bytes(max_taps, win_rows)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"strided stages of {smem} bytes exceed {MAX_SHARED_BYTES} bytes "
+                         f"of shared memory")
+    geometry = _geometry_args(x, p0, f0, cfg)
     lib = library("strided")
     out = _out(n_out, lanes, clamp_s16, x.device)
+    rows = torch.empty(n_out, dtype=torch.int32, device=x.device)
     if n_out:
         err = lib.crt_strided_mac(
-            x.data_ptr(), x.shape[0], x.shape[1], lane_offset, lanes, r0.data_ptr(), d,
-            k0.data_ptr(), q0.data_ptr(), n_out, t, frames_per_block, out.data_ptr(),
-            int(clamp_s16), x.device.index, _stream(x))
+            x.data_ptr(), x.shape[0], x.shape[1], lane_offset, lanes, *geometry,
+            table.data_ptr(), table.shape[0], n_out, max_taps, d, frames_per_tile, win_rows,
+            _vec(x, lanes, lane_offset), out.data_ptr(), rows.data_ptr(), int(clamp_s16),
+            x.device.index, _stream(x))
         _raise_on(err, "strided_mac_kernel")
-    return out
+    return out, rows
 
 
-def wide_mac(x, rows, kv, q, *, lanes: int, lane_offset: int, tap_block: int,
-             clamp_s16: bool) -> torch.Tensor:
-    """Launch wide_mac_kernel over ceil(T / tap_block) tap blocks into an
-    int32 scratch of partial sums, then wide_fold_kernel; returns (N, lanes)
-    int32 (int16 if clamped)."""
-    _check_launch(x, rows, kv, q, lanes, lane_offset)
-    n, t = kv.shape
-    if tap_block < 1 or n > 65535 or -(-lanes // 32) > 65535:
-        raise ValueError(f"bad wide launch: {n} frames, {lanes} lanes, tap block {tap_block}")
+def wide_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int, d: int,
+             lanes: int, lane_offset: int, clamp_s16: bool) -> tuple:
+    """Launch wide_mac_kernel, which computes each frame's geometry itself
+    from the launch state and ``cfg`` (as for tiled_mac) and sums each frame's
+    taps run by run of WIDE_RUN_ROWS input rows into an int32 scratch
+    (n_out, wide_slots(max_taps), lanes), with
+    each slot's sum of taps beside it, then wide_fold_kernel, which sums
+    each frame's slots and normalises. ``d``
+    (increment >> 16) only sizes the grid. Returns (out (n_out, lanes) int32 -- int16 if clamped --, rows
+    (n_out,) int32, the unclamped first window rows)."""
+    tables = {"table": (table, 1)}
+    if table_strided is not None:
+        tables["table_strided"] = (table_strided, 2)
+    _check_tensors(x, lanes, lane_offset, **tables)
+    _check_taps(x, max_taps, table_strided)
+    if n_out > 65535 or d < 0:
+        raise ValueError(f"bad wide launch: {n_out} frames, d {d}")
+    geometry = _geometry_args(x, p0, f0, cfg)
     lib = library("wide")
-    n_k = -(-t // tap_block)
-    partial = torch.empty((n_k, n, lanes), dtype=torch.int32, device=x.device)
-    out = _out(n, lanes, clamp_s16, x.device)
-    if n:
+    slots = wide_slots(max_taps)
+    # (n_out, slots, lanes) partial sums, then (n_out, slots) tap sums.
+    partial = torch.empty(n_out * slots * (lanes + 1), dtype=torch.int32, device=x.device)
+    out = _out(n_out, lanes, clamp_s16, x.device)
+    rows = torch.empty(n_out, dtype=torch.int32, device=x.device)
+    if n_out:
+        # Runs the input span can hold: the last frame's window starts at most
+        # (n_out - 1)(d + 1) rows after the first's.
+        runs_bound = -(-((n_out - 1) * (d + 1) + max_taps) // WIDE_RUN_ROWS) + 1
+        tstr_ptr, tstr_rows = ((None, 0) if table_strided is None
+                               else (table_strided.data_ptr(), table_strided.shape[0]))
         err = lib.crt_wide_mac(
-            x.data_ptr(), x.shape[1], lane_offset, lanes, rows.data_ptr(), kv.data_ptr(),
-            q.data_ptr(), n, t, tap_block, n_k, partial.data_ptr(), out.data_ptr(),
-            int(clamp_s16), x.device.index, _stream(x))
+            x.data_ptr(), x.shape[0], x.shape[1], lane_offset, lanes, *geometry,
+            table.data_ptr(), table.shape[0], tstr_ptr, tstr_rows, n_out, max_taps, slots,
+            runs_bound, _vec(x, lanes, lane_offset), partial.data_ptr(),
+            partial.data_ptr() + 4 * n_out * slots * lanes, out.data_ptr(),
+            rows.data_ptr(), int(clamp_s16), x.device.index, _stream(x))
         _raise_on(err, "wide_mac_kernel")
-    return out
+    return out, rows

@@ -6,8 +6,11 @@
 //     out[n,l] = trunc(acc * q / 2^15)            (optionally clamped to s16)
 //
 // bit-exactly as the C reference's inner loop does (clownresampler.h:1008-1033).
-// The helpers below are that arithmetic and the per-frame window geometry the
-// launch precompute computes (ops/resample.py); each source that includes this
+// The helpers below are that arithmetic, the per-frame window geometry and the
+// masked LUT taps that the launch precompute computes (ops/resample.py), read
+// from the launch state and ConfigScalars by pointer (GeometryArgs), and the
+// staging the kernels share: cp.async copies of 128-lane row tiles into
+// shared memory and 16-byte output stores. Each source that includes this
 // header is its own translation unit and shared library (ops/_build.py).
 
 #pragma once
@@ -44,22 +47,29 @@ struct LaunchGeometry {
     int radius, delta, int_radius, step;
 };
 
+// Where a kernel reads its LaunchGeometry: the launch state (pointer or
+// value) and the ConfigScalars fields, in the order every C entry takes them.
+struct GeometryArgs {
+    const int* p0_ptr;
+    int p0_val;
+    const int* f0_ptr;
+    int f0_val;
+    const int *inc_hi, *inc_lo, *radius, *delta, *int_radius, *step;
+};
+
 __device__ __forceinline__ int scalar_at(const int* p, int fallback) {
     return p ? __ldg(p) : fallback;
 }
 
-__device__ __forceinline__ LaunchGeometry read_geometry(
-        const int* p0_ptr, int p0_val, const int* f0_ptr, int f0_val, const int* inc_hi,
-        const int* inc_lo, const int* radius, const int* delta, const int* int_radius,
-        const int* step) {
+__device__ __forceinline__ LaunchGeometry read_geometry(const GeometryArgs& a) {
     LaunchGeometry g;
-    g.p0 = scalar_at(p0_ptr, p0_val);
-    g.f0 = scalar_at(f0_ptr, f0_val);
-    g.inc = (static_cast<long long>(__ldg(inc_hi)) << 16) + __ldg(inc_lo);
-    g.radius = __ldg(radius);
-    g.delta = __ldg(delta);
-    g.int_radius = __ldg(int_radius);
-    g.step = __ldg(step);
+    g.p0 = scalar_at(a.p0_ptr, a.p0_val);
+    g.f0 = scalar_at(a.f0_ptr, a.f0_val);
+    g.inc = (static_cast<long long>(__ldg(a.inc_hi)) << 16) + __ldg(a.inc_lo);
+    g.radius = __ldg(a.radius);
+    g.delta = __ldg(a.delta);
+    g.int_radius = __ldg(a.int_radius);
+    g.step = __ldg(a.step);
     return g;
 }
 
@@ -82,6 +92,106 @@ __device__ __forceinline__ FrameWindow frame_window(const LaunchGeometry& g, lon
     return w;
 }
 
+__device__ __forceinline__ int clamp_row(int row, int row_max) {
+    return min(max(row, 0), row_max);
+}
+
+// The LUT a launch reads its taps from: the flat table, or (tstr non-null)
+// its strided form (tstr_rows, T), one row of T taps per kernel_start.
+struct TapTable {
+    const int* table;
+    int table_size;
+    const int* tstr;
+    int tstr_rows, T;
+};
+
+// The strided table's row for a frame's kernel_start (null for the flat LUT).
+__device__ __forceinline__ const int* tap_row(const TapTable& tt, int kernel_start) {
+    return tt.tstr ? tt.tstr + static_cast<size_t>(min(max(kernel_start, 0), tt.tstr_rows - 1)) *
+                                   tt.T
+                   : nullptr;
+}
+
+// Masked tap j of a frame (launch precompute, clownresampler.h:1008-1021):
+// 0 past the frame's live taps, else the LUT at kernel_start + j*step
+// (clamped into the table) or row[j] of the strided table.
+__device__ __forceinline__ int lut_tap(const TapTable& tt, const int* row, int kernel_start,
+                                       int step, int j, int taps) {
+    if (j >= taps) return 0;
+    return row ? __ldg(row + j)
+               : __ldg(tt.table + min(max(kernel_start + j * step, 0), tt.table_size - 1));
+}
+
+// Asynchronous global -> shared copies (cp.async): 16 or 4 bytes, zero-filled
+// when !valid (src must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Lanes of one staged tile: 32 threads x 4 lanes, as 16-byte columns.
+constexpr int TILE_LANES = 128;
+constexpr int TILE_COLS = TILE_LANES / 4;
+
+// Start the copy of input rows [first, first + rows) x lanes [lane0, lane0 +
+// TILE_LANES) of the launch into win (rows x TILE_LANES ints), by `threads`
+// threads; lanes past the launch's are zero-filled. vec: x, L, lane_offset
+// and lanes are 4-lane aligned, so each column is one 16-byte copy.
+__device__ __forceinline__ void load_rows_async(const int* x, int L, int lane_offset, int lanes,
+                                                int vec, int first, int rows, int lane0,
+                                                int* win, int threads) {
+    const int chunks = rows * TILE_COLS;
+    for (int c = threadIdx.x; c < chunks; c += threads) {
+        const int r = c / TILE_COLS, col = c % TILE_COLS;
+        const int lane = lane0 + 4 * col;
+        const int* src = x + static_cast<size_t>(first + r) * L + lane_offset + lane;
+        int* dst = win + r * TILE_LANES + 4 * col;
+        if (vec) {
+            const bool ok = lane < lanes;
+            cp_async16(dst, ok ? src : x, ok);
+        } else {
+            for (int i = 0; i < 4; ++i) {
+                const bool ok = lane + i < lanes;
+                cp_async4(dst + i, ok ? src + i : x, ok);
+            }
+        }
+    }
+}
+
+template <typename OutT>
+__device__ __forceinline__ void store4(OutT* o, OutT v0, OutT v1, OutT v2, OutT v3);
+
+template <>
+__device__ __forceinline__ void store4<int32_t>(int32_t* o, int32_t v0, int32_t v1, int32_t v2,
+                                                int32_t v3) {
+    __stcs(reinterpret_cast<int4*>(o), make_int4(v0, v1, v2, v3));
+}
+
+template <>
+__device__ __forceinline__ void store4<int16_t>(int16_t* o, int16_t v0, int16_t v1, int16_t v2,
+                                                int16_t v3) {
+    const auto pack = [](int16_t a, int16_t b) {
+        return static_cast<int>(static_cast<uint16_t>(a) |
+                                (static_cast<unsigned>(static_cast<uint16_t>(b)) << 16));
+    };
+    __stcs(reinterpret_cast<int2*>(o), make_int2(pack(v0, v1), pack(v2, v3)));
+}
+
 // C 0x80000000 / sum (clownresampler.h:1025) with |sum| floored at 2, the
 // sign put back: the port's reciprocal_q31. |sum| < 2^31, so one unsigned
 // 32-bit division is exact.
@@ -100,6 +210,77 @@ __device__ __forceinline__ int32_t finish<int32_t>(int v) { return v; }
 template <>
 __device__ __forceinline__ int16_t finish<int16_t>(int v) {
     return static_cast<int16_t>(min(max(v, -0x7FFF), 0x7FFF));
+}
+
+// Frame n's four lanes from `lane` on, of an (N, lanes) output: normalise by
+// qn, clamp if OutT is int16, store (one 16- or 8-byte store when vec, else
+// per live lane).
+template <typename OutT>
+__device__ __forceinline__ void store_lanes(void* out, int lanes, int vec, int n, int lane,
+                                            int qn, int a0, int a1, int a2, int a3) {
+    const OutT v0 = finish<OutT>(mul_shift15(a0, qn)), v1 = finish<OutT>(mul_shift15(a1, qn));
+    const OutT v2 = finish<OutT>(mul_shift15(a2, qn)), v3 = finish<OutT>(mul_shift15(a3, qn));
+    OutT* o = static_cast<OutT*>(out) + static_cast<size_t>(n) * lanes + lane;
+    if (vec) {
+        store4<OutT>(o, v0, v1, v2, v3);
+        return;
+    }
+    o[0] = v0;
+    if (lane + 1 < lanes) o[1] = v1;
+    if (lane + 2 < lanes) o[2] = v2;
+    if (lane + 3 < lanes) o[3] = v3;
+}
+
+// ---------------------------------------------------------------------------
+// Host side: the launch's device and a persistent grid
+// ---------------------------------------------------------------------------
+
+constexpr int MAX_DEVICES = 64;
+
+inline int use_device(int device) {
+    int current = -1;
+    cudaError_t err = cudaGetDevice(&current);
+    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+    return static_cast<int>(err);
+}
+
+// Per-device cache of one kernel's persistent grid: its opt-in to the card's
+// shared memory and the SM count (set up once per device), the blocks an SM
+// holds (once per device and shared memory size).
+struct PersistentGrid {
+    int sms[MAX_DEVICES], smem[MAX_DEVICES], blocks[MAX_DEVICES];
+};
+
+// *grid = as many blocks of `threads` threads and `smem` bytes of dynamic
+// shared memory as fit on the card at once; returns a cudaError_t.
+template <typename Kernel>
+int persistent_grid(PersistentGrid& c, Kernel kernel, int threads, int smem, int device,
+                    int* grid) {
+    if (device < 0 || device >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+    cudaError_t err;
+    if (c.sms[device] == 0) {
+        // The opt-in covers what the card allows beside the static shared memory.
+        cudaFuncAttributes attr;
+        err = cudaFuncGetAttributes(&attr, kernel);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   227 * 1024 - static_cast<int>(attr.sharedSizeBytes));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        int n = 0;
+        err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        c.sms[device] = n;
+    }
+    if (c.smem[device] != smem || c.blocks[device] == 0) {
+        int blocks = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+        c.smem[device] = smem;
+        c.blocks[device] = blocks;
+    }
+    *grid = c.blocks[device] * c.sms[device];
+    return 0;
 }
 
 }  // namespace

@@ -45,8 +45,10 @@
 // Built by ops/_build.py with nvcc into a shared library with a plain C
 // interface; the Python wrappers check devices, dtypes, shapes and strides
 // before they pass pointers, and every entry returns cudaGetLastError().
-// The tap arithmetic (macc_trunc, mul_shift15, finish) and the window
-// geometry are in mac_common.cuh.
+// The tap arithmetic (macc_trunc, mul_shift15, finish), the window
+// geometry, the masked LUT taps, the cp.async staging, the output stores and
+// the persistent grid are in mac_common.cuh, shared with strided_kernels.cu
+// and wide_kernels.cu.
 
 #include <algorithm>
 
@@ -60,22 +62,12 @@ namespace {
 
 constexpr int TILED_THREADS = 256;                // 8 warps
 constexpr int TILED_WARPS = TILED_THREADS / 32;
-constexpr int TILED_LANES = 128;                  // lanes per tile: 32 threads x 4 lanes
-constexpr int TILED_COLS = TILED_LANES / 4;       // 16-byte columns of a staged row
-constexpr int TILED_MAX_DEVICES = 64;
 
 struct TiledParams {
     const int* x;
     int S, L, lane_offset, lanes;
-    const int* p0_ptr;
-    int p0_val;
-    const int* f0_ptr;
-    int f0_val;
-    const int *inc_hi, *inc_lo, *radius, *delta, *int_radius, *step;
-    const int* table;                 // flat LUT (table_size,)
-    int table_size;
-    const int* tstr;                  // strided LUT (tstr_rows, T), or null
-    int tstr_rows;
+    GeometryArgs geo;                 // launch state and ConfigScalars
+    TapTable tt;                      // flat LUT, or its strided form (tstr_rows, T)
     int N, T;                         // frames, taps
     int F, W;                         // frames per stage, staged window rows per stage
     int vec;                          // x, L, lane_offset, lanes 4-lane aligned: 16-byte path
@@ -84,12 +76,12 @@ struct TiledParams {
 };
 
 // One stage of a block's shared memory, in ints: the staged window
-// [W][TILED_LANES], the masked taps [F][T], the clamped rows [F], q [F].
+// [W][TILE_LANES], the masked taps [F][T], the clamped rows [F], q [F].
 __host__ __device__ inline int tiled_stage_ints(int F, int T, int W) {
-    return W * TILED_LANES + F * (T + 2);
+    return W * TILE_LANES + F * (T + 2);
 }
 
-// A tile: frames [n0, n0 + nb) x lanes [lane0, lane0 + TILED_LANES). Its
+// A tile: frames [n0, n0 + nb) x lanes [lane0, lane0 + TILE_LANES). Its
 // frames' clamped windows span input rows [first, first + rows); staged
 // when that span fits the W rows a stage holds, else read from x directly.
 struct Tile {
@@ -97,15 +89,11 @@ struct Tile {
     bool staged;
 };
 
-__device__ __forceinline__ int clamp_row(int row, int row_max) {
-    return min(max(row, 0), row_max);
-}
-
 __device__ __forceinline__ Tile tiled_tile(const TiledParams& P, const LaunchGeometry& g,
                                            int tile, int lane_tiles, int T, int row_max) {
     Tile t;
     const int stage = tile / lane_tiles;
-    t.lane0 = (tile - stage * lane_tiles) * TILED_LANES;
+    t.lane0 = (tile - stage * lane_tiles) * TILE_LANES;
     t.n0 = stage * P.F;
     t.nb = min(P.F, P.N - t.n0);
     t.first = clamp_row(frame_window(g, t.n0).row, row_max);
@@ -115,46 +103,11 @@ __device__ __forceinline__ Tile tiled_tile(const TiledParams& P, const LaunchGeo
     return t;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(d), "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Start the asynchronous copy of a staged tile's window rows into `win`;
-// lanes past the launch's are zero-filled.
+// Start the asynchronous copy of a staged tile's window rows into `win`.
 __device__ __forceinline__ void tiled_load_window(const TiledParams& P, const Tile& t, int* win) {
     if (!t.staged) return;
-    const int chunks = t.rows * TILED_COLS;
-    for (int c = threadIdx.x; c < chunks; c += TILED_THREADS) {
-        const int r = c / TILED_COLS, col = c % TILED_COLS;
-        const int lane = t.lane0 + 4 * col;
-        const int* src = P.x + static_cast<size_t>(t.first + r) * P.L + P.lane_offset + lane;
-        int* dst = win + r * TILED_LANES + 4 * col;
-        if (P.vec) {
-            const bool ok = lane < P.lanes;
-            cp_async16(dst, ok ? src : P.x, ok);
-        } else {
-            for (int i = 0; i < 4; ++i) {
-                const bool ok = lane + i < P.lanes;
-                cp_async4(dst + i, ok ? src + i : P.x, ok);
-            }
-        }
-    }
+    load_rows_async(P.x, P.L, P.lane_offset, P.lanes, P.vec, t.first, t.rows, t.lane0, win,
+                    TILED_THREADS);
 }
 
 // The tile's geometry (the launch precompute, ops/resample.py): each frame's
@@ -171,15 +124,9 @@ __device__ __forceinline__ void tiled_geometry(const TiledParams& P, const Launc
     const FrameWindow w = frame_window(g, t.n0 + f);
     int sum = 0;
     if (live) {
-        const int* srow = P.tstr ? P.tstr + static_cast<size_t>(
-            min(max(w.kernel_start, 0), P.tstr_rows - 1)) * T : nullptr;
+        const int* srow = tap_row(P.tt, w.kernel_start);
         for (int j = part; j < T; j += tpf) {
-            int v = 0;
-            if (j < w.taps) {
-                v = P.tstr ? __ldg(srow + j)
-                           : __ldg(P.table + min(max(w.kernel_start + j * g.step, 0),
-                                                 P.table_size - 1));
-            }
+            const int v = lut_tap(P.tt, srow, w.kernel_start, g.step, j, w.taps);
             kv[f * T + j] = v;
             sum += v;
         }
@@ -190,43 +137,6 @@ __device__ __forceinline__ void tiled_geometry(const TiledParams& P, const Launc
         rl[f] = clamp_row(w.row, row_max);
         if (t.lane0 == 0) P.rows_out[t.n0 + f] = w.row;
     }
-}
-
-template <typename OutT>
-__device__ __forceinline__ void store4(OutT* o, OutT v0, OutT v1, OutT v2, OutT v3);
-
-template <>
-__device__ __forceinline__ void store4<int32_t>(int32_t* o, int32_t v0, int32_t v1, int32_t v2,
-                                                int32_t v3) {
-    __stcs(reinterpret_cast<int4*>(o), make_int4(v0, v1, v2, v3));
-}
-
-template <>
-__device__ __forceinline__ void store4<int16_t>(int16_t* o, int16_t v0, int16_t v1, int16_t v2,
-                                                int16_t v3) {
-    const auto pack = [](int16_t a, int16_t b) {
-        return static_cast<int>(static_cast<uint16_t>(a) |
-                                (static_cast<unsigned>(static_cast<uint16_t>(b)) << 16));
-    };
-    __stcs(reinterpret_cast<int2*>(o), make_int2(pack(v0, v1), pack(v2, v3)));
-}
-
-// Frame n's four lanes from `lane` on: normalise, clamp if OutT is int16,
-// store (one 16- or 8-byte store on the vector path, else per live lane).
-template <typename OutT>
-__device__ __forceinline__ void tiled_store(const TiledParams& P, int n, int lane, int qn,
-                                            int a0, int a1, int a2, int a3) {
-    const OutT v0 = finish<OutT>(mul_shift15(a0, qn)), v1 = finish<OutT>(mul_shift15(a1, qn));
-    const OutT v2 = finish<OutT>(mul_shift15(a2, qn)), v3 = finish<OutT>(mul_shift15(a3, qn));
-    OutT* o = static_cast<OutT*>(P.out) + static_cast<size_t>(n) * P.lanes + lane;
-    if (P.vec) {
-        store4<OutT>(o, v0, v1, v2, v3);
-        return;
-    }
-    o[0] = v0;
-    if (lane + 1 < P.lanes) o[1] = v1;
-    if (lane + 2 < P.lanes) o[2] = v2;
-    if (lane + 3 < P.lanes) o[3] = v3;
 }
 
 // The multiply-accumulate of one tile: warp w takes frames w, w + 8, ...;
@@ -245,7 +155,7 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
         int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
         if (t.staged) {
             const int4* w =
-                reinterpret_cast<const int4*>(win) + (rl[f] - t.first) * TILED_COLS + tx;
+                reinterpret_cast<const int4*>(win) + (rl[f] - t.first) * TILE_COLS + tx;
             if (TT) {
 #pragma unroll
                 for (int j = 0; j < TT; j += 4) {
@@ -253,7 +163,7 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
                     const int kj[4] = {kk.x, kk.y, kk.z, kk.w};
 #pragma unroll
                     for (int i = 0; i < 4; ++i) {
-                        const int4 v = w[(j + i) * TILED_COLS];
+                        const int4 v = w[(j + i) * TILE_COLS];
                         a0 = macc_trunc(a0, v.x, kj[i]);
                         a1 = macc_trunc(a1, v.y, kj[i]);
                         a2 = macc_trunc(a2, v.z, kj[i]);
@@ -262,7 +172,7 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
                 }
             } else {
                 for (int j = 0; j < T; ++j) {
-                    const int4 v = w[j * TILED_COLS];
+                    const int4 v = w[j * TILE_COLS];
                     const int kj = k[j];
                     a0 = macc_trunc(a0, v.x, kj);
                     a1 = macc_trunc(a1, v.y, kj);
@@ -283,7 +193,7 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
                 if (live > 3) a3 = macc_trunc(a3, __ldg(xr + 3), kj);
             }
         }
-        tiled_store<OutT>(P, t.n0 + f, lane, q[f], a0, a1, a2, a3);
+        store_lanes<OutT>(P.out, P.lanes, P.vec, t.n0 + f, lane, q[f], a0, a1, a2, a3);
     }
 }
 
@@ -298,17 +208,16 @@ tiled_mac_kernel(const TiledParams P) {
     int* const smem = reinterpret_cast<int*>(smem4);
     const int T = TT ? TT : P.T;
     const int stage_ints = tiled_stage_ints(P.F, T, P.W);
-    const LaunchGeometry g = read_geometry(P.p0_ptr, P.p0_val, P.f0_ptr, P.f0_val, P.inc_hi,
-                                           P.inc_lo, P.radius, P.delta, P.int_radius, P.step);
+    const LaunchGeometry g = read_geometry(P.geo);
     const int row_max = max(P.S - T, 0);
-    const int lane_tiles = (P.lanes + TILED_LANES - 1) / TILED_LANES;
+    const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
     const int tiles = lane_tiles * ((P.N + P.F - 1) / P.F);
     int tile = blockIdx.x;
     if (tile >= tiles) return;
 
     // Stage b: window at smem + b * stage_ints, then taps, rows, q.
     auto win = [&](int b) { return smem + b * stage_ints; };
-    auto taps = [&](int b) { return win(b) + P.W * TILED_LANES; };
+    auto taps = [&](int b) { return win(b) + P.W * TILE_LANES; };
     auto rows = [&](int b) { return taps(b) + P.F * T; };
     auto recip = [&](int b) { return rows(b) + P.F; };
 
@@ -354,40 +263,18 @@ general_mac_kernel(const int* __restrict__ x, int S, int L, int lane_offset, int
 }
 
 // Persistent grid: as many blocks as fit on the card at this shared memory
-// size, at most one per tile. The opt-in to the card's shared memory and the
-// SM count are set up once per kernel and device, the occupancy once per
-// kernel, device and shared memory size.
+// size (persistent_grid, mac_common.cuh), at most one per tile.
 template <int TT, typename OutT>
 int launch_tiled(const TiledParams& P, int device, cudaStream_t stream) {
-    static int sms[TILED_MAX_DEVICES];
-    static int cached_smem[TILED_MAX_DEVICES], cached_blocks[TILED_MAX_DEVICES];
-    if (device < 0 || device >= TILED_MAX_DEVICES) {
-        return static_cast<int>(cudaErrorInvalidDevice);
-    }
+    static PersistentGrid cache;
     const int smem = 2 * tiled_stage_ints(P.F, TT ? TT : P.T, P.W) * static_cast<int>(sizeof(int));
-    cudaError_t err;
-    if (sms[device] == 0) {
-        err = cudaFuncSetAttribute(tiled_mac_kernel<TT, OutT>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        int n = 0;
-        err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        sms[device] = n;
-    }
-    if (cached_smem[device] != smem || cached_blocks[device] == 0) {
-        int blocks = 0;
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, tiled_mac_kernel<TT, OutT>,
-                                                            TILED_THREADS, smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
-        if (blocks < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-        cached_smem[device] = smem;
-        cached_blocks[device] = blocks;
-    }
-    const int lane_tiles = (P.lanes + TILED_LANES - 1) / TILED_LANES;
+    int blocks = 0;
+    const int err = persistent_grid(cache, tiled_mac_kernel<TT, OutT>, TILED_THREADS, smem,
+                                    device, &blocks);
+    if (err != 0) return err;
+    const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
     const long long tiles = static_cast<long long>(lane_tiles) * ((P.N + P.F - 1) / P.F);
-    const int grid = static_cast<int>(
-        std::min<long long>(tiles, static_cast<long long>(cached_blocks[device]) * sms[device]));
+    const int grid = static_cast<int>(std::min<long long>(tiles, blocks));
     tiled_mac_kernel<TT, OutT><<<grid, TILED_THREADS, smem, stream>>>(P);
     return static_cast<int>(cudaGetLastError());
 }
@@ -402,13 +289,6 @@ int launch_tiled_taps(const TiledParams& P, int device, cudaStream_t stream) {
         case 40: return launch_tiled<40, OutT>(P, device, stream);
         default: return launch_tiled<0, OutT>(P, device, stream);
     }
-}
-
-int use_device(int device) {
-    int current = -1;
-    cudaError_t err = cudaGetDevice(&current);
-    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-    return static_cast<int>(err);
 }
 
 template <typename OutT>
@@ -435,9 +315,10 @@ int crt_tiled_mac(const int* x, int S, int L, int lane_offset, int lanes, const 
                   void* stream) {
     const int err = use_device(device);
     if (err != 0) return err;
-    const TiledParams P{x, S, L, lane_offset, lanes, p0_ptr, p0_val, f0_ptr, f0_val,
-                        inc_hi, inc_lo, radius, delta, int_radius, step, table, table_size,
-                        tstr, tstr_rows, N, T, frames_per_stage, win_rows, vec, out, rows_out};
+    const GeometryArgs geo{p0_ptr, p0_val, f0_ptr, f0_val, inc_hi, inc_lo,
+                           radius, delta, int_radius, step};
+    const TiledParams P{x, S, L, lane_offset, lanes, geo, {table, table_size, tstr, tstr_rows, T},
+                        N, T, frames_per_stage, win_rows, vec, out, rows_out};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return clamp_s16 ? launch_tiled_taps<int16_t>(P, device, s)
                      : launch_tiled_taps<int32_t>(P, device, s);

@@ -2,102 +2,299 @@
 //
 // strided_mac_kernel replaces the Pallas kernels _kernel_strided and
 // _kernel_strided_partial (clownresampler_tpu/ops/pallas_resample.py:664,
-// :720). With a zero fractional increment the phase fraction is constant, so
-// one tap vector k0 (T,) and one 17.15 reciprocal q0 serve every frame of a
-// launch, and frame n's window starts at row r0 + n*d (clownresampler.h:
-// 1076-1078). The TPU kernels re-view x as (S/d, d*L) so that Mosaic sees
-// stride-1 aligned loads, fold the d phases in VMEM, and (the partial form)
-// split the phases across grid steps to fit the v5e's VMEM; none of that is
-// needed here. A block of F frames x LANE_TILE lanes stages the union of its
-// windows, rows [row(n0), row(n0 + F - 1) + T), in shared memory once with
-// coalesced row loads, keeps k0 there beside it, and each frame reads its
-// window at offset row(n) - row(n0): no per-frame rows array, no jitter, no
-// tap matrix.
+// :720) together with their setup (_strided_setup, :753, and the launch
+// precompute it calls): a strided entry is this one launch. With a zero
+// fractional increment the phase fraction is constant, so one tap vector k0
+// and one 17.15 reciprocal q0 serve every frame of a launch, and frame n's
+// window starts at row r0 + n*d (clownresampler.h:1076-1078). The TPU kernels
+// re-view x as (S/d, d*L) so that Mosaic sees stride-1 aligned loads, fold the
+// d phases in VMEM and (the partial form) split the phases across grid steps
+// for the v5e's VMEM; none of that is needed here.
+//
+// What bounds it on the H100: at the 96k -> 48k farm launch (d 2, 16 taps of
+// which 12 are live, 8192 frames x 2048 lanes) the bytes (the input read
+// once, the output written once) and the integer work (~5 operations a live
+// tap and lane; the per-term truncation rules out tensor cores) take the same
+// time, so the copy has to overlap the compute and the tap loop may spend
+// little beyond those 5 operations. What the design does about it:
+//  - Geometry inside: every block reads the launch state and ConfigScalars
+//    by pointer (read_geometry), takes frame 0's window (frame_window: r0,
+//    kernel_start, the live tap count) and builds k0 from the flat LUT and
+//    q0 = reciprocal_q31(sum k0) itself. No host sync, no precompute launch.
+//  - Live taps only, in registers: k0 is one vector for the launch, so each
+//    thread holds it in registers, and the tap loop is unrolled over the live
+//    count rounded up to 4 (a switch inside the kernel, 4-40 taps; the zero
+//    taps of the rounding are exact, trunc(x*0) = 0). A launch that reserves
+//    40 taps for 12 live ones does the work of 12. Past 40 live taps a
+//    generic loop reads k0 from shared memory.
+//  - 4 lanes a thread: 16-byte shared loads, 16- (int32) or 8-byte (int16)
+//    stores; odd lane slices and 2-lane launches take 4-byte copies and
+//    per-lane stores inside the kernel.
+//  - Overlap: persistent blocks walk tiles of F frames x 128 lanes (lane tile
+//    fastest) and double-buffer each tile's window, (F - 1)*d + live rows,
+//    with cp.async, so the next tile's copy runs under this tile's MACs.
+//    F comes from ops/resample.strided_stage_plan; a launch whose window
+//    does not fit shared memory (taps up to lowlevel.FAST_KERNEL_MAX_TAPS)
+//    reads x directly.
 //
 // Padding frames (past the caller's natural count, results discarded) have
 // their window start clamped into the buffer, row(n) = clamp(r0 + n*d, 0,
 // S - T), exactly as ops/resample.launch_rows clamps the other classes'
-// rows; the clamp is monotone, so a block's rows still span at most
-// (F - 1)*d + T.
-//
-// What bounds it: each staged row feeds about T/d frames, so a block reads
-// (F - 1)*d + T rows for F*T MACs; at the 96k -> 48k farm launch (d 2, T 16,
-// F 64) the input is read about 1.1 times and the MACs are ~5 integer
-// operations a tap on the CUDA cores (the per-term truncation rules out
-// tensor cores). The wrapper picks F from (d, T) so that the staged window
-// fits its shared-memory budget.
+// rows; the clamp is monotone, so a tile's rows still span at most
+// (F - 1)*d + live.
+
+#include <algorithm>
 
 #include "mac_common.cuh"
 
 namespace {
 
-// Window start of frame n, clamped so that [row, row + T) lies inside the
-// S-row input (hi = max(S - T, 0)).
-__device__ __forceinline__ int strided_row(long long r0, int n, int d, int hi) {
-    const long long r = r0 + static_cast<long long>(n) * d;
-    return static_cast<int>(r < 0 ? 0 : (r > hi ? hi : r));
+constexpr int STRIDED_THREADS = 256;              // 8 warps
+constexpr int STRIDED_WARPS = STRIDED_THREADS / 32;
+constexpr int STRIDED_MAX_UNROLL = 40;            // live taps held in registers
+
+struct StridedParams {
+    const int* x;
+    int S, L, lane_offset, lanes;
+    GeometryArgs geo;                 // launch state and ConfigScalars
+    TapTable tt;                      // the flat LUT
+    int N, T, d;                      // frames, reserved taps, stride
+    int F, W;                         // frames per tile, staged rows per stage (0: unstaged)
+    int vec;                          // x, L, lane_offset, lanes 4-lane aligned: 16-byte path
+    void* out;
+    int* rows_out;
+};
+
+// Shared memory, in ints: k0 padded to a multiple of 4, the tap sum (and 3
+// ints of padding, keeping what follows 16-byte aligned), two stages of W
+// rows x TILE_LANES.
+__host__ __device__ inline int strided_header_ints(int T) { return (T + 3) / 4 * 4 + 4; }
+
+__host__ __device__ inline int strided_shared_ints(int T, int W) {
+    return strided_header_ints(T) + 2 * W * TILE_LANES;
 }
 
-// grid (ceil(lanes / LANE_TILE), ceil(N / frames_per_block)),
-// block (LANE_TILE, FRAME_ROWS), dynamic shared memory
-// (T + ((frames_per_block - 1) * d + T) * LANE_TILE) ints. r0 and q0 are read
-// from device memory (one int each), so the launch needs no host sync.
-template <typename OutT>
-__global__ void __launch_bounds__(LANE_TILE * FRAME_ROWS)
-strided_mac_kernel(const int* __restrict__ x, int S, int L, int lane_offset, int lanes,
-                   const int* __restrict__ r0p, int d, const int* __restrict__ k0,
-                   const int* __restrict__ q0p, int N, int T, int frames_per_block,
-                   OutT* __restrict__ out) {
-    extern __shared__ int smem[];
-    int* s_k = smem;                                // [T]
-    int* s_win = smem + T;                          // [win rows][LANE_TILE]
-    const int hi = max(S - T, 0);
-    const long long r0 = __ldg(r0p);
-    const int n0 = blockIdx.y * frames_per_block;
-    const int nb = min(frames_per_block, N - n0);
-    const int first = strided_row(r0, n0, d, hi);
-    const int wr = strided_row(r0, n0 + nb - 1, d, hi) - first + T;   // <= S - first
-    const int lx = threadIdx.x;
-    const int l = blockIdx.x * LANE_TILE + lx;
-    const bool lane_ok = l < lanes;
+// The launch-wide geometry every block computes (frame 0's window).
+struct StridedLaunch {
+    long long r0;                     // frame 0's unclamped window row
+    int live, q, row_max;
+};
 
-    for (int t = threadIdx.y * LANE_TILE + lx; t < T; t += LANE_TILE * FRAME_ROWS) {
-        s_k[t] = __ldg(k0 + t);
-    }
-    const int* xcol = x + lane_offset + l;
-    for (int r = threadIdx.y; r < wr; r += FRAME_ROWS) {
-        s_win[r * LANE_TILE + lx] = lane_ok ? xcol[static_cast<size_t>(first + r) * L] : 0;
-    }
-    __syncthreads();
-    if (!lane_ok) return;
+// Window start of frame n, clamped so that [row, row + T) lies inside x.
+__device__ __forceinline__ int strided_row(const StridedLaunch& s, int n, int d) {
+    const long long r = s.r0 + static_cast<long long>(n) * d;
+    return static_cast<int>(r < 0 ? 0 : (r > s.row_max ? s.row_max : r));
+}
 
-    const int q = __ldg(q0p);
-    for (int f = threadIdx.y; f < nb; f += FRAME_ROWS) {
-        const int* w = s_win + (strided_row(r0, n0 + f, d, hi) - first) * LANE_TILE + lx;
-        int acc = 0;
-        for (int t = 0; t < T; ++t) {
-            acc = macc_trunc(acc, w[t * LANE_TILE], s_k[t]);
+// A tile: frames [n0, n0 + nb) x lanes [lane0, lane0 + TILE_LANES); its
+// frames read input rows [first, first + rows), staged when they fit W.
+struct StridedTile {
+    int n0, nb, lane0, first, rows;
+    bool staged;
+};
+
+__device__ __forceinline__ StridedTile strided_tile(const StridedParams& P,
+                                                    const StridedLaunch& s, int tile,
+                                                    int lane_tiles, int reads) {
+    StridedTile t;
+    const int stage = tile / lane_tiles;
+    t.lane0 = (tile - stage * lane_tiles) * TILE_LANES;
+    t.n0 = stage * P.F;
+    t.nb = min(P.F, P.N - t.n0);
+    t.first = strided_row(s, t.n0, P.d);
+    t.rows = strided_row(s, t.n0 + t.nb - 1, P.d) - t.first + reads;
+    t.staged = t.rows <= P.W;
+    return t;
+}
+
+// One frame's four lanes from its window, `reads` rows from w0 (16-byte
+// columns, `stride` columns a row): taps from registers (TT > 0, unrolled)
+// or from shared memory (TT == 0, `reads` = live).
+template <int TT>
+__device__ __forceinline__ void strided_taps(const int4* w0, int stride,
+                                             const int (&k)[TT ? TT : 1], const int* s_k,
+                                             int reads, int& a0, int& a1, int& a2, int& a3) {
+    if (TT) {
+#pragma unroll
+        for (int j = 0; j < TT; ++j) {
+            const int4 v = w0[j * stride];
+            a0 = macc_trunc(a0, v.x, k[j]);
+            a1 = macc_trunc(a1, v.y, k[j]);
+            a2 = macc_trunc(a2, v.z, k[j]);
+            a3 = macc_trunc(a3, v.w, k[j]);
         }
-        out[static_cast<size_t>(n0 + f) * lanes + l] = finish<OutT>(mul_shift15(acc, q));
+        return;
+    }
+    int j = 0;
+    for (; j + 4 <= reads; j += 4) {
+        const int4 kk = *reinterpret_cast<const int4*>(s_k + j);
+        const int kj[4] = {kk.x, kk.y, kk.z, kk.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const int4 v = w0[(j + i) * stride];
+            a0 = macc_trunc(a0, v.x, kj[i]);
+            a1 = macc_trunc(a1, v.y, kj[i]);
+            a2 = macc_trunc(a2, v.z, kj[i]);
+            a3 = macc_trunc(a3, v.w, kj[i]);
+        }
+    }
+    for (; j < reads; ++j) {
+        const int4 v = w0[j * stride];
+        a0 = macc_trunc(a0, v.x, s_k[j]);
+        a1 = macc_trunc(a1, v.y, s_k[j]);
+        a2 = macc_trunc(a2, v.z, s_k[j]);
+        a3 = macc_trunc(a3, v.w, s_k[j]);
+    }
+}
+
+// The MACs of one tile: warp w takes frames w, w + 8, ...; thread tx of a
+// warp takes lanes lane0 + 4tx .. + 3. The blocks of lane tile 0 write the
+// unclamped rows.
+template <int TT, typename OutT>
+__device__ __forceinline__ void strided_compute(const StridedParams& P, const StridedLaunch& s,
+                                                const StridedTile& t, const int (&k)[TT ? TT : 1],
+                                                const int* s_k, const int* win) {
+    const int tx = threadIdx.x & 31;
+    const int lane = t.lane0 + 4 * tx;
+    if (lane >= P.lanes) return;
+    for (int f = threadIdx.x >> 5; f < t.nb; f += STRIDED_WARPS) {
+        const int n = t.n0 + f;
+        const int row = strided_row(s, n, P.d);
+        if (t.lane0 == 0 && tx == 0) {
+            P.rows_out[n] = static_cast<int>(s.r0 + static_cast<long long>(n) * P.d);
+        }
+        int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+        if (t.staged) {
+            const int4* w0 = reinterpret_cast<const int4*>(win) + (row - t.first) * TILE_COLS + tx;
+            strided_taps<TT>(w0, TILE_COLS, k, s_k, s.live, a0, a1, a2, a3);
+        } else {
+            // A window too wide to stage: device memory, k0 from shared memory.
+            const int* xr = P.x + static_cast<size_t>(row) * P.L + P.lane_offset + lane;
+            const int live_lanes = min(4, P.lanes - lane);
+            for (int j = 0; j < s.live; ++j, xr += P.L) {
+                const int kj = s_k[j];
+                if (P.vec) {
+                    const int4 v = __ldg(reinterpret_cast<const int4*>(xr));
+                    a0 = macc_trunc(a0, v.x, kj);
+                    a1 = macc_trunc(a1, v.y, kj);
+                    a2 = macc_trunc(a2, v.z, kj);
+                    a3 = macc_trunc(a3, v.w, kj);
+                    continue;
+                }
+                a0 = macc_trunc(a0, __ldg(xr), kj);
+                if (live_lanes > 1) a1 = macc_trunc(a1, __ldg(xr + 1), kj);
+                if (live_lanes > 2) a2 = macc_trunc(a2, __ldg(xr + 2), kj);
+                if (live_lanes > 3) a3 = macc_trunc(a3, __ldg(xr + 3), kj);
+            }
+        }
+        store_lanes<OutT>(P.out, P.lanes, P.vec, n, lane, s.q, a0, a1, a2, a3);
+    }
+}
+
+// A persistent block's walk over the tiles with TT register taps (0: the
+// generic loop). Two stages: while a block computes one tile, the copy of
+// its next tile's window is in flight (cp.async). One barrier per tile.
+template <int TT, typename OutT>
+__device__ __forceinline__ void strided_run(const StridedParams& P, const StridedLaunch& s,
+                                            const int* s_k, int* stages) {
+    const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
+    const int tiles = lane_tiles * ((P.N + P.F - 1) / P.F);
+    int tile = blockIdx.x;
+    if (tile >= tiles) return;
+    int k[TT ? TT : 1];
+#pragma unroll
+    for (int j = 0; j < (TT ? TT : 1); ++j) k[j] = TT ? s_k[j] : 0;
+    const int reads = TT ? TT : s.live;
+    auto win = [&](int b) { return stages + b * P.W * TILE_LANES; };
+    auto load = [&](const StridedTile& t, int* w) {
+        if (t.staged) {
+            load_rows_async(P.x, P.L, P.lane_offset, P.lanes, P.vec, t.first, t.rows, t.lane0,
+                            w, STRIDED_THREADS);
+        }
+    };
+
+    StridedTile cur = strided_tile(P, s, tile, lane_tiles, reads);
+    load(cur, win(0));
+    cp_async_commit();
+    for (int b = 0;; b ^= 1) {
+        cp_async_wait_all();
+        __syncthreads();
+        const int next = tile + gridDim.x;
+        StridedTile nxt{};
+        if (next < tiles) {
+            nxt = strided_tile(P, s, next, lane_tiles, reads);
+            load(nxt, win(b ^ 1));
+        }
+        cp_async_commit();
+        strided_compute<TT, OutT>(P, s, cur, k, s_k, win(b));
+        if (next >= tiles) break;
+        cur = nxt;
+        tile = next;
     }
 }
 
 template <typename OutT>
-int launch_strided(const int* x, int S, int L, int lane_offset, int lanes, const int* r0,
-                   int d, const int* k0, const int* q0, int N, int T, int frames_per_block,
-                   void* out, cudaStream_t stream) {
-    const size_t win_rows = static_cast<size_t>(frames_per_block - 1) * d + T;
-    const size_t smem = (T + win_rows * LANE_TILE) * sizeof(int);
-    cudaError_t err = cudaFuncSetAttribute(strided_mac_kernel<OutT>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 block(LANE_TILE, FRAME_ROWS);
-    const dim3 grid((lanes + LANE_TILE - 1) / LANE_TILE,
-                    (N + frames_per_block - 1) / frames_per_block);
-    strided_mac_kernel<OutT><<<grid, block, smem, stream>>>(
-        x, S, L, lane_offset, lanes, r0, d, k0, q0, N, T, frames_per_block,
-        static_cast<OutT*>(out));
+__global__ void __launch_bounds__(STRIDED_THREADS, 2)
+strided_mac_kernel(const StridedParams P) {
+    extern __shared__ int4 smem4[];
+    int* const smem = reinterpret_cast<int*>(smem4);
+    const int kpad = strided_header_ints(P.T) - 4;
+    int* const s_k = smem;
+    int* const s_sum = smem + kpad;
+    int* const stages = smem + strided_header_ints(P.T);
+
+    // The launch's geometry: frame 0's window, k0 (zero past the live taps
+    // and up to kpad) and its sum, reduced by shuffles and a shared add.
+    const LaunchGeometry g = read_geometry(P.geo);
+    const FrameWindow w0 = frame_window(g, 0);
+    StridedLaunch s;
+    s.r0 = static_cast<long long>(w0.row);
+    s.live = min(max(w0.taps, 0), P.T);
+    s.row_max = max(P.S - P.T, 0);
+    if (threadIdx.x == 0) *s_sum = 0;
+    __syncthreads();
+    int sum = 0;
+    for (int j = threadIdx.x; j < kpad; j += STRIDED_THREADS) {
+        const int v = lut_tap(P.tt, nullptr, w0.kernel_start, g.step, j, s.live);
+        s_k[j] = v;
+        sum += v;
+    }
+    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if ((threadIdx.x & 31) == 0 && sum) atomicAdd(s_sum, sum);
+    __syncthreads();
+    s.q = reciprocal_q31(*s_sum);
+
+    // Unrolled over the live taps rounded up to 4, when that fits the
+    // reserved width (the rounding's rows must lie inside x).
+    const int rounded = (s.live + 3) / 4 * 4;
+    switch (rounded <= P.T ? rounded : 0) {
+        case 4: return strided_run<4, OutT>(P, s, s_k, stages);
+        case 8: return strided_run<8, OutT>(P, s, s_k, stages);
+        case 12: return strided_run<12, OutT>(P, s, s_k, stages);
+        case 16: return strided_run<16, OutT>(P, s, s_k, stages);
+        case 20: return strided_run<20, OutT>(P, s, s_k, stages);
+        case 24: return strided_run<24, OutT>(P, s, s_k, stages);
+        case 28: return strided_run<28, OutT>(P, s, s_k, stages);
+        case 32: return strided_run<32, OutT>(P, s, s_k, stages);
+        case 36: return strided_run<36, OutT>(P, s, s_k, stages);
+        case STRIDED_MAX_UNROLL: return strided_run<STRIDED_MAX_UNROLL, OutT>(P, s, s_k, stages);
+        default: return strided_run<0, OutT>(P, s, s_k, stages);
+    }
+}
+
+// Persistent grid (persistent_grid, mac_common.cuh), at most one block per tile.
+template <typename OutT>
+int launch_strided(const StridedParams& P, int device, cudaStream_t stream) {
+    static PersistentGrid cache;
+    const int smem = strided_shared_ints(P.T, P.W) * static_cast<int>(sizeof(int));
+    int blocks = 0;
+    const int err = persistent_grid(cache, strided_mac_kernel<OutT>, STRIDED_THREADS, smem,
+                                    device, &blocks);
+    if (err != 0) return err;
+    const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
+    const long long tiles = static_cast<long long>(lane_tiles) * ((P.N + P.F - 1) / P.F);
+    const int grid = static_cast<int>(std::min<long long>(tiles, blocks));
+    strided_mac_kernel<OutT><<<grid, STRIDED_THREADS, smem, stream>>>(P);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -105,17 +302,21 @@ int launch_strided(const int* x, int S, int L, int lane_offset, int lanes, const
 
 extern "C" {
 
-int crt_strided_mac(const int* x, int S, int L, int lane_offset, int lanes, const int* r0,
-                    int d, const int* k0, const int* q0, int N, int T, int frames_per_block,
-                    void* out, int clamp_s16, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
+int crt_strided_mac(const int* x, int S, int L, int lane_offset, int lanes, const int* p0_ptr,
+                    int p0_val, const int* f0_ptr, int f0_val, const int* inc_hi,
+                    const int* inc_lo, const int* radius, const int* delta,
+                    const int* int_radius, const int* step, const int* table, int table_size,
+                    int N, int T, int d, int frames_per_tile, int win_rows, int vec, void* out,
+                    int* rows_out, int clamp_s16, int device, void* stream) {
+    const int err = use_device(device);
+    if (err != 0) return err;
+    const GeometryArgs geo{p0_ptr, p0_val, f0_ptr, f0_val, inc_hi, inc_lo,
+                           radius, delta, int_radius, step};
+    const StridedParams P{x, S, L, lane_offset, lanes, geo, {table, table_size, nullptr, 0, T},
+                          N, T, d, frames_per_tile, win_rows, vec, out, rows_out};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return clamp_s16
-        ? launch_strided<int16_t>(x, S, L, lane_offset, lanes, r0, d, k0, q0, N, T,
-                                  frames_per_block, out, s)
-        : launch_strided<int32_t>(x, S, L, lane_offset, lanes, r0, d, k0, q0, N, T,
-                                  frames_per_block, out, s);
+    return clamp_s16 ? launch_strided<int16_t>(P, device, s)
+                     : launch_strided<int32_t>(P, device, s);
 }
 
 }  // extern "C"

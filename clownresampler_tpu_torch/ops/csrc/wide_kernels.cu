@@ -2,96 +2,287 @@
 //
 // wide_mac_kernel and its fold epilogue wide_fold_kernel replace the Pallas
 // kernels _kernel_wide_taps and _kernel_wide_taps_pipelined
-// (clownresampler_tpu/ops/pallas_resample.py:1074, :1158). Those keep x in
-// HBM, DMA each 8-frame group's union window into VMEM (double-buffered in
-// the pipelined form) and put the tap axis on the sequential grid so that
-// Mosaic's live vector temporaries stay bounded. What carries over is the
-// split of the tap axis: the reference's tap sum is a plain sum of
-// independently truncated terms, so it may be cut into n_k blocks of
-// tap_block taps, summed separately and folded in a fixed order, exactly.
+// (clownresampler_tpu/ops/pallas_resample.py:1074, :1158) together with the
+// launch precompute they read (precompute_launch, :61): a wide entry is these
+// two launches. The TPU kernels keep x in HBM, DMA each 8-frame group's union
+// window into VMEM (double-buffered in the pipelined form) and put the tap
+// axis on the sequential grid. What carries over is the split of the tap
+// axis: the reference's tap sum is a plain sum of independently truncated
+// terms, so it may be cut into pieces, summed separately and folded, exactly
+// (|x| <= 2^15 and k <= 2^16 bound each term by 2^15, and T <= 6016 keeps
+// every partial and total sum under 2^28).
 //
-// Why not the general kernel: at 64 frames x 1024 lanes x 2008 taps (the
-// 44.1k -> 132 launch) the general kernel has 2,048 warps, each with a
-// 2,008-step serial loop. Here the grid is (n_k, lane tiles, frame groups),
-// so the same launch has n_k times the warps, each with tap_block steps.
-// On the H100 that measured 3.4x faster there, and 2.5x at 1024 frames x
-// 512 lanes, where the general kernel already fills the card. With one tap
-// block the two kernels tie. An unroll pragma on the tap loop measured 2x
-// slower and is left out (PERF.md).
-//
-// Why no shared-memory window: at these ratios frames are d >= ~170 rows
-// apart (d = increment >> 16, ~T/6), so the union of a group's 8 windows
-// for one tap block spans 7*(d+1) + tap_block rows (2,473 rows, 317 KB at
-// 32 lanes for 44.1k -> 132), past the 227 KB a block can have, and the 8
-// frames' slices of one tap block do not overlap (d > tap_block), so a
-// staged window would share no row. Each warp reads its frame's rows
-// straight from device memory as coalesced 128-byte segments (the tap value
-// is a warp-wide broadcast); the row reuse between neighbouring frames
-// (each row feeds ~T/d frames) is left to L2, with the tap-block index the
-// fastest grid axis so that the blocks of one frame group run together.
-//
-// What bounds it: ~5 integer operations a tap on the CUDA cores and N*T*4
-// bytes of per-frame taps (the (N, T) matrix from the launch precompute),
-// read once; the partial sums cost n_k*N*lanes*4 bytes written and read.
+// What bounds it on the H100: at the 44.1k -> 132 launch (64 frames x 1024
+// lanes, 2008 taps, d = increment >> 16 = 334) the integer work, ~5
+// operations a live tap and lane (0.039 ms at the card's int32 rate, 0.028
+// for the bytes), over about 94 MB of input that each row feeds ~T/d = 6
+// frames of. Read per frame, those rows cross L2 six times;
+// a per-frame tap matrix adds N*T*4 bytes and a load a tap. So the work is
+// cut by input rows instead of by frames:
+//  - Runs: the launch's input span, from frame 0's window to the last
+//    frame's, is cut into runs of WIDE_RUN_ROWS consecutive rows. A work
+//    item is one run x 128 lanes. Persistent blocks walk the items (lane
+//    tile fastest) and double-buffer each run's rows (32 KB) in shared
+//    memory with cp.async, so each input row is read from device memory
+//    once, and the next run's copy runs under this run's MACs.
+//  - Every frame whose window meets the run (a binary search over the
+//    monotone window rows, by one thread while the block computes the run
+//    before) takes the meeting taps from the staged rows, one warp a frame,
+//    4 lanes a thread, one 16-byte shared load a tap. The warp's 32 threads
+//    read the frame's 64 tap values from the LUT at once (flat,
+//    kernel_start + j*step, or the strided table's row) into a shared row
+//    that the tap loop reads 4 at a time; no (N, T) tap matrix exists.
+//  - The frame's partial sum for the run goes to slot k = run - (the
+//    frame's first run) of an (N, K, lanes) int32 scratch, and the sum of
+//    the taps it used to an (N, K) one: each (frame, run) pair that meets
+//    is written once by one warp, with no atomics, and the fold reads
+//    exactly the slots its geometry says were written, so the scratch needs
+//    no zeroing and the result does not depend on the order.
+//  - wide_fold_kernel sums each frame's slots and tap sums, takes q from
+//    the tap total (reciprocal_q31) and writes the normalised (and, for
+//    int16, clamped) output and the frame's unclamped row.
+// Geometry (read_geometry, frame_window, the masked LUT taps) is computed
+// inside both kernels from the launch state and ConfigScalars by pointer: no
+// host sync and no precompute launch.
+
+#include <algorithm>
 
 #include "mac_common.cuh"
 
 namespace {
 
-// grid (n_k, ceil(lanes / LANE_TILE), ceil(N / FRAME_ROWS)),
-// block (LANE_TILE, FRAME_ROWS): warp y sums frame blockIdx.z*8 + y's taps
-// [k*tap_block, min(T, (k+1)*tap_block)) into partial[k][n][l].
-// rows[n] + T <= S for every frame.
-__global__ void __launch_bounds__(LANE_TILE * FRAME_ROWS)
-wide_mac_kernel(const int* __restrict__ x, int L, int lane_offset, int lanes,
-                const int* __restrict__ rows, const int* __restrict__ kv, int N, int T,
-                int tap_block, int* __restrict__ partial) {
-    const int k = blockIdx.x;
-    const int l = blockIdx.y * LANE_TILE + threadIdx.x;
-    const int n = blockIdx.z * FRAME_ROWS + threadIdx.y;
-    if (l >= lanes || n >= N) return;
-    const int t0 = k * tap_block;
-    const int t1 = min(T, t0 + tap_block);
-    const int* xp = x + static_cast<size_t>(rows[n] + t0) * L + lane_offset + l;
-    const int* kp = kv + static_cast<size_t>(n) * T;
-    int acc = 0;
-    for (int t = t0; t < t1; ++t) {
-        acc = macc_trunc(acc, __ldg(xp), __ldg(kp + t));
-        xp += L;
+constexpr int WIDE_THREADS = 256;                 // 8 warps
+constexpr int WIDE_WARPS = WIDE_THREADS / 32;
+constexpr int WIDE_RUN_ROWS = 64;                 // ops/_build.WIDE_RUN_ROWS
+constexpr int WIDE_FOLD_THREADS = 256;
+
+struct WideParams {
+    const int* x;
+    int S, L, lane_offset, lanes;
+    GeometryArgs geo;                 // launch state and ConfigScalars
+    TapTable tt;                      // flat LUT, or its strided form (tstr_rows, T)
+    int N, T, K;                      // frames, taps, partial slots per frame
+    int vec;                          // x, L, lane_offset, lanes 4-lane aligned: 16-byte path
+    int* partial;                     // (N, K, lanes) partial sums
+    int* tap_sums;                    // (N, K) the slots' sums of taps
+    void* out;
+    int* rows_out;
+};
+
+// The launch's input span: runs of WIDE_RUN_ROWS rows from a0, the first
+// frame's clamped window row.
+struct WideSpan {
+    int a0, runs, row_max;
+};
+
+__device__ __forceinline__ int wide_row(const LaunchGeometry& g, const WideSpan& s, int n) {
+    return clamp_row(frame_window(g, n).row, s.row_max);
+}
+
+__device__ __forceinline__ WideSpan wide_span(const WideParams& P, const LaunchGeometry& g) {
+    WideSpan s;
+    s.row_max = max(P.S - P.T, 0);
+    s.a0 = wide_row(g, s, 0);
+    const int end = wide_row(g, s, P.N - 1) + P.T;
+    s.runs = (end - s.a0 + WIDE_RUN_ROWS - 1) / WIDE_RUN_ROWS;
+    return s;
+}
+
+// First frame in [0, N] whose clamped window row exceeds `bound` (the rows
+// are monotone in n).
+__device__ __forceinline__ int wide_first_frame(const WideParams& P, const LaunchGeometry& g,
+                                                const WideSpan& s, long long bound) {
+    int lo = 0, hi = P.N;
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (wide_row(g, s, mid) > bound) hi = mid; else lo = mid + 1;
     }
-    partial[(static_cast<size_t>(k) * N + n) * lanes + l] = acc;
+    return lo;
 }
 
-// grid (ceil(lanes / 256), N), block 256: out[n][l] = finish(mul_shift15(
-// sum_k partial[k][n][l], q[n])), the blocks summed in order k = 0..n_k-1.
+// The frames [n_lo, n_hi) that may meet run `run`: row + T > b0 (a superset
+// of the windows reaching the run) and row < b0 + WIDE_RUN_ROWS.
+__device__ __forceinline__ int2 wide_run_frames(const WideParams& P, const LaunchGeometry& g,
+                                                const WideSpan& s, int run) {
+    const int b0 = s.a0 + run * WIDE_RUN_ROWS;
+    return make_int2(wide_first_frame(P, g, s, static_cast<long long>(b0) - P.T),
+                     wide_first_frame(P, g, s, b0 + WIDE_RUN_ROWS - 1));
+}
+
+// The MACs of one item: run `run` (rows [b0, b0 + WIDE_RUN_ROWS)) x lanes
+// [lane0, lane0 + TILE_LANES), its rows staged in `win`. Warp w takes the
+// frames n_lo + w, n_lo + w + 8, ... < n_hi; its 32 threads read the frame's
+// taps j0 .. j1 - 1 from the LUT at once into the warp's `warp_taps` row,
+// and the tap loop reads them 4 at a time as a broadcast. The items of lane
+// tile 0 also write each slot's sum of taps.
+__device__ __forceinline__ void wide_compute(const WideParams& P, const LaunchGeometry& g,
+                                             const WideSpan& s, int run, int lane0,
+                                             int2 frames, const int* win, int* warp_taps) {
+    const int tx = threadIdx.x & 31;
+    const int lane = lane0 + 4 * tx;
+    const int b0 = s.a0 + run * WIDE_RUN_ROWS;
+    int* const kw = warp_taps + (threadIdx.x >> 5) * WIDE_RUN_ROWS;
+    for (int n = frames.x + (threadIdx.x >> 5); n < frames.y; n += WIDE_WARPS) {
+        const FrameWindow w = frame_window(g, n);
+        const int row = clamp_row(w.row, s.row_max);
+        const int live = min(max(w.taps, 0), P.T);
+        const int j0 = max(0, b0 - row);
+        const int j1 = min(live, b0 + WIDE_RUN_ROWS - row);
+        if (j0 >= j1) continue;   // warp-uniform
+        const int* srow = tap_row(P.tt, w.kernel_start);
+        int tsum = 0;
+        for (int j = tx; j < WIDE_RUN_ROWS; j += 32) {
+            const int k = lut_tap(P.tt, srow, w.kernel_start, g.step, j0 + j, j1);
+            kw[j] = k;
+            tsum += k;
+        }
+        __syncwarp();
+        const int4* wp = reinterpret_cast<const int4*>(win) + (row + j0 - b0) * TILE_COLS + tx;
+        int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
+        const auto tap = [&](int t, int k) {
+            const int4 v = wp[t * TILE_COLS];
+            a0 = macc_trunc(a0, v.x, k);
+            a1 = macc_trunc(a1, v.y, k);
+            a2 = macc_trunc(a2, v.z, k);
+            a3 = macc_trunc(a3, v.w, k);
+        };
+        const int c = j1 - j0;
+        int t = 0;
+        for (; t + 4 <= c; t += 4) {
+            const int4 kk = *reinterpret_cast<const int4*>(kw + t);
+            tap(t, kk.x);
+            tap(t + 1, kk.y);
+            tap(t + 2, kk.z);
+            tap(t + 3, kk.w);
+        }
+        for (; t < c; ++t) tap(t, kw[t]);
+        __syncwarp();   // the next frame rewrites kw
+        const int slot = run - (row - s.a0) / WIDE_RUN_ROWS;
+        if (lane0 == 0) {
+            for (int o = 16; o > 0; o >>= 1) tsum += __shfl_xor_sync(0xffffffffu, tsum, o);
+            if (tx == 0) P.tap_sums[static_cast<size_t>(n) * P.K + slot] = tsum;
+        }
+        if (lane >= P.lanes) continue;
+        int* o = P.partial + (static_cast<size_t>(n) * P.K + slot) * P.lanes + lane;
+        if (P.vec) {
+            *reinterpret_cast<int4*>(o) = make_int4(a0, a1, a2, a3);
+            continue;
+        }
+        o[0] = a0;
+        if (lane + 1 < P.lanes) o[1] = a1;
+        if (lane + 2 < P.lanes) o[2] = a2;
+        if (lane + 3 < P.lanes) o[3] = a3;
+    }
+}
+
+// Persistent blocks walk the items (run x lane tile, lane tile fastest). Two
+// stages: while a block computes one run, the copy of its next run's rows is
+// in flight (cp.async), and one thread of the last warp (the warp least
+// often given a frame) finds the next run's frames. One barrier per item.
+__global__ void __launch_bounds__(WIDE_THREADS)
+wide_mac_kernel(const WideParams P) {
+    extern __shared__ int4 smem4[];
+    __shared__ int2 s_frames[2];
+    __shared__ __align__(16) int s_taps[WIDE_WARPS * WIDE_RUN_ROWS];
+    int* const smem = reinterpret_cast<int*>(smem4);
+    const LaunchGeometry g = read_geometry(P.geo);
+    const WideSpan s = wide_span(P, g);
+    const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
+    const int items = s.runs * lane_tiles;
+    const bool finder = threadIdx.x == WIDE_THREADS - 32;
+    int item = blockIdx.x;
+    if (item >= items) return;
+    auto win = [&](int b) { return smem + b * WIDE_RUN_ROWS * TILE_LANES; };
+    auto load = [&](int it, int* w) {
+        const int run = it / lane_tiles;
+        const int b0 = s.a0 + run * WIDE_RUN_ROWS;
+        load_rows_async(P.x, P.L, P.lane_offset, P.lanes, P.vec, b0,
+                        min(WIDE_RUN_ROWS, P.S - b0), (it - run * lane_tiles) * TILE_LANES, w,
+                        WIDE_THREADS);
+    };
+
+    load(item, win(0));
+    cp_async_commit();
+    if (finder) s_frames[0] = wide_run_frames(P, g, s, item / lane_tiles);
+    for (int b = 0;; b ^= 1) {
+        cp_async_wait_all();
+        __syncthreads();
+        const int next = item + gridDim.x;
+        if (next < items) load(next, win(b ^ 1));
+        cp_async_commit();
+        if (finder && next < items) {
+            s_frames[b ^ 1] = wide_run_frames(P, g, s, next / lane_tiles);
+        }
+        const int run = item / lane_tiles;
+        wide_compute(P, g, s, run, (item - run * lane_tiles) * TILE_LANES, s_frames[b],
+                     win(b), s_taps);
+        if (next >= items) break;
+        item = next;
+    }
+}
+
+// grid (ceil(lanes / WIDE_FOLD_THREADS), N): out[n][l] = finish(mul_shift15(
+// sum of frame n's slots, q[n])), q[n] the reciprocal of the sum of its
+// slots' tap sums (its live taps); rows_out[n] its unclamped row.
 template <typename OutT>
-__global__ void wide_fold_kernel(const int* __restrict__ partial, int n_k, int N, int lanes,
-                                 const int* __restrict__ q, OutT* __restrict__ out) {
-    const int l = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(WIDE_FOLD_THREADS)
+wide_fold_kernel(const WideParams P) {
     const int n = blockIdx.y;
-    if (l >= lanes) return;
-    const size_t i = static_cast<size_t>(n) * lanes + l;
-    const size_t plane = static_cast<size_t>(N) * lanes;
-    int acc = 0;
-    for (int k = 0; k < n_k; ++k) acc += partial[k * plane + i];
-    out[i] = finish<OutT>(mul_shift15(acc, __ldg(q + n)));
+    const int l = blockIdx.x * WIDE_FOLD_THREADS + threadIdx.x;
+    const LaunchGeometry g = read_geometry(P.geo);
+    const WideSpan s = wide_span(P, g);
+    const FrameWindow w = frame_window(g, n);
+    if (blockIdx.x == 0 && threadIdx.x == 0) P.rows_out[n] = w.row;
+    if (l >= P.lanes) return;
+    const int row = clamp_row(w.row, s.row_max);
+    const int live = min(max(w.taps, 0), P.T);
+    const int slots = live > 0 ? (row + live - 1 - s.a0) / WIDE_RUN_ROWS -
+                                 (row - s.a0) / WIDE_RUN_ROWS + 1
+                               : 0;
+    const int* p = P.partial + static_cast<size_t>(n) * P.K * P.lanes + l;
+    const int* ts = P.tap_sums + static_cast<size_t>(n) * P.K;
+    // Sixteen independent loads in flight; the sums are exact in any order.
+    int acc[16] = {}, taps[16] = {};
+    int k = 0;
+    for (; k + 16 <= slots; k += 16) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+            acc[i] += __ldcs(p + static_cast<size_t>(k + i) * P.lanes);
+            taps[i] += __ldg(ts + k + i);
+        }
+    }
+    for (; k < slots; ++k) {
+        acc[0] += __ldcs(p + static_cast<size_t>(k) * P.lanes);
+        taps[0] += __ldg(ts + k);
+    }
+    int a = 0, t = 0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+        a += acc[i];
+        t += taps[i];
+    }
+    static_cast<OutT*>(P.out)[static_cast<size_t>(n) * P.lanes + l] =
+        finish<OutT>(mul_shift15(a, reciprocal_q31(t)));
 }
 
+// The MAC kernel on a persistent grid (persistent_grid, mac_common.cuh), at
+// most one block per item of the span bound `runs_bound` (the kernel walks
+// the span it computes, whatever the bound), then the fold.
 template <typename OutT>
-int launch_wide(const int* x, int L, int lane_offset, int lanes, const int* rows,
-                const int* kv, const int* q, int N, int T, int tap_block, int n_k,
-                int* partial, void* out, cudaStream_t stream) {
-    const dim3 block(LANE_TILE, FRAME_ROWS);
-    const dim3 grid(n_k, (lanes + LANE_TILE - 1) / LANE_TILE,
-                    (N + FRAME_ROWS - 1) / FRAME_ROWS);
-    wide_mac_kernel<<<grid, block, 0, stream>>>(x, L, lane_offset, lanes, rows, kv, N, T,
-                                                tap_block, partial);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int fold_threads = 256;
-    const dim3 fold_grid((lanes + fold_threads - 1) / fold_threads, N);
-    wide_fold_kernel<OutT><<<fold_grid, fold_threads, 0, stream>>>(
-        partial, n_k, N, lanes, q, static_cast<OutT*>(out));
+int launch_wide(const WideParams& P, int runs_bound, int device, cudaStream_t stream) {
+    static PersistentGrid cache;
+    const int smem = 2 * WIDE_RUN_ROWS * TILE_LANES * static_cast<int>(sizeof(int));
+    int blocks = 0;
+    int err = persistent_grid(cache, wide_mac_kernel, WIDE_THREADS, smem, device, &blocks);
+    if (err != 0) return err;
+    const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
+    const long long items = static_cast<long long>(lane_tiles) * runs_bound;
+    const int grid = static_cast<int>(std::max<long long>(1, std::min<long long>(items, blocks)));
+    wide_mac_kernel<<<grid, WIDE_THREADS, smem, stream>>>(P);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+    const dim3 fold_grid((P.lanes + WIDE_FOLD_THREADS - 1) / WIDE_FOLD_THREADS, P.N);
+    wide_fold_kernel<OutT><<<fold_grid, WIDE_FOLD_THREADS, 0, stream>>>(P);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -99,17 +290,22 @@ int launch_wide(const int* x, int L, int lane_offset, int lanes, const int* rows
 
 extern "C" {
 
-int crt_wide_mac(const int* x, int L, int lane_offset, int lanes, const int* rows,
-                 const int* kv, const int* q, int N, int T, int tap_block, int n_k,
-                 int* partial, void* out, int clamp_s16, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
+int crt_wide_mac(const int* x, int S, int L, int lane_offset, int lanes, const int* p0_ptr,
+                 int p0_val, const int* f0_ptr, int f0_val, const int* inc_hi, const int* inc_lo,
+                 const int* radius, const int* delta, const int* int_radius, const int* step,
+                 const int* table, int table_size, const int* tstr, int tstr_rows, int N, int T,
+                 int K, int runs_bound, int vec, int* partial, int* tap_sums,
+                 void* out, int* rows_out,
+                 int clamp_s16, int device, void* stream) {
+    const int err = use_device(device);
+    if (err != 0) return err;
+    const GeometryArgs geo{p0_ptr, p0_val, f0_ptr, f0_val, inc_hi, inc_lo,
+                           radius, delta, int_radius, step};
+    const WideParams P{x, S, L, lane_offset, lanes, geo, {table, table_size, tstr, tstr_rows, T},
+                       N, T, K, vec, partial, tap_sums, out, rows_out};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return clamp_s16
-        ? launch_wide<int16_t>(x, L, lane_offset, lanes, rows, kv, q, N, T, tap_block, n_k,
-                               partial, out, s)
-        : launch_wide<int32_t>(x, L, lane_offset, lanes, rows, kv, q, N, T, tap_block, n_k,
-                               partial, out, s);
+    return clamp_s16 ? launch_wide<int16_t>(P, runs_bound, device, s)
+                     : launch_wide<int32_t>(P, runs_bound, device, s);
 }
 
 }  // extern "C"

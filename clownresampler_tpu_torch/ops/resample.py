@@ -5,7 +5,8 @@ lane-major ``x (S, L) int32`` (sign-extended s16 samples) with L = streams x
 channels on the fast axis; every lane shares the launch's phase sequence, so
 the per-frame quantities (window row, masked LUT taps, 17.15 reciprocal) are
 computed once per launch and broadcast across lanes: inside the kernel for
-the tiled class, by ``precompute_launch`` (torch ops) for the others. What is
+the tiled, strided and wide classes, by ``precompute_launch`` (torch ops)
+for the general class and the plain versions. What is
 left is the dense multiply-accumulate with the C reference's per-term
 truncation, which the kernels in csrc/ perform.
 
@@ -19,11 +20,13 @@ Ratio classes (``plan_uniform``, then the tap width):
              ``general_mac_kernel`` reads each frame's window directly.
   strided -- exact integer strides (fraction 0, d >= 2, e.g. 96k->48k).
              One tap vector and one reciprocal serve the launch;
-             ``strided_mac_kernel`` stages each block's windows.
+             ``strided_mac_kernel`` computes them, holds the live taps in
+             registers and stages each tile's windows.
   wide    -- tap widths past 1024 (lowlevel.FAST_KERNEL_MAX_TAPS, e.g.
              44.1k->132), any increment, and general-class launches from
-             lowlevel.GENERAL_WIDE_MIN_TAPS taps. ``wide_mac_kernel`` splits
-             the tap axis across blocks and a fold kernel sums and
+             lowlevel.GENERAL_WIDE_MIN_TAPS taps. ``wide_mac_kernel`` stages
+             the input in runs of rows, each row read once for every frame
+             it feeds, and a fold kernel sums each frame's runs and
              normalises.
 
 Each entry point takes the tensor's device as the route: a CUDA tensor goes
@@ -53,17 +56,17 @@ FRAMES_PER_TILE = 8
 # the card's limit.
 TILED_STAGE_FRAMES = (64, 32, 16, 8)
 TILED_SHARED_BUDGET = 113 * 1024
-# strided_mac_kernel stages (F - 1)*d + T rows of 32 lanes per block; F is
-# the largest power of two up to 64 whose window fits this budget (48 KiB
-# keeps four 256-thread blocks on an SM), else 1 (strided_frames_per_block).
-STRIDED_MAX_FRAMES_PER_BLOCK = 64
-STRIDED_SHARED_BUDGET = 48 * 1024
-# Taps per wide_mac_kernel block: 96-128 measured fastest, or within 10% of
-# it, on the H100 from 352 to 6016 taps at 64 to 4096 frames (PERF.md).
-WIDE_TAP_BLOCK = 128
+# Frames per tile of a strided_mac_kernel block, in order of preference; a
+# stage's window spans (F - 1)*d + T rows of _build.TILED_LANES lanes.
+# strided_stage_plan takes the first whose two stages fit
+# STRIDED_SHARED_BUDGET (two blocks an SM), else the first that fits the
+# card's limit.
+STRIDED_STAGE_FRAMES = (32, 16, 8)
+STRIDED_SHARED_BUDGET = 113 * 1024
 # Bound on frames x taps of one wide launch (the dispatchers tile longer
-# emits, wide_launch_frames): the launch precompute's (N, T) tap matrix
-# costs N*T*4 bytes, 24.6 MB here (1024 frames at 6016 taps).
+# emits, wide_launch_frames): the plain version's (N, T) tap matrix costs
+# N*T*4 bytes, 24.6 MB here (1024 frames at 6016 taps), and the kernel's
+# partial sums N x _build.wide_slots(T) x lanes ints.
 WIDE_MAX_TAP_MATRIX = 1024 * 6016
 # Taps per step of the wide plain version's gather ((N, block, lanes) ints).
 WIDE_REFERENCE_TAP_BLOCK = 64
@@ -160,27 +163,34 @@ def tiled_stage_plan(d: int, cand: int, max_taps: int) -> tuple:
     return TILED_STAGE_FRAMES[-1], 0
 
 
-def tiled_frame_geometry(table, state, *, max_taps: int, n_out: int, s: int,
-                         table_strided=None):
-    """The tiled kernel's per-frame geometry in plain torch, with its int64
-    arithmetic (mac_common.cuh: frame_window, reciprocal_q31): positions in
-    closed form, exact for any n, where precompute_launch splits the
-    increment and is exact while n*lo stays in int32. Returns (rows,
-    clamped rows -- launch_rows over an S-row input --, masked taps (N, T),
-    q), all int32."""
+def _frame_windows(state, n: torch.Tensor) -> tuple:
+    """int64 (first window rows, LUT starts, live tap counts) of frames n
+    (int64), as mac_common.cuh frame_window computes them: positions in
+    closed form, exact for any n and any increment."""
     cfg = state.cfg
-    dev = table.device
-    i64 = lambda v: torch.as_tensor(v, device=dev).to(torch.int64)
-    n = torch.arange(n_out, dtype=torch.int64, device=dev)
+    i64 = lambda v: torch.as_tensor(v, device=n.device).to(torch.int64)
     t = i64(state.position_fractional) + n * ((i64(cfg.increment_hi) << 16)
                                               + i64(cfg.increment_lo))
     frac = t & 0xFFFF
     min_rel = (frac + i64(cfg.stretched_kernel_radius_delta) + 0xFFFF) >> 16
     max_rel = (frac + i64(cfg.stretched_kernel_radius)) >> 16
-    step = i64(cfg.kernel_step_size)
-    kernel_start = (step * ((min_rel << 16) - frac)) >> 16
+    kernel_start = (i64(cfg.kernel_step_size) * ((min_rel << 16) - frac)) >> 16
     taps = i64(cfg.integer_stretched_kernel_radius) + max_rel - min_rel
-    rows = (i64(state.position_integer) + (t >> 16) + min_rel).to(torch.int32)
+    return i64(state.position_integer) + (t >> 16) + min_rel, kernel_start, taps
+
+
+def frame_geometry(table, state, *, max_taps: int, n_out: int, s: int, table_strided=None):
+    """The per-frame geometry the tiled and wide kernels compute, in plain
+    torch with their int64 arithmetic (mac_common.cuh: frame_window,
+    lut_tap, reciprocal_q31), exact for any n and any increment, where
+    precompute_launch splits the increment and is exact while n*lo stays in
+    int32. Returns (rows, clamped rows -- launch_rows over an S-row input
+    --, masked taps (N, T), q), all int32."""
+    dev = table.device
+    rows, kernel_start, taps = _frame_windows(
+        state, torch.arange(n_out, dtype=torch.int64, device=dev))
+    rows = rows.to(torch.int32)
+    step = int(state.cfg.kernel_step_size)
     j = torch.arange(max_taps, dtype=torch.int64, device=dev)
     if table_strided is None:
         kv = table[(kernel_start[:, None] + j * step).clamp(0, table.shape[0] - 1)]
@@ -351,15 +361,33 @@ def strided_setup(table, state, *, max_taps: int, n_out: int, d: int):
     return rows, rows8[:1], kvals[0].contiguous(), q[:1]
 
 
-def strided_frames_per_block(d: int, max_taps: int) -> int:
-    """Frames per strided_mac_kernel block: the largest power of two up to
-    STRIDED_MAX_FRAMES_PER_BLOCK whose staged window fits
-    STRIDED_SHARED_BUDGET, else 1 (a single window, opted in up to the
-    card's limit)."""
-    f = STRIDED_MAX_FRAMES_PER_BLOCK
-    while f > 1 and _build.strided_shared_bytes(f, d, max_taps) > STRIDED_SHARED_BUDGET:
-        f //= 2
-    return f
+def strided_frame_geometry(table, state, *, max_taps: int, n_out: int, d: int, s: int):
+    """The geometry strided_mac_kernel computes, in plain torch with its int64
+    arithmetic: frame 0's window gives r0, the live tap count and the masked
+    taps k0 from the flat LUT (frame_geometry's frame 0), and rows[n] = r0 +
+    n*d. Returns (rows (n_out,), clamped rows -- launch_rows over an S-row
+    input --, live (an int: k0 is zero from there on, at most max_taps), k0
+    (max_taps,), q0 (1,) their 17.15 reciprocal), tensors int32."""
+    dev = table.device
+    r0, _, taps = _frame_windows(state, torch.zeros(1, dtype=torch.int64, device=dev))
+    _, _, k0, q0 = frame_geometry(table, state, max_taps=max_taps, n_out=1, s=s)
+    rows = (r0 + d * torch.arange(n_out, dtype=torch.int64, device=dev)).to(torch.int32)
+    live = min(max(int(taps[0]), 0), max_taps)
+    return rows, launch_rows(rows, s, max_taps), live, k0[0], q0
+
+
+@functools.lru_cache(maxsize=None)
+def strided_stage_plan(d: int, max_taps: int) -> tuple:
+    """(frames per tile, staged window rows) of a strided launch: the first
+    of STRIDED_STAGE_FRAMES whose window of (F - 1)*d + max_taps rows fits
+    two stages in STRIDED_SHARED_BUDGET, else the first within the card's
+    limit, else 8 frames reading x directly (0 rows)."""
+    for budget in (STRIDED_SHARED_BUDGET, _build.MAX_SHARED_BYTES):
+        for frames in STRIDED_STAGE_FRAMES:
+            rows = (frames - 1) * d + max_taps
+            if _build.strided_shared_bytes(max_taps, rows) <= budget:
+                return frames, rows
+    return STRIDED_STAGE_FRAMES[-1], 0
 
 
 def resample_strided_reference(
@@ -387,7 +415,12 @@ def resample_strided_phases(
     >= 2, e.g. 96k->48k). ``group`` is accepted for the JAX signature and has
     no effect. The caller pads x so that every real frame's window fits;
     padding frames' windows are clamped into x. Returns (out (n_out, lanes)
-    int32 -- int16 when ``clamp_s16`` -- and rows (n_out,))."""
+    int32 -- int16 when ``clamp_s16`` -- and rows (n_out,)).
+
+    On a CUDA card this is one launch of ``strided_mac_kernel``, which reads
+    the state's positions (0-dim device tensors or ints) and ``state.cfg``
+    from device memory and computes the launch's taps, reciprocal and rows
+    itself: no host sync and no precompute."""
     _check_x(x)
     if d < 2:
         raise ValueError(f"strided launches need d >= 2, got {d}")
@@ -396,10 +429,11 @@ def resample_strided_phases(
             table, x, state, max_taps=max_taps, n_out=n_out, d=d, clamp_s16=clamp_s16,
             lanes=lanes, lane_offset=lane_offset)
     lanes = _lane_range(x, lanes, lane_offset)
-    rows, r0, k0, q0 = strided_setup(table, state, max_taps=max_taps, n_out=n_out, d=d)
-    out = _build.strided_mac(
-        x, r0, k0, q0, n_out=n_out, d=d, lanes=lanes, lane_offset=lane_offset,
-        frames_per_block=strided_frames_per_block(d, max_taps), clamp_s16=clamp_s16)
+    frames, win_rows = strided_stage_plan(d, max_taps)
+    out, rows = _build.strided_mac(
+        x, table, state.position_integer, state.position_fractional, state.cfg,
+        max_taps=max_taps, n_out=n_out, d=d, lanes=lanes, lane_offset=lane_offset,
+        frames_per_tile=frames, win_rows=win_rows, clamp_s16=clamp_s16)
     ROUTES[("strided", "cuda")] += 1
     return out, rows
 
@@ -421,9 +455,10 @@ def resample_strided_phases_wide(
 # ---------------------------------------------------------------------------
 
 def wide_launch_frames(max_taps: int) -> int:
-    """Most frames a dispatcher gives one wide launch: its (N, T) tap matrix
-    stays within WIDE_MAX_TAP_MATRIX ints (1024 frames at 6016 taps, 24,064
-    at 256), in whole 8-frame tiles."""
+    """Most frames a dispatcher gives one wide launch: its frames x taps (the
+    plain version's (N, T) tap matrix, and N x ~T/64 partial sums in the
+    kernel's scratch) stay within WIDE_MAX_TAP_MATRIX (1024 frames at 6016
+    taps, 24,064 at 256), in whole 8-frame tiles."""
     return max(FRAMES_PER_TILE,
                WIDE_MAX_TAP_MATRIX // max_taps // FRAMES_PER_TILE * FRAMES_PER_TILE)
 
@@ -453,21 +488,24 @@ def resample_wide_taps(
 ):
     """Any-ratio resample for wide tap windows: the dispatchers send every
     width past 1024 (up to 6016 at radius 3007) and general-class widths
-    from lowlevel.GENERAL_WIDE_MIN_TAPS. ``d`` (increment >> 16) and
-    ``pipeline`` are accepted for the JAX signature and have no effect. Same
-    contract and return as the tiled entry; the dispatchers keep n_out <=
-    wide_launch_frames(max_taps)."""
+    from lowlevel.GENERAL_WIDE_MIN_TAPS. ``pipeline`` is accepted for the JAX
+    signature and has no effect; ``d`` (increment >> 16) only sizes the
+    kernel's grid. Same contract and return as the tiled entry; the
+    dispatchers keep n_out <= wide_launch_frames(max_taps).
+
+    On a CUDA card this is ``wide_mac_kernel`` and ``wide_fold_kernel``,
+    which compute each frame's geometry from the state and ``state.cfg`` in
+    device memory (no host sync, no precompute, no (N, T) tap matrix)."""
     _check_x(x)
     if _takes_reference(x, "wide"):
         return resample_wide_taps_reference(
             table, x, state, max_taps=max_taps, n_out=n_out, d=d, clamp_s16=clamp_s16,
             lanes=lanes, lane_offset=lane_offset, table_strided=table_strided)
     lanes = _lane_range(x, lanes, lane_offset)
-    rows, kvals, q, _eps, _tile_rows = precompute_launch(
-        table, state, max_taps=max_taps, n_out=n_out, table_strided=table_strided)
-    out = _build.wide_mac(
-        x, launch_rows(rows, x.shape[0], max_taps), kvals, q, lanes=lanes,
-        lane_offset=lane_offset, tap_block=WIDE_TAP_BLOCK, clamp_s16=clamp_s16)
+    out, rows = _build.wide_mac(
+        x, table, table_strided, state.position_integer, state.position_fractional, state.cfg,
+        max_taps=max_taps, n_out=n_out, d=d, lanes=lanes, lane_offset=lane_offset,
+        clamp_s16=clamp_s16)
     ROUTES[("wide", "cuda")] += 1
     return out, rows
 

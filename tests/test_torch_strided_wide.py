@@ -118,17 +118,20 @@ def test_torch_mac_reference_tap_blocks_agree():
 
 
 def test_torch_strided_block_geometry_fits_shared_memory():
-    """Every strided ratio the dispatchers send (taps <= 1024) gets a block
-    whose staged window fits the card's shared memory, within the budget
-    whenever more than one frame fits it."""
+    """Every strided ratio the dispatchers send (taps <= 1024) gets a stage
+    plan whose two stages fit the card's shared memory, within the budget
+    whenever the largest tile fits it; past the card's limit the launch
+    reads x directly."""
     for d in range(2, 200):
         for taps in range(8, 1025, 8):
-            f = rs.strided_frames_per_block(d, taps)
-            size = _build.strided_shared_bytes(f, d, taps)
+            f, rows = rs.strided_stage_plan(d, taps)
+            size = _build.strided_shared_bytes(taps, rows)
             assert size <= _build.MAX_SHARED_BYTES, (d, taps)
-            assert f == 1 or size <= rs.STRIDED_SHARED_BUDGET, (d, taps)
-            if f < rs.STRIDED_MAX_FRAMES_PER_BLOCK:
-                assert _build.strided_shared_bytes(2 * f, d, taps) > rs.STRIDED_SHARED_BUDGET
+            big = rs.STRIDED_STAGE_FRAMES[0]
+            if _build.strided_shared_bytes(taps, (big - 1) * d + taps) <= rs.STRIDED_SHARED_BUDGET:
+                assert (f, rows) == (big, (big - 1) * d + taps), (d, taps)
+            if rows == 0:
+                assert _build.strided_shared_bytes(taps, 7 * d + taps) > _build.MAX_SHARED_BYTES
 
 
 @pytest.mark.parametrize("taps,increment,kind", [
@@ -147,18 +150,18 @@ def test_torch_launch_kind_routes_wide_widths(taps, increment, kind):
 
 def test_torch_new_kernel_wrappers_refuse_cpu_tensors():
     """The strided and wide launchers never fall back: CPU tensors are
-    refused before any build is attempted."""
+    refused before any build is attempted (both take the launch state and
+    tables and compute their own geometry)."""
     _, p, m = _launch(96000, 48000, torch.device("cpu"))
-    rows, r0, k0, q0 = rs.strided_setup(p["table"], p["state"], max_taps=m["taps"], n_out=64,
-                                        d=2)
+    st = p["state"]
     with pytest.raises(ValueError, match="CUDA tensors"):
-        _build.strided_mac(p["x"], r0, k0, q0, n_out=64, d=2, lanes=128, lane_offset=0,
-                           frames_per_block=64, clamp_s16=False)
-    prow, kv, q, _, _ = rs.precompute_launch(p["table"], p["state"], max_taps=m["taps"],
-                                             n_out=64)
+        _build.strided_mac(p["x"], p["table"], st.position_integer, st.position_fractional,
+                           st.cfg, max_taps=m["taps"], n_out=64, d=2, lanes=128, lane_offset=0,
+                           frames_per_tile=32, win_rows=78, clamp_s16=False)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        _build.wide_mac(p["x"], prow, kv, q, lanes=128, lane_offset=0, tap_block=8,
-                        clamp_s16=False)
+        _build.wide_mac(p["x"], p["table"], p["tstr"], st.position_integer,
+                        st.position_fractional, st.cfg, max_taps=m["taps"], n_out=64, d=2,
+                        lanes=128, lane_offset=0, clamp_s16=False)
     with pytest.raises(ValueError, match="d >= 2"):
         rs.resample_strided_phases(p["table"], p["x"], p["state"], max_taps=m["taps"],
                                    n_out=64, d=1)

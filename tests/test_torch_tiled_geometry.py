@@ -1,6 +1,6 @@
 """The tiled kernel's launch geometry on the CPU.
 
-``ops.resample.tiled_frame_geometry`` is the plain mirror of the geometry the
+``ops.resample.frame_geometry`` is the plain mirror of the geometry the
 tiled kernel computes itself (int64 positions in closed form, window rows,
 masked taps, the 17.15 reciprocal, the padding-frame clamp). It is held
 against the launch precompute it replaces -- the port's ``precompute_launch``
@@ -60,7 +60,7 @@ def test_torch_tiled_frame_geometry_matches_precompute(d, cand, in_rate, strided
     for p0, f0, n_out in WHERE:
         c = _geometry_case(d, cand, in_rate, p0, f0, n_out)
         tstr = interop.table_from_numpy(c["tstr"], CPU) if strided else None
-        rows, clamped, kvals, q = rs.tiled_frame_geometry(
+        rows, clamped, kvals, q = rs.frame_geometry(
             table, c["state"], max_taps=c["taps"], n_out=n_out, s=c["s"], table_strided=tstr)
         want_rows, want_kv, want_q, _, _ = rs.precompute_launch(
             table, c["state"], max_taps=c["taps"], n_out=n_out, table_strided=tstr)
@@ -90,7 +90,7 @@ def test_torch_tiled_frame_geometry_exact_past_int32_split():
     n_out = 40000
     assert n_out * (inc & 0xFFFF) > 2**31
     table = interop.table_from_numpy(JMODEL.table(), CPU)
-    rows, _, _, _ = rs.tiled_frame_geometry(table, c["state"], max_taps=c["taps"],
+    rows, _, _, _ = rs.frame_geometry(table, c["state"], max_taps=c["taps"],
                                             n_out=n_out, s=1 << 20)
     cfg = jconfigure(CLASSES[-1][2], 48000, max(CLASSES[-1][2], 48000))
     t = 65535 + np.arange(n_out, dtype=np.int64) * inc
