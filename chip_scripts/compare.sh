@@ -1,11 +1,22 @@
 #!/bin/bash
 # Parent against change on one card, in one call:
-#     bash chip_scripts/compare.sh PARENT_DIR
+#     bash chip_scripts/compare.sh PARENT_DIR [FARM_PAIRS [FARM_CHECK_PAIRS]]
 # runs chip_smoke.py in PARENT_DIR (a `git archive` of the parent commit
 # inside the checkout, in a directory .gitignore lists), here, here again
 # and in PARENT_DIR again, each log into chiprun_out/{parent1,change1,
-# change2,parent2}.log; then the cuda-marked tests here.
-parent=${1:?usage: compare.sh PARENT_DIR}
+# change2,parent2}.log; then the cuda-marked tests here. Then FARM_PAIRS
+# (default 0) parent/change pairs of the headline and strided farms
+# (chip_smoke.FARM, chip_smoke.STRIDED_FARM), each run a fresh process and
+# the order alternating (parent, change, change, parent, ...), and
+# FARM_CHECK_PAIRS (default 0) more that first run chip_smoke.check_kernels
+# in the process, as chip_smoke.py does before its farms. Every farm call is
+# split into staging, the launch's host issue, the launch on the device's
+# clock (CUDA events from the end of staging) and the device-to-host copy;
+# one JSON line a farm run into chiprun_out/farm_ab.jsonl, and the medians
+# printed at the end.
+parent=${1:?usage: compare.sh PARENT_DIR [FARM_PAIRS [FARM_CHECK_PAIRS]]}
+farm_pairs=${2:-0}
+farm_check_pairs=${3:-0}
 mkdir -p chiprun_out
 nvidia-smi --query-gpu=name,power.limit,clocks.max.sm --format=csv,noheader
 run() {  # name dir
@@ -21,8 +32,100 @@ run parent2 "$parent"
 t0=$SECONDS
 JAX_PLATFORMS=cpu python3 -m pytest tests/test_torch_resample_ops.py tests/test_torch_strided_wide.py \
   tests/test_torch_scan.py tests/test_torch_tiled_kernel.py tests/test_torch_strided_wide_kernel.py \
+  tests/test_torch_general_kernel.py \
   -q -m cuda -p no:cacheprovider \
   > chiprun_out/cuda_tests.log 2>&1
 echo "cuda tests rc=$? seconds=$(( SECONDS - t0 ))"
 tail -n 2 chiprun_out/cuda_tests.log
 for f in parent1 change1 change2 parent2; do echo "== $f"; tail -n 3 chiprun_out/$f.log | cut -c1-600; done
+
+farm_run() {  # tree dir pre
+  (cd "$2" && python3 - "$1" "$3" <<'PY'
+import json, sys, time
+
+import numpy as np
+import torch
+
+import chip_smoke as cs
+from clownresampler_tpu_torch import farm as fm
+from clownresampler_tpu_torch.ops import _build
+
+tree, pre = sys.argv[1], sys.argv[2]
+_build.library("resample")
+if pre == "checks":
+    cs.check_kernels(torch.Generator(device="cuda").manual_seed(cs.SEED))
+calls = []
+U = fm.UniformStreamFarm
+
+
+def timed(name, fn, events=False):
+    def wrap(self, *a, **k):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if events else None
+        if ev:
+            ev[0].record()
+        t0 = time.perf_counter()
+        out = fn(self, *a, **k)
+        calls[-1][name] = 1e3 * (time.perf_counter() - t0)
+        if ev:
+            ev[1].record()
+            calls[-1]["events"] = ev
+        return out
+    return wrap
+
+
+def opened(fn):
+    def wrap(self, *a, **k):
+        calls.append({})
+        t0 = time.perf_counter()
+        out = fn(self, *a, **k)
+        calls[-1]["call_ms"] = 1e3 * (time.perf_counter() - t0)
+        return out
+    return wrap
+
+
+U._stage = timed("stage_ms", U._stage)
+U._launch = timed("launch_issue_ms", U._launch, events=True)
+U._to_host = timed("to_host_ms", U._to_host)
+U.process, U.flush = opened(U.process), opened(U.flush)
+for name, spec in (("headline", cs.FARM), ("strided", cs.STRIDED_FARM)):
+    calls.clear()
+    r = cs.run_uniform_farm(spec, np.random.default_rng(cs.SEED))
+    torch.cuda.synchronize()
+    for c in calls:
+        ev = c.pop("events", None)
+        c["launch_device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
+    print(json.dumps(dict(tree=tree, pre=pre, farm=name, msamples_per_s=r["msamples_per_s"],
+                          calls=calls[:-1])), flush=True)
+PY
+  ) >> chiprun_out/farm_ab.jsonl
+}
+rm -f chiprun_out/farm_ab.jsonl
+for ((i = 0; i < farm_pairs + farm_check_pairs; i++)); do
+  pre=$([ "$i" -lt "$farm_pairs" ] && echo none || echo checks)
+  if (( i % 2 )); then order="change parent"; else order="parent change"; fi
+  for tree in $order; do
+    dir=$([ "$tree" = parent ] && echo "$parent" || echo .)
+    farm_run "$tree" "$dir" "$pre" || echo "farm run $i $tree rc=$?"
+  done
+done
+if [ -s chiprun_out/farm_ab.jsonl ]; then
+  python3 - <<'PY'
+import json
+import statistics as st
+
+runs = [json.loads(ln) for ln in open("chiprun_out/farm_ab.jsonl")]
+keys = ("call_ms", "stage_ms", "launch_issue_ms", "launch_device_ms", "to_host_ms")
+for farm in ("headline", "strided"):
+    for pre in ("none", "checks"):
+        for tree in ("parent", "change"):
+            rs = [r for r in runs if (r["farm"], r["pre"], r["tree"]) == (farm, pre, tree)]
+            if not rs:
+                continue
+            steady = [c for r in rs for c in r["calls"][1:]]
+            med = {k: round(st.median(c[k] for c in steady), 3) for k in keys}
+            print(farm, pre, tree, "Msamples/s", [round(r["msamples_per_s"], 1) for r in rs],
+                  "median", round(st.median(r["msamples_per_s"] for r in rs), 1),
+                  "steady-call medians (ms)", med,
+                  "slowest call", max(steady, key=lambda c: c["call_ms"]))
+PY
+fi

@@ -15,10 +15,10 @@ tiled one with no host sync too), farm checkpoints restored on the card,
 and the CLI on the card -- checks that every launch of those paths took a
 CUDA kernel, checks their outputs against the gather oracle, the oracle
 scan, CPU replays and a golden md5, times the kernels beside their bounds,
-the farms and the scan, counts the device launches of one tiled, strided
-and wide entry call (one, one and two: each entry computes its own launch
-geometry), and prints one line per phase. It runs in under a minute of
-command time on an H100. Its last line is
+the farms and the scan, counts the device launches of one tiled, general,
+strided and wide entry call (one, one, one and two: each entry computes its
+own launch geometry), and prints one line per phase. It runs in under a
+minute of command time on an H100. Its last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -99,6 +99,44 @@ TILED_CASES = (
     ("92.6k->48k given cand=1", (92571, 48000), 2048, 512, dict(cand=1)),
     ("48k->44.1k one stereo stream", (48000, 44100), 4096, 2, {}),
 )
+# The general entry (tiled_mac_kernel) against its plain version, options
+# as TILED_CASES': d 2 (48k -> 22.05k, 16 taps), 4 (192k -> 44.1k, 32), 5
+# (44.1k -> 8k, 40), 6 (44.1k -> 7k), 11 (44.1k -> 4k, 72: past the
+# unrolled set) and 40 (44.1k -> 1100, 248: too wide to stage); f0 at 0,
+# 0x8421 and 0xFFFF; the state as ints; lane slices at 517 (the unaligned
+# path, staged and not); one stereo stream; the s16 clamp; clamped tails;
+# the flat LUT; 8 (narrower than the ratio, its surplus taps dropped
+# alike), 24, 48, 128 (staged at one block an SM) and 248 taps; a
+# 16,384-frame launch.
+GENERAL_CASES = (
+    ("44.1k->8k 4096 x 2048", (44100, 8000), 4096, 2048, {}),
+    ("44.1k->8k p0=1 f0=0x8421", (44100, 8000), 4096, 2048, dict(p0=1, f0=0x8421)),
+    ("44.1k->8k state as ints f0=0xFFFF", (44100, 8000), 4096, 2048,
+     dict(p0=3, f0=0xFFFF, ints=True)),
+    ("44.1k->8k clamp_s16", (44100, 8000), 4096, 2048, dict(clamp_s16=True)),
+    ("44.1k->8k lane slice 517+1000", (44100, 8000), 4096, 2048,
+     dict(lanes=1000, lane_offset=517)),
+    ("44.1k->8k clamped tail", (44100, 8000), 4096, 2048, dict(p0=2, cut=120)),
+    ("44.1k->8k flat LUT", (44100, 8000), 4096, 2048, dict(f0=0x8421, flat=True)),
+    ("44.1k->8k one stereo stream", (44100, 8000), 1536, 2, dict(f0=0xFFFF)),
+    ("44.1k->8k 16384 frames", (44100, 8000), 16384, 512, dict(p0=35651, f0=0xFFFF)),
+    ("44.1k->8k T=48 (generic tap loop)", (44100, 8000), 2048, 512, dict(max_taps=48)),
+    ("44.1k->8k T=128 (one block an SM)", (44100, 8000), 2048, 512, dict(max_taps=128)),
+    ("44.1k->8k T=248 lane slice 517+1000 (unstaged)", (44100, 8000), 1024, 2048,
+     dict(max_taps=248, lanes=1000, lane_offset=517)),
+    ("44.1k->7k d=6", (44100, 7000), 4096, 2048, dict(p0=1, f0=777)),
+    ("48k->22.05k d=2", (48000, 22050), 4096, 2048, {}),
+    ("48k->22.05k T=8", (48000, 22050), 4096, 2048, dict(max_taps=8, f0=0xFFFF)),
+    ("48k->22.05k T=24 clamp_s16 clamped tail", (48000, 22050), 4096, 2048,
+     dict(max_taps=24, clamp_s16=True, cut=60)),
+    ("192k->44.1k d=4", (192000, 44100), 4096, 2048, dict(f0=0x8421)),
+    ("192k->44.1k lane slice 517+1000 ints", (192000, 44100), 2048, 2048,
+     dict(lanes=1000, lane_offset=517, ints=True)),
+    ("44.1k->4k d=11 taps 72", (44100, 4000), 2048, 1024, dict(p0=5)),
+    ("44.1k->1100 d=40 taps 248 (unstaged)", (44100, 1100), 1024, 512, dict(f0=0x8421)),
+    ("44.1k->1100 flat LUT clamped tail", (44100, 1100), 512, 512,
+     dict(flat=True, cut=600)),
+)
 STRIDED_RATIOS = ((96000, 48000), (192000, 48000), (132300, 44100), (529200, 44100))
 # The strided kernel against its plain version: (label, rates, n_out, x
 # lanes, options), options as TILED_CASES' (cut: frames of d rows taken off
@@ -141,7 +179,7 @@ WIDE_CASES = (
     ("44.1k->132 1024 frames x 512 lanes", (44100, 132), 1024, 512, {}),
 )
 # General-class ratios at taps 184, 248, 272, 312, 352 and 1016, and 2008:
-# the general kernel against the wide kernel across their crossover.
+# the general entry against the wide entry across their crossover.
 CROSSOVER_RATES = ((44100, 1500), (44100, 1100), (44100, 1000), (44100, 850), (44100, 760),
                    (44100, 262), (44100, 132))
 # Config 7 (benchmarks/run_all.py:489-554): the whole-stream scan, 1024
@@ -166,14 +204,16 @@ DEVICE = "cuda"
 # SM count and the max SM clock that nvidia-smi reports.
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
-# Integer operations of one tap for one lane: multiply, sign shift, mask,
-# bias add, shift-add (mac_common.cuh macc_trunc).
-OPS_PER_TAP = 5
+# Integer instructions of one tap for one lane (mac_common.cuh macc_trunc):
+# multiply, sign shift, bias multiply-add, shift-add.
+OPS_PER_TAP = 4
 CSRC = "clownresampler_tpu_torch/ops/csrc/"
 PALLAS = "clownresampler_tpu/ops/pallas_resample.py"
 KERNELS = {  # name -> (ROUTES kind, source, TPU kernels it replaces)
     "tiled_mac_kernel": ("tiled", CSRC + "resample_kernels.cu", f"{PALLAS}:201, {PALLAS}:61"),
-    "general_mac_kernel": ("general", CSRC + "resample_kernels.cu", f"{PALLAS}:475"),
+    # The general entry launches tiled_mac_kernel too.
+    "tiled_mac_kernel/general": ("general", CSRC + "resample_kernels.cu",
+                                 f"{PALLAS}:475, {PALLAS}:61"),
     "strided_mac_kernel": ("strided", CSRC + "strided_kernels.cu",
                            f"{PALLAS}:664, {PALLAS}:720"),
     "wide_mac_kernel": ("wide", CSRC + "wide_kernels.cu", f"{PALLAS}:1074, {PALLAS}:1158"),
@@ -231,28 +271,48 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def run_tiled_case(case, gen) -> tuple:
-    """(got, want, rows, rows_ref): one TILED_CASES launch through the tiled
-    entry (the kernel) and its plain version, on the same inputs on the card."""
+def _lanes_case(case, gen, kind: str) -> tuple:
+    """(launch_case dict, x, state, the entry's arguments) of a TILED_CASES
+    or GENERAL_CASES entry on the card."""
     from clownresampler_tpu_torch.lowlevel import DeviceState
-    from clownresampler_tpu_torch.ops import resample as rs
 
     label, (a, b), n_out, lanes, opts = case
     o = dict(opts)
     c = launch_case(a, b, lanes, n_out, gen, p0=o.pop("p0", 0), f0=o.pop("f0", 0),
                     max_taps=o.pop("max_taps", None))
-    if c["plan"]["kernel"] != "tiled":
-        raise AssertionError(f"{label} is not a tiled launch")
+    if c["plan"]["kernel"] != kind:
+        raise AssertionError(f"{label} is not a {kind} launch")
     x = c["x"][: c["x"].shape[0] - o.pop("cut", 0)]
     state = c["state"]
     if o.pop("ints", False):
         state = DeviceState(int(state.position_integer), int(state.position_fractional),
                             state.cfg)
-    args = dict(max_taps=c["max_taps"], n_out=n_out, d=o.pop("d", c["plan"]["d"]),
-                cand=o.pop("cand", c["plan"]["cand"]),
-                table_strided=None if o.pop("flat", False) else c["table_strided"], **o)
+    args = dict(max_taps=c["max_taps"], n_out=n_out,
+                table_strided=None if o.pop("flat", False) else c["table_strided"])
+    if kind == "tiled":
+        args.update(d=o.pop("d", c["plan"]["d"]), cand=o.pop("cand", c["plan"]["cand"]))
+    return c, x, state, dict(args, **o)
+
+
+def run_tiled_case(case, gen) -> tuple:
+    """(got, want, rows, rows_ref): one TILED_CASES launch through the tiled
+    entry (the kernel) and its plain version, on the same inputs on the card."""
+    from clownresampler_tpu_torch.ops import resample as rs
+
+    c, x, state, args = _lanes_case(case, gen, "tiled")
     got, rows = rs.resample_uniform_lanes_tiled(c["table"], x, state, **args)
     want, rows_ref = rs.resample_uniform_lanes_tiled_reference(c["table"], x, state, **args)
+    return got, want, rows, rows_ref
+
+
+def run_general_case(case, gen) -> tuple:
+    """(got, want, rows, rows_ref): one GENERAL_CASES launch through the
+    general entry (the kernel) and its plain version, on the same inputs."""
+    from clownresampler_tpu_torch.ops import resample as rs
+
+    c, x, state, args = _lanes_case(case, gen, "general")
+    got, rows = rs.resample_uniform_lanes_general(c["table"], x, state, **args)
+    want, rows_ref = rs.resample_uniform_lanes_general_reference(c["table"], x, state, **args)
     return got, want, rows, rows_ref
 
 
@@ -313,34 +373,17 @@ def _compare(results, kernel, name, got, want, rows=None, rows_ref=None):
 def check_kernels(gen) -> dict:
     """Each kernel against its plain version on the same inputs on the card,
     exact equality over every frame of the launch (padding frames included)."""
-    from clownresampler_tpu_torch.ops import resample as rs
-
     results = {name: [] for name in KERNELS}
     for case in TILED_CASES:
         _compare(results, "tiled_mac_kernel", case[0], *run_tiled_case(case, gen))
-    for a, b in ((44100, 8000), (44100, 7000)):
-        c = launch_case(a, b, 2048, 4096, gen, p0=1, f0=777)
-        args = dict(max_taps=c["max_taps"], n_out=c["n_out"], table_strided=c["table_strided"])
-        if c["plan"]["kernel"] != "general":
-            raise AssertionError(f"{a}->{b} is not a general launch")
-        got, _ = rs.resample_uniform_lanes_general(c["table"], c["x"], c["state"], **args)
-        want, _ = rs.resample_uniform_lanes_general_reference(
-            c["table"], c["x"], c["state"], **args)
-        _compare(results, "general_mac_kernel", f"{a}->{b}", got, want)
+    for case in GENERAL_CASES:
+        _compare(results, "tiled_mac_kernel/general", case[0], *run_general_case(case, gen))
     for case in STRIDED_CASES:
         _compare(results, "strided_mac_kernel", case[0], *run_strided_case(case, gen))
     for case in WIDE_CASES:
         _compare(results, "wide_mac_kernel", case[0], *run_wide_case(case, gen))
     torch.cuda.synchronize()
     return results
-
-
-def _precomputed(c):
-    from clownresampler_tpu_torch.ops import resample as rs
-
-    rows, kv, q, _, _ = rs.precompute_launch(c["table"], c["state"], max_taps=c["max_taps"],
-                                             n_out=c["n_out"], table_strided=c["table_strided"])
-    return rs.launch_rows(rows, c["x"].shape[0], c["max_taps"]), kv, q
 
 
 def card_peaks() -> dict:
@@ -401,17 +444,16 @@ def device_launches(fn) -> tuple:
 
 def time_kernels(gen) -> dict:
     """Per-launch device times, with each launch's bound (launch_bound): the
-    tiled, strided and wide entries, each its kernel launches alone (they
-    compute their own geometry; count_entry_launches), against their plain
-    entries, at the headline tiled launch, the 96k->48k strided farm launch
-    (and the same at a 40-tap reserve) and the 44.1k->132 wide launch; the
-    general kernel alone and its plain version alone on the same precomputed
-    inputs, and its entry (precompute included), at a 44.1k->8k launch; then
-    the general kernel against the wide entry from 184 to 2008 taps
-    (CROSSOVER_RATES), and the wide entry's time per frame against its
-    launch size."""
-    from clownresampler_tpu_torch.ops import _build
+    tiled, general, strided and wide entries, each its kernel launches alone
+    (they compute their own geometry; count_entry_launches), against their
+    plain entries, at the headline tiled launch, a 44.1k->8k general launch,
+    the 96k->48k strided farm launch (and the same at a 40-tap reserve) and
+    the 44.1k->132 wide launch; then the general entry against the wide
+    entry from 184 to 2008 taps (CROSSOVER_RATES), and the wide entry's time
+    per frame against its launch size."""
     from clownresampler_tpu_torch.ops import resample as rs
+
+    from clownresampler_tpu_torch import fixedpoint as fx
 
     out = {}
     peaks = card_peaks()
@@ -425,22 +467,22 @@ def time_kernels(gen) -> dict:
         ms=cuda_ms(lambda: rs.resample_uniform_lanes_tiled(c["table"], c["x"], st, **args)[0]),
         plain_ms=cuda_ms(lambda: rs.resample_uniform_lanes_tiled_reference(
             c["table"], c["x"], st, **args)[0]),
-        stage=dict(zip(("frames", "window_rows"), rs.tiled_stage_plan(d, cand, c["max_taps"]))),
+        stage=dict(zip(("frames", "window_rows"),
+                       rs.stage_plan(c["max_taps"], rs.tiled_increment_bound(d, cand)))),
         **launch_bound(c, lanes, peaks, rows_out=True),
         shape=f"x ({c['x'].shape[0]}, {lanes}) int32, n_out {c['n_out']}, taps {c['max_taps']}",
     )
     g = launch_case(44100, 8000, 2048, 4096, gen)
-    rl, kv, q = _precomputed(g)
     gargs = dict(max_taps=g["max_taps"], n_out=g["n_out"], table_strided=g["table_strided"])
-    out["general_mac_kernel"] = dict(
-        ms=cuda_ms(lambda: _build.general_mac(g["x"], rl, kv, q, lanes=2048, lane_offset=0,
-                                              clamp_s16=False)),
-        plain_ms=cuda_ms(lambda: rs.mac_reference(g["x"], rl, kv, q, 2048, 0, False)),
-        entry_ms=cuda_ms(lambda: rs.resample_uniform_lanes_general(
+    frames, win_rows = rs.stage_plan(g["max_taps"], rs.GENERAL_MIN_INCREMENT)
+    out["tiled_mac_kernel/general"] = dict(
+        ms=cuda_ms(lambda: rs.resample_uniform_lanes_general(
             g["table"], g["x"], g["state"], **gargs)[0]),
-        reference_entry_ms=cuda_ms(lambda: rs.resample_uniform_lanes_general_reference(
+        plain_ms=cuda_ms(lambda: rs.resample_uniform_lanes_general_reference(
             g["table"], g["x"], g["state"], **gargs)[0]),
-        **launch_bound(g, 2048, peaks),
+        stage=dict(most_frames=frames, window_rows=win_rows, frames=rs.stage_frames(
+            fx.calculate_ratio(44100, 8000), frames, g["max_taps"], win_rows)),
+        **launch_bound(g, 2048, peaks, rows_out=True),
         shape=f"x ({g['x'].shape[0]}, 2048) int32, n_out {g['n_out']}, taps {g['max_taps']}",
     )
     s = launch_case(*STRIDED_FARM["rates"], 2048, HEADLINE["n_out"], gen)
@@ -463,16 +505,16 @@ def time_kernels(gen) -> dict:
     for rates in CROSSOVER_RATES:
         for n_out, lanes in ((64, 1024), (1024, 512)):
             w = launch_case(*rates, lanes, n_out, gen, f0=0x4321)
-            rl, kv, q = _precomputed(w)
             wargs = dict(max_taps=w["max_taps"], n_out=n_out, d=w["d"],
                          table_strided=w["table_strided"])
             wide_fn = lambda: rs.resample_wide_taps(w["table"], w["x"], w["state"], **wargs)[0]
-            general_fn = lambda: _build.general_mac(w["x"], rl, kv, q, lanes=lanes,
-                                                    lane_offset=0, clamp_s16=False)
+            general_fn = lambda: rs.resample_uniform_lanes_general(
+                w["table"], w["x"], w["state"], max_taps=w["max_taps"], n_out=n_out,
+                table_strided=w["table_strided"])[0]
             if not torch.equal(wide_fn(), general_fn()):
-                raise AssertionError(f"wide and general kernels disagree at {rates}")
+                raise AssertionError(f"wide and general entries disagree at {rates}")
             key = f"{rates[0]}->{rates[1]} taps {w['max_taps']}, {n_out} frames x {lanes} lanes"
-            crossover[key] = dict(general_kernel_ms=cuda_ms(general_fn),
+            crossover[key] = dict(general_entry_ms=cuda_ms(general_fn),
                                   wide_entry_ms=cuda_ms(wide_fn))
             if (rates, n_out) == ((44100, 132), 64):
                 out["wide_mac_kernel"] = dict(
@@ -498,24 +540,29 @@ def time_kernels(gen) -> dict:
 
 # Entry -> the kernels one call may run on the card, in launch order: the
 # whole of the entry's device work (no precompute, no copy).
-ENTRY_KERNELS = {"tiled": ("tiled_mac_kernel",), "strided": ("strided_mac_kernel",),
+ENTRY_KERNELS = {"tiled": ("tiled_mac_kernel",), "general": ("tiled_mac_kernel",),
+                 "strided": ("strided_mac_kernel",),
                  "wide": ("wide_mac_kernel", "wide_fold_kernel")}
 
 
 def count_entry_launches(gen) -> dict:
-    """The device activities of one call of the tiled, strided and wide
-    entries at their timed launches (torch.profiler): exactly their kernels
-    (ENTRY_KERNELS), one for tiled and strided, two for wide, and their
-    device time."""
+    """The device activities of one call of the tiled, general, strided and
+    wide entries at their timed launches (torch.profiler): exactly their
+    kernels (ENTRY_KERNELS), one for tiled, general and strided, two for
+    wide, and their device time."""
     from clownresampler_tpu_torch.ops import resample as rs
 
     c = launch_case(*HEADLINE["rates"], HEADLINE["lanes"], HEADLINE["n_out"], gen)
+    g = launch_case(44100, 8000, 2048, 4096, gen)
     s = launch_case(*STRIDED_FARM["rates"], 2048, HEADLINE["n_out"], gen)
     w = launch_case(44100, 132, 1024, 64, gen, f0=0x4321)
     calls = {
         "tiled": lambda: rs.resample_uniform_lanes_tiled(
             c["table"], c["x"], c["state"], max_taps=c["max_taps"], n_out=c["n_out"],
             d=c["plan"]["d"], cand=c["plan"]["cand"], table_strided=c["table_strided"]),
+        "general": lambda: rs.resample_uniform_lanes_general(
+            g["table"], g["x"], g["state"], max_taps=g["max_taps"], n_out=g["n_out"],
+            table_strided=g["table_strided"]),
         "strided": lambda: rs.resample_strided_phases(
             s["table"], s["x"], s["state"], max_taps=s["max_taps"], n_out=s["n_out"], d=s["d"]),
         "wide": lambda: rs.resample_wide_taps(
@@ -834,11 +881,10 @@ def check_scan_replay(run: dict, streams) -> list:
 def time_scan(gen) -> dict:
     """Config 7's per-chunk time: the K-slope of the fused scan between
     SCAN7["timing_k"] chunks (every step's output kept), CUDA events around
-    each run, best of 3 after a warm-up; then one step's launch split into
-    precompute and kernel (events), and the device time by kernel over a
-    run (torch.profiler)."""
+    each run, best of 3 after a warm-up; then one step's general entry
+    (events) beside its device activities and their time (torch.profiler),
+    and the device time by kernel over a run (torch.profiler)."""
     from clownresampler_tpu_torch.lowlevel import make_device_state
-    from clownresampler_tpu_torch.ops import _build
     from clownresampler_tpu_torch.ops import resample as rs
 
     k1, k2 = SCAN7["timing_k"]
@@ -872,14 +918,9 @@ def time_scan(gen) -> dict:
                      torch.zeros((taps + 8, lanes), dtype=torch.int32, device=DEVICE)])
     st = make_device_state(r, 0, c["cfg"], c["increment"], torch.device(DEVICE))
     args = dict(max_taps=taps, n_out=n_out, table_strided=c["table_strided"])
-    rows, kv, q, _, _ = rs.precompute_launch(c["table"], st, **args)
-    rl = rs.launch_rows(rows, buf.shape[0], taps)
-    split = dict(
-        entry_ms=cuda_ms(lambda: rs.resample_uniform_lanes_general(c["table"], buf, st,
-                                                                   **args)[0]),
-        precompute_ms=cuda_ms(lambda: rs.precompute_launch(c["table"], st, **args)[1]),
-        kernel_ms=cuda_ms(lambda: _build.general_mac(buf, rl, kv, q, lanes=lanes,
-                                                     lane_offset=0, clamp_s16=False)))
+    entry = lambda: rs.resample_uniform_lanes_general(c["table"], buf, st, **args)[0]
+    split = dict(entry_ms=cuda_ms(entry))
+    split["device_activities"], split["device_ms"] = device_launches(entry)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()

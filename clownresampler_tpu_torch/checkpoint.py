@@ -9,15 +9,18 @@ bit.
 
 Snapshots hold no tensors (staging is saved as numpy wherever it lived), so
 ``load_*(snapshot, device=...)`` restores a snapshot taken on a card onto
-the CPU and the other way round. ``load_*`` also take the snapshots of the
-JAX package's ``save_*``: both farms keep logical stream frame f at staging
-row f + radius_bound, so the restore copies rows [0, fill) and the
-streams' lanes and leaves the rest zero, whatever capacity and lane padding
-the snapshot's buffer had. The keys the port has no use for (``interpret``,
-``device_staging``) are ignored. Neither package's farm holds work parked
-between ``process`` calls: the JAX mixed farm applies every deferred
-staging slide before its ``process`` returns (clownresampler_tpu/farm.py,
-``_pending_slide``), and saves none.
+the CPU and the other way round. The two packages read each other's farm
+snapshots: both farms keep logical stream frame f at staging row f +
+radius_bound, so ``load_*`` here copies rows [0, fill) and the streams'
+lanes and leaves the rest zero, whatever capacity and lane padding the
+snapshot's buffer had, and ignores the keys the port has no use for
+(``interpret``, ``device_staging``). ``save_farm`` writes those keys and
+pads its staging the way the JAX farm holds it -- zero lanes up to a
+multiple of 128, zero rows up to that farm's capacity -- because the JAX
+package's ``load_farm`` takes the buffer's shape as its own. Neither
+package's farm holds work parked between ``process`` calls: the JAX mixed
+farm applies every deferred staging slide before its ``process`` returns
+(clownresampler_tpu/farm.py, ``_pending_slide``), and saves none.
 """
 
 from __future__ import annotations
@@ -27,12 +30,20 @@ from typing import Any
 import numpy as np
 import torch
 
+from clownresampler_tpu_torch import fixedpoint as fx
 from clownresampler_tpu_torch.configure import Configuration
 from clownresampler_tpu_torch.device import DEFAULT_DEVICE, Device
 from clownresampler_tpu_torch.farm import MixedStreamFarm, UniformStreamFarm
 from clownresampler_tpu_torch.highlevel import HighLevelResampler
-from clownresampler_tpu_torch.lowlevel import LowLevelResampler
+from clownresampler_tpu_torch.lowlevel import FAST_KERNEL_MAX_TAPS, LowLevelResampler
 from clownresampler_tpu_torch.models import KernelModel
+from clownresampler_tpu_torch.ops.resample import plan_uniform
+
+# The JAX farm's staging geometry (clownresampler_tpu/farm.py), which its
+# load_farm reads from the snapshot's buffer: lanes in whole kernel tiles,
+# and the input-row budget its capacity rule weighs.
+JAX_LANES = 128
+JAX_VMEM_SAFE_INPUT_ROWS = 12288
 
 
 def _config_dict(cfg: Configuration) -> dict:
@@ -106,20 +117,62 @@ def load_highlevel(d: dict[str, Any], device: Device = DEFAULT_DEVICE) -> HighLe
     )
 
 
+def _pow2_at_least(n: int) -> int:
+    w = 16
+    while w < n:
+        w *= 2
+    return w
+
+
+def jax_capacity(farm: UniformStreamFarm) -> int:
+    """Staging rows the JAX package's UniformStreamFarm holds for this farm
+    (its radius bound, chunk size, model and the ratio it was built for --
+    for the solo farm of ``MixedStreamFarm.adjust_stream``, its source
+    group's, whose capacity the JAX solo farm takes): 2 * radius_bound +
+    chunk_frames + a slack for its kernels' aligned and polyphase over-reads
+    (clownresampler_tpu/farm.py, ``__init__``; the port's own farm needs
+    only max_taps rows of slack)."""
+    rb, taps = farm._radius_bound, farm._max_taps
+    base = 2 * rb + farm.chunk_frames
+    if taps > FAST_KERNEL_MAX_TAPS:
+        return base + rb + 16
+    # The tiled kernel's aligned window, a power of two (window_rows_needed
+    # at d = 1, cand = 8), and 3 radius bounds.
+    slack = 96 + _pow2_at_least(taps + 21) + 3 * rb
+    # The polyphase strided kernel's over-read at every stride the bound
+    # admits (strided_phase_padding at 32 groups).
+    strided = max((96 + 256 * d + d * (_pow2_at_least(256 + 1 - (-(taps - 1) // d) + 15) + 8)
+                   for d in range(2, rb // farm.model.radius + 1)), default=0)
+    primary_strided = plan_uniform(farm._capacity_increment, 0)["kernel"] == "strided"
+    if strided > slack and (base + strided <= JAX_VMEM_SAFE_INPUT_ROWS
+                            or base + slack > JAX_VMEM_SAFE_INPUT_ROWS or primary_strided):
+        slack = strided
+    return base + slack
+
+
 def save_farm(farm: UniformStreamFarm) -> dict[str, Any]:
-    staging = farm._staging
+    """Serialise a farm; its staging rows [0, fill) and lanes padded with
+    zeros to the JAX farm's shape (jax_capacity rows, JAX_LANES-lane
+    multiples), so the JAX package's load_farm restores it too."""
+    rows = farm._staging[: farm._fill]
+    padded = np.zeros((jax_capacity(farm), fx.round_up(farm._lanes, JAX_LANES)), np.int32)
+    padded[: farm._fill, : farm._lanes] = (rows.cpu().numpy() if isinstance(rows, torch.Tensor)
+                                           else rows)
     return {
         "kind": "farm",
         "n_streams": farm.n_streams,
         "channels": farm.channels,
         "chunk_frames": farm.chunk_frames,
+        "interpret": False,
         "position_integer": farm.position_integer,
         "position_fractional": farm.position_fractional,
         "increment": farm.increment,
+        "capacity_increment": farm._capacity_increment,
         "config": _config_dict(farm.config),
         "radius_bound": farm._radius_bound,
-        "staging": np.array(staging.cpu() if isinstance(staging, torch.Tensor) else staging),
+        "staging": padded,
         "fill": farm._fill,
+        "device_staging": farm._device_staging,
         "clamp_s16": farm.clamp_s16,
         "model_radius": farm.model.radius,
         "model_resolution": farm.model.resolution,
@@ -138,6 +191,7 @@ def load_farm(d: dict[str, Any], device: Device = DEFAULT_DEVICE) -> UniformStre
                 clamp_s16=d.get("clamp_s16", False))
     farm.position_integer = d["position_integer"]
     farm.position_fractional = d["position_fractional"]
+    farm._capacity_increment = d.get("capacity_increment", d["increment"])
     fill = d["fill"]
     if fill > farm._capacity:
         raise ValueError(f"snapshot fill {fill} exceeds the staging capacity {farm._capacity}")
@@ -158,6 +212,7 @@ def save_mixed_farm(farm: MixedStreamFarm) -> dict[str, Any]:
         "n_streams": farm.n_streams,
         "channels": farm.channels,
         "chunk_frames": farm.chunk_frames,
+        "interpret": False,
         "max_radius": farm.max_radius,
         "clamp_s16": farm.clamp_s16,
         "model_radius": farm.model.radius,

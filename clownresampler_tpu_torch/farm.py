@@ -96,6 +96,10 @@ class UniformStreamFarm:
         self.position_integer = 0
         self.position_fractional = 0
         self._set_config(cfg, increment)
+        # The ratio the JAX farm sizes its staging by: the one it was built
+        # for, kept through adjust, and a source group's for the solo farm of
+        # adjust_stream (checkpoint.jax_capacity).
+        self._capacity_increment = increment
 
         # Staging buffer: [left halo | data ... | slack]. Logical stream frame
         # f lives at row f + radius_bound. Every launch reads max_taps-or-
@@ -369,6 +373,7 @@ class MixedStreamFarm:
                                      max_radius=farm._radius_bound)
         # Same radius bound and chunk size, so the same staging geometry.
         assert solo._capacity == farm._capacity
+        solo._capacity_increment = farm._capacity_increment
         solo.position_integer = farm.position_integer
         solo.position_fractional = farm.position_fractional
         solo._fill = farm._fill

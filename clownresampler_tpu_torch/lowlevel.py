@@ -51,9 +51,9 @@ MAX_CHUNK_OUTPUT_FRAMES = 1 << 14
 # increment; at or below it the increment's class (plan_uniform) serves,
 # except that general-class launches (d >= 2, nonzero fraction) from
 # GENERAL_WIDE_MIN_TAPS taps take the wide class too. On the H100, over
-# 1024-frame launches the wide kernel measured 1.2x faster than
-# general_mac_kernel at 248 taps and 2.2x at 352; over 64-frame launches it
-# lost 6-27 us up to 352 taps (PERF.md; chip_smoke.py times the two).
+# 1024-frame launches the wide entry measured 1.4x faster than the general
+# entry at 248 taps and 2.7x at 352; over 64-frame launches both sit near
+# their host floor up to 352 taps (PERF.md; chip_smoke.py times the two).
 FAST_KERNEL_MAX_TAPS = 1024
 GENERAL_WIDE_MIN_TAPS = 256
 

@@ -42,7 +42,6 @@ LIBRARIES = {
     "resample": ("resample_kernels.cu", {
         "crt_tiled_mac": [_p, _i, _i, _i, _i, _p, _i, _p, _i, _p, _p, _p, _p, _p, _p,
                           _p, _i, _p, _i, _i, _i, _i, _i, _i, _p, _p, _i, _i, _p],
-        "crt_general_mac": [_p, _i, _i, _i, _i, _p, _p, _p, _i, _i, _p, _i, _i, _p],
     }),
     "strided": ("strided_kernels.cu", {
         "crt_strided_mac": [_p, _i, _i, _i, _i, _p, _i, _p, _i, _p, _p, _p, _p, _p, _p,
@@ -141,15 +140,6 @@ def _check_tensors(x, lanes, lane_offset, **tensors):
                          f"{x.shape[1]} lanes")
 
 
-def _check_launch(x, rows, kv, q, lanes, lane_offset):
-    _check_tensors(x, lanes, lane_offset, rows=(rows, 1), kv=(kv, 2), q=(q, 1))
-    n = rows.shape[0]
-    if kv.shape[0] != n or q.shape[0] != n:
-        raise ValueError(f"rows/kv/q disagree on frames: {n}, {kv.shape[0]}, {q.shape[0]}")
-    if kv.shape[1] > x.shape[0]:
-        raise ValueError(f"{kv.shape[1]} taps exceed the {x.shape[0]}-row input")
-
-
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         msg = library("resample").crt_error_string(err).decode()
@@ -179,9 +169,9 @@ WIDE_RUN_ROWS = 64
 
 def tiled_shared_bytes(frames: int, win_rows: int, taps: int) -> int:
     """Dynamic shared memory of one tiled_mac_kernel block: two stages, each
-    a window of win_rows x TILED_LANES ints and its frames' taps, rows and
-    reciprocals."""
-    return 2 * 4 * (win_rows * TILED_LANES + frames * (taps + 2))
+    a window of win_rows x TILED_LANES ints and its frames' taps, rows,
+    reciprocals and live tap counts."""
+    return 2 * 4 * (win_rows * TILED_LANES + frames * (taps + 3))
 
 
 def strided_shared_bytes(taps: int, win_rows: int) -> int:
@@ -239,13 +229,16 @@ def _check_taps(x, max_taps: int, table_strided=None) -> None:
 def tiled_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int, lanes: int,
               lane_offset: int, frames_per_stage: int, win_rows: int,
               clamp_s16: bool) -> tuple:
-    """Launch tiled_mac_kernel, which computes each frame's geometry itself
-    from the launch state (p0, f0: 0-dim int32 tensors on x's device, or
-    ints) and ``cfg`` (ConfigScalars on x's device), reading the flat LUT
-    ``table`` or, when given, its strided form (R, max_taps). Stages of
-    ``frames_per_stage`` frames stage ``win_rows`` rows each (0: read x
-    directly). Returns (out (n_out, lanes) int32 -- int16 if clamped --,
-    rows (n_out,) int32, the unclamped first window rows)."""
+    """Launch tiled_mac_kernel (the tiled and general entries), which
+    computes each frame's geometry itself from the launch state (p0, f0:
+    0-dim int32 tensors on x's device, or ints) and ``cfg`` (ConfigScalars
+    on x's device), reading the flat LUT ``table`` or, when given, its
+    strided form (R, max_taps). Each stage holds ``win_rows`` rows (0: read
+    x directly) and the frames of at most ``frames_per_stage`` frames: the
+    kernel takes the most of frames_per_stage, half that, ..., 8 whose
+    window fits (ops.resample.stage_frames). Returns (out (n_out, lanes)
+    int32 -- int16 if clamped --, rows (n_out,) int32, the unclamped first
+    window rows)."""
     tables = {"table": (table, 1)}
     if table_strided is not None:
         tables["table_strided"] = (table_strided, 2)
@@ -271,22 +264,6 @@ def tiled_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int
             rows.data_ptr(), int(clamp_s16), x.device.index, _stream(x))
         _raise_on(err, "tiled_mac_kernel")
     return out, rows
-
-
-def general_mac(x, rows, kv, q, *, lanes: int, lane_offset: int,
-                clamp_s16: bool) -> torch.Tensor:
-    """Launch general_mac_kernel; returns (N, lanes) int32 (int16 if clamped)."""
-    _check_launch(x, rows, kv, q, lanes, lane_offset)
-    lib = library("resample")
-    n, t = kv.shape
-    out = _out(n, lanes, clamp_s16, x.device)
-    if n:
-        err = lib.crt_general_mac(
-            x.data_ptr(), x.shape[0], x.shape[1], lane_offset, lanes, rows.data_ptr(),
-            kv.data_ptr(), q.data_ptr(), n, t, out.data_ptr(), int(clamp_s16),
-            x.device.index, _stream(x))
-        _raise_on(err, "general_mac_kernel")
-    return out
 
 
 def strided_mac(x, table, p0, f0, cfg, *, max_taps: int, n_out: int, d: int, lanes: int,

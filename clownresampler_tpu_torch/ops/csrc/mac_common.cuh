@@ -20,16 +20,23 @@
 
 namespace {
 
-constexpr int LANE_TILE = 32;   // lanes per block: one warp spans one row segment
-constexpr int FRAME_ROWS = 8;   // warps per block (blockDim.y)
-
 // One tap: acc + trunc((x * k) / 2^16). |x| <= 32768 and k in [-9651, 65536],
 // so the product spans exactly [-2^31, 2^31); it is formed with wrapping
-// unsigned arithmetic (no signed-overflow UB), and (p >> 31) & 0xFFFF is the
-// bias that turns the arithmetic shift (floor) into truncation toward zero.
+// unsigned arithmetic (no signed-overflow UB), and 0xFFFF for a negative
+// product is the bias that turns the arithmetic shift (floor) into
+// truncation toward zero. The bias goes in as (p >>> 31) * 0xFFFF + p, one
+// multiply-add, so a tap is four operations: multiply, sign shift,
+// multiply-add, shift-add (written as (p >> 31) & 0xFFFF the bias costs
+// three). It is exact: for p >= 0 it adds nothing, and for p < 0, p + 0xFFFF
+// cannot overflow and floor((p + 0xFFFF) / 2^16) = ceil(p / 2^16), which is
+// p / 2^16 truncated toward zero.
 __device__ __forceinline__ int macc_trunc(int acc, int x, int k) {
     const int p = static_cast<int>(static_cast<unsigned>(x) * static_cast<unsigned>(k));
-    return acc + ((p + ((p >> 31) & 0xFFFF)) >> 16);
+    unsigned sign;
+    asm("shr.b32 %0, %1, 31;" : "=r"(sign) : "r"(p));
+    int t;
+    asm("mad.lo.s32 %0, %1, 65535, %2;" : "=r"(t) : "r"(sign), "r"(p));
+    return acc + (t >> 16);
 }
 
 // C (acc * q) / 2^15 with a 64-bit product; C division truncates toward zero.
@@ -122,18 +129,16 @@ __device__ __forceinline__ int lut_tap(const TapTable& tt, const int* row, int k
                : __ldg(tt.table + min(max(kernel_start + j * step, 0), tt.table_size - 1));
 }
 
-// Asynchronous global -> shared copies (cp.async): 16 or 4 bytes, zero-filled
-// when !valid (src must still be a mapped address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+// Asynchronous global -> shared copies (cp.async) to a shared-space address:
+// 16 or 4 bytes, zero-filled when !valid (src must still be a mapped address).
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src, bool valid) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+                 :: "r"(dst), "l"(src), "r"(valid ? 16 : 0));
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src, bool valid) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(d), "l"(src), "r"(valid ? 4 : 0));
+                 :: "r"(dst), "l"(src), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -149,26 +154,37 @@ constexpr int TILE_LANES = 128;
 constexpr int TILE_COLS = TILE_LANES / 4;
 
 // Start the copy of input rows [first, first + rows) x lanes [lane0, lane0 +
-// TILE_LANES) of the launch into win (rows x TILE_LANES ints), by `threads`
-// threads; lanes past the launch's are zero-filled. vec: x, L, lane_offset
-// and lanes are 4-lane aligned, so each column is one 16-byte copy.
+// TILE_LANES) of the launch into win (rows x TILE_LANES ints), by THREADS
+// threads; lanes past the launch's are zero-filled. A thread keeps one
+// column and takes every (THREADS / TILE_COLS)-th row, its source and
+// destination advanced by a stride: the loop is the copies and no index
+// arithmetic. vec: x, L, lane_offset and lanes are 4-lane aligned, so each
+// column is one 16-byte copy.
+template <int THREADS>
 __device__ __forceinline__ void load_rows_async(const int* x, int L, int lane_offset, int lanes,
                                                 int vec, int first, int rows, int lane0,
-                                                int* win, int threads) {
-    const int chunks = rows * TILE_COLS;
-    for (int c = threadIdx.x; c < chunks; c += threads) {
-        const int r = c / TILE_COLS, col = c % TILE_COLS;
-        const int lane = lane0 + 4 * col;
-        const int* src = x + static_cast<size_t>(first + r) * L + lane_offset + lane;
-        int* dst = win + r * TILE_LANES + 4 * col;
-        if (vec) {
-            const bool ok = lane < lanes;
-            cp_async16(dst, ok ? src : x, ok);
-        } else {
-            for (int i = 0; i < 4; ++i) {
-                const bool ok = lane + i < lanes;
-                cp_async4(dst + i, ok ? src + i : x, ok);
-            }
+                                                int* win) {
+    static_assert(THREADS % TILE_COLS == 0, "a thread keeps one column");
+    constexpr int STEP = THREADS / TILE_COLS;
+    constexpr unsigned DST_STEP = STEP * TILE_LANES * sizeof(int);
+    const int col = threadIdx.x % TILE_COLS;
+    const int lane = lane0 + 4 * col;
+    int r = threadIdx.x / TILE_COLS;
+    if (r >= rows) return;
+    const int* src = x + static_cast<size_t>(first + r) * L + lane_offset + lane;
+    const size_t src_step = static_cast<size_t>(STEP) * L;
+    unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(win + r * TILE_LANES + 4 * col));
+    if (vec) {
+        const bool ok = lane < lanes;
+        const int* s = ok ? src : x;
+        const size_t step = ok ? src_step : 0;
+        for (; r < rows; r += STEP, s += step, dst += DST_STEP) cp_async16(dst, s, ok);
+        return;
+    }
+    const int in_launch = min(max(lanes - lane, 0), 4);
+    for (; r < rows; r += STEP, src += src_step, dst += DST_STEP) {
+        for (int i = 0; i < 4; ++i) {
+            cp_async4(dst + 4 * i, i < in_launch ? src + i : x, i < in_launch);
         }
     }
 }

@@ -1,6 +1,6 @@
-// Hand-written Hopper (sm_90a) kernels for the resampler's multiply-accumulate.
+// Hand-written Hopper (sm_90a) kernel for the resampler's multiply-accumulate.
 //
-// Both kernels compute, for every output frame n and lane l of a launch,
+// tiled_mac_kernel computes, for every output frame n and lane l of a launch,
 //
 //     acc      = sum_t trunc(x[rows[n] + t][l] * kv[n][t] / 2^16)
 //     out[n,l] = trunc(acc * q[n] / 2^15)            (optionally clamped to s16)
@@ -10,37 +10,32 @@
 // q[n] their 17.15 reciprocal. x is lane-major (S, L) int32 with streams x
 // channels on the fast axis, which is the coalesced one here.
 //
-// tiled_mac_kernel replaces the Pallas kernel _kernel_tiled
-// (clownresampler_tpu/ops/pallas_resample.py:201) together with the tiled
-// launch's XLA precompute (precompute_launch, :61): a tiled entry is this one
-// launch. For increments below 2^17 the windows of neighbouring frames
-// overlap almost entirely, so a block stages the union of a tile's windows
-// (F frames x 128 lanes) in shared memory once and every frame reads its taps
-// from there: the input is read from device memory about once, not T times.
-// What bounds it at the farm's headline launch (taps 8) is bytes, and the
-// integer work is about as large (~5 operations a tap and lane), so the
-// design keeps the instruction slots for the taps: each frame's geometry (window
-// row, masked taps, reciprocal; mac_common.cuh) is computed once per tile
-// into shared memory, the tap loop has no global load and no clamp and is
-// unrolled for the main path's widths, a thread takes 4 lanes with 16-byte
-// shared loads and 16- (int32) or 8-byte (int16) stores, and persistent
-// blocks double-buffer their windows with cp.async so that the next tile's
-// copy overlaps this tile's compute. The TPU kernel's Bresenham eps/cand
-// split and sublane roll exist only for Mosaic's aligned loads; here each
-// frame indexes the staged window at its own row. Launch state and
-// configuration come by pointer from device memory: no host sync.
-//
-// general_mac_kernel replaces _kernel_general (pallas_resample.py:475). For
-// increments of 2^17 and more the windows barely overlap, so each thread
-// reads its own window straight from device memory; a warp covers 32
-// neighbouring lanes of one frame, so every tap is one coalesced 128-byte row
-// segment and the frame's tap value is a broadcast. Its per-frame scalars
-// come from the launch precompute in ops/resample.py.
+// It serves two entries, each as one launch with its geometry inside:
+// the tiled entry, replacing the Pallas kernel _kernel_tiled
+// (clownresampler_tpu/ops/pallas_resample.py:201), and the general entry,
+// replacing _kernel_general (:475); both together with the launch's XLA
+// precompute (precompute_launch, :61). Neighbouring frames' windows overlap
+// (at 44.1k -> 8k, d = 5 and 40 taps, a frame shares ~34 of its 40 rows with
+// the next), so a block stages the union of a tile's windows (F frames x 128
+// lanes) in shared memory once and every frame reads its taps from there:
+// the input is read from device memory about once, not once per frame.
+// What bounds it is bytes at the tiled headline (taps 8) and integer
+// instructions at the general one (taps 40, 4 a tap and lane), so
+// the design keeps the instruction slots for the taps: each frame's geometry
+// (window row, masked taps, reciprocal; mac_common.cuh) is computed once per
+// tile into shared memory, the tap loop has no global load and no clamp and
+// is unrolled for the main path's widths, a thread takes 4 lanes with
+// 16-byte shared loads and 16- (int32) or 8-byte (int16) stores, and
+// persistent blocks double-buffer their windows with cp.async so that the
+// next tile's copy overlaps this tile's compute. The frames per stage follow
+// the increment, which only the card holds (stage_frames). The TPU kernels'
+// Bresenham eps/cand split, sublane roll and phase-shifted tap columns exist
+// only for Mosaic's aligned loads; here each frame indexes the staged window
+// at its own row. Launch state and configuration come by pointer from device
+// memory: no host sync.
 //
 // The per-term truncation rules out tensor cores: the MACs are int32 work on
-// the CUDA cores, and each kernel moves its input and output through device
-// memory once. At the farm's headline launch both bounds are tens of
-// microseconds.
+// the CUDA cores.
 //
 // Built by ops/_build.py with nvcc into a shared library with a plain C
 // interface; the Python wrappers check devices, dtypes, shapes and strides
@@ -57,7 +52,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// tiled_mac_kernel: one launch per tiled entry, its geometry included
+// tiled_mac_kernel: one launch per tiled or general entry, its geometry included
 // ---------------------------------------------------------------------------
 
 constexpr int TILED_THREADS = 256;                // 8 warps
@@ -69,16 +64,26 @@ struct TiledParams {
     GeometryArgs geo;                 // launch state and ConfigScalars
     TapTable tt;                      // flat LUT, or its strided form (tstr_rows, T)
     int N, T;                         // frames, taps
-    int F, W;                         // frames per stage, staged window rows per stage
+    int F, W;                         // most frames per stage, staged window rows per stage
     int vec;                          // x, L, lane_offset, lanes 4-lane aligned: 16-byte path
     void* out;
     int* rows_out;
 };
 
 // One stage of a block's shared memory, in ints: the staged window
-// [W][TILE_LANES], the masked taps [F][T], the clamped rows [F], q [F].
+// [W][TILE_LANES], the masked taps [F][T], the clamped rows [F], q [F], the
+// live tap counts [F].
 __host__ __device__ inline int tiled_stage_ints(int F, int T, int W) {
-    return W * TILE_LANES + F * (T + 2);
+    return W * TILE_LANES + F * (T + 3);
+}
+
+// Frames per stage: the most of F, F/2, ..., 8 whose window -- at most
+// ceil((frames - 1) * inc / 2^16) + T rows, since a frame's first row is
+// p0 + ceil((f0 + n*inc + delta) / 2^16) -- fits the W rows a stage holds; 8
+// when none does (those tiles read x directly). Every block takes the same.
+__device__ __forceinline__ int stage_frames(const LaunchGeometry& g, int F, int T, int W) {
+    while (F > 8 && (((F - 1) * g.inc + 0xFFFF) >> 16) + T > W) F >>= 1;
+    return F;
 }
 
 // A tile: frames [n0, n0 + nb) x lanes [lane0, lane0 + TILE_LANES). Its
@@ -90,12 +95,12 @@ struct Tile {
 };
 
 __device__ __forceinline__ Tile tiled_tile(const TiledParams& P, const LaunchGeometry& g,
-                                           int tile, int lane_tiles, int T, int row_max) {
+                                           int tile, int lane_tiles, int F, int T, int row_max) {
     Tile t;
     const int stage = tile / lane_tiles;
     t.lane0 = (tile - stage * lane_tiles) * TILE_LANES;
-    t.n0 = stage * P.F;
-    t.nb = min(P.F, P.N - t.n0);
+    t.n0 = stage * F;
+    t.nb = min(F, P.N - t.n0);
     t.first = clamp_row(frame_window(g, t.n0).row, row_max);
     const int last = clamp_row(frame_window(g, t.n0 + t.nb - 1).row, row_max);
     t.rows = last - t.first + T;
@@ -106,19 +111,21 @@ __device__ __forceinline__ Tile tiled_tile(const TiledParams& P, const LaunchGeo
 // Start the asynchronous copy of a staged tile's window rows into `win`.
 __device__ __forceinline__ void tiled_load_window(const TiledParams& P, const Tile& t, int* win) {
     if (!t.staged) return;
-    load_rows_async(P.x, P.L, P.lane_offset, P.lanes, P.vec, t.first, t.rows, t.lane0, win,
-                    TILED_THREADS);
+    load_rows_async<TILED_THREADS>(P.x, P.L, P.lane_offset, P.lanes, P.vec, t.first, t.rows,
+                                   t.lane0, win);
 }
 
 // The tile's geometry (the launch precompute, ops/resample.py): each frame's
-// masked taps, 17.15 reciprocal and clamped window row, into shared memory;
+// masked taps, 17.15 reciprocal, clamped window row and live tap count (at
+// most T; its taps past that are zero), into shared memory;
 // the unclamped rows to rows_out (by the blocks of lane tile 0). 256 / F
 // threads share a frame: its taps are split between them and their sum is
-// reduced by shuffles.
+// reduced by shuffles. (One warp doing every frame's geometry measured
+// slower: the others wait out its latency.)
 __device__ __forceinline__ void tiled_geometry(const TiledParams& P, const LaunchGeometry& g,
-                                               const Tile& t, int T, int row_max, int* kv,
-                                               int* rl, int* q) {
-    const int tpf = TILED_THREADS / P.F;
+                                               const Tile& t, int F, int T, int row_max, int* kv,
+                                               int* rl, int* q, int* lv) {
+    const int tpf = TILED_THREADS / F;
     const int f = threadIdx.x / tpf, part = threadIdx.x % tpf;
     const bool live = f < t.nb;
     const FrameWindow w = frame_window(g, t.n0 + f);
@@ -135,6 +142,7 @@ __device__ __forceinline__ void tiled_geometry(const TiledParams& P, const Launc
     if (live && part == 0) {
         q[f] = reciprocal_q31(sum);
         rl[f] = clamp_row(w.row, row_max);
+        lv[f] = min(max(w.taps, 0), T);
         if (t.lane0 == 0) P.rows_out[t.n0 + f] = w.row;
     }
 }
@@ -142,16 +150,19 @@ __device__ __forceinline__ void tiled_geometry(const TiledParams& P, const Launc
 // The multiply-accumulate of one tile: warp w takes frames w, w + 8, ...;
 // thread tx of a warp takes lanes lane0 + 4tx .. + 3. A staged tile reads
 // each tap's row as one 16-byte shared load and its tap value as a
-// broadcast; the taps of the main path's widths (TT) are unrolled.
+// broadcast; the taps of the main path's widths (TT) are unrolled. A frame
+// stops at its live taps (from 24 taps up, in fours): a reserve or a width
+// rounded up to 8 adds taps that are zero, and a zero tap adds nothing.
 template <int TT, typename OutT>
 __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& t, int T,
                                               const int* win, const int* kv, const int* rl,
-                                              const int* q) {
+                                              const int* q, const int* lv) {
     const int tx = threadIdx.x & 31;
     const int lane = t.lane0 + 4 * tx;
     if (lane >= P.lanes) return;
     for (int f = threadIdx.x >> 5; f < t.nb; f += TILED_WARPS) {
         const int* k = kv + f * T;
+        const int live = lv[f];
         int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
         if (t.staged) {
             const int4* w =
@@ -159,6 +170,7 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
             if (TT) {
 #pragma unroll
                 for (int j = 0; j < TT; j += 4) {
+                    if (TT >= 24 && j >= live) break;
                     const int4 kk = *reinterpret_cast<const int4*>(k + j);
                     const int kj[4] = {kk.x, kk.y, kk.z, kk.w};
 #pragma unroll
@@ -171,7 +183,7 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
                     }
                 }
             } else {
-                for (int j = 0; j < T; ++j) {
+                for (int j = 0; j < live; ++j) {
                     const int4 v = w[j * TILE_COLS];
                     const int kj = k[j];
                     a0 = macc_trunc(a0, v.x, kj);
@@ -180,17 +192,29 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
                     a3 = macc_trunc(a3, v.w, kj);
                 }
             }
+        } else if (P.vec) {
+            // A window past the stage's rows (taps too wide to stage, or an
+            // increment too large for the stage): device memory, 16 bytes a
+            // tap (all four lanes live: lanes is a multiple of 4).
+            const int4* xr = reinterpret_cast<const int4*>(
+                P.x + static_cast<size_t>(rl[f]) * P.L + P.lane_offset + lane);
+            for (int j = 0; j < live; ++j, xr += P.L / 4) {
+                const int4 v = __ldg(xr);
+                const int kj = k[j];
+                a0 = macc_trunc(a0, v.x, kj);
+                a1 = macc_trunc(a1, v.y, kj);
+                a2 = macc_trunc(a2, v.z, kj);
+                a3 = macc_trunc(a3, v.w, kj);
+            }
         } else {
-            // A window past the stage's rows (a launch whose d/cand do not
-            // bound its increment, or taps too wide to stage): device memory.
             const int* xr = P.x + static_cast<size_t>(rl[f]) * P.L + P.lane_offset + lane;
-            const int live = min(4, P.lanes - lane);
-            for (int j = 0; j < T; ++j, xr += P.L) {
+            const int nl = min(4, P.lanes - lane);
+            for (int j = 0; j < live; ++j, xr += P.L) {
                 const int kj = k[j];
                 a0 = macc_trunc(a0, __ldg(xr), kj);
-                if (live > 1) a1 = macc_trunc(a1, __ldg(xr + 1), kj);
-                if (live > 2) a2 = macc_trunc(a2, __ldg(xr + 2), kj);
-                if (live > 3) a3 = macc_trunc(a3, __ldg(xr + 3), kj);
+                if (nl > 1) a1 = macc_trunc(a1, __ldg(xr + 1), kj);
+                if (nl > 2) a2 = macc_trunc(a2, __ldg(xr + 2), kj);
+                if (nl > 3) a3 = macc_trunc(a3, __ldg(xr + 3), kj);
             }
         }
         store_lanes<OutT>(P.out, P.lanes, P.vec, t.n0 + f, lane, q[f], a0, a1, a2, a3);
@@ -207,63 +231,48 @@ tiled_mac_kernel(const TiledParams P) {
     extern __shared__ int4 smem4[];
     int* const smem = reinterpret_cast<int*>(smem4);
     const int T = TT ? TT : P.T;
-    const int stage_ints = tiled_stage_ints(P.F, T, P.W);
     const LaunchGeometry g = read_geometry(P.geo);
+    const int F = stage_frames(g, P.F, T, P.W);
+    const int stage_ints = tiled_stage_ints(F, T, P.W);
     const int row_max = max(P.S - T, 0);
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
-    const int tiles = lane_tiles * ((P.N + P.F - 1) / P.F);
+    const int tiles = lane_tiles * ((P.N + F - 1) / F);
     int tile = blockIdx.x;
     if (tile >= tiles) return;
 
-    // Stage b: window at smem + b * stage_ints, then taps, rows, q.
+    // Stage b: window at smem + b * stage_ints, then taps, rows, q, live.
     auto win = [&](int b) { return smem + b * stage_ints; };
     auto taps = [&](int b) { return win(b) + P.W * TILE_LANES; };
-    auto rows = [&](int b) { return taps(b) + P.F * T; };
-    auto recip = [&](int b) { return rows(b) + P.F; };
+    auto rows = [&](int b) { return taps(b) + F * T; };
+    auto recip = [&](int b) { return rows(b) + F; };
+    auto live = [&](int b) { return recip(b) + F; };
 
-    Tile cur = tiled_tile(P, g, tile, lane_tiles, T, row_max);
+    Tile cur = tiled_tile(P, g, tile, lane_tiles, F, T, row_max);
     tiled_load_window(P, cur, win(0));
     cp_async_commit();
-    tiled_geometry(P, g, cur, T, row_max, taps(0), rows(0), recip(0));
+    tiled_geometry(P, g, cur, F, T, row_max, taps(0), rows(0), recip(0), live(0));
     for (int b = 0;; b ^= 1) {
         cp_async_wait_all();
         __syncthreads();
         const int next = tile + gridDim.x;
         Tile nxt{};
         if (next < tiles) {
-            nxt = tiled_tile(P, g, next, lane_tiles, T, row_max);
+            nxt = tiled_tile(P, g, next, lane_tiles, F, T, row_max);
             tiled_load_window(P, nxt, win(b ^ 1));
         }
         cp_async_commit();
-        tiled_compute<TT, OutT>(P, cur, T, win(b), taps(b), rows(b), recip(b));
+        tiled_compute<TT, OutT>(P, cur, T, win(b), taps(b), rows(b), recip(b), live(b));
         if (next >= tiles) break;
-        tiled_geometry(P, g, nxt, T, row_max, taps(b ^ 1), rows(b ^ 1), recip(b ^ 1));
+        tiled_geometry(P, g, nxt, F, T, row_max, taps(b ^ 1), rows(b ^ 1), recip(b ^ 1),
+                       live(b ^ 1));
         cur = nxt;
         tile = next;
     }
 }
 
-// grid (ceil(lanes / LANE_TILE), ceil(N / FRAME_ROWS)), block (LANE_TILE, FRAME_ROWS).
-// rows[n] + T <= S for every frame.
-template <typename OutT>
-__global__ void __launch_bounds__(LANE_TILE * FRAME_ROWS)
-general_mac_kernel(const int* __restrict__ x, int S, int L, int lane_offset, int lanes,
-                   const int* __restrict__ rows, const int* __restrict__ kv,
-                   const int* __restrict__ q, int N, int T, OutT* __restrict__ out) {
-    const int l = blockIdx.x * LANE_TILE + threadIdx.x;
-    const int n = blockIdx.y * FRAME_ROWS + threadIdx.y;
-    if (l >= lanes || n >= N) return;
-    const int* xp = x + static_cast<size_t>(rows[n]) * L + lane_offset + l;
-    const int* k = kv + static_cast<size_t>(n) * T;
-    int acc = 0;
-    for (int t = 0; t < T; ++t) {
-        acc = macc_trunc(acc, __ldg(xp + static_cast<size_t>(t) * L), __ldg(k + t));
-    }
-    out[static_cast<size_t>(n) * lanes + l] = finish<OutT>(mul_shift15(acc, q[n]));
-}
-
 // Persistent grid: as many blocks as fit on the card at this shared memory
-// size (persistent_grid, mac_common.cuh), at most one per tile.
+// size (persistent_grid, mac_common.cuh), at most one per tile of 8 frames
+// (the fewest frames a stage takes; blocks past the tiles exit).
 template <int TT, typename OutT>
 int launch_tiled(const TiledParams& P, int device, cudaStream_t stream) {
     static PersistentGrid cache;
@@ -273,7 +282,7 @@ int launch_tiled(const TiledParams& P, int device, cudaStream_t stream) {
                                     device, &blocks);
     if (err != 0) return err;
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
-    const long long tiles = static_cast<long long>(lane_tiles) * ((P.N + P.F - 1) / P.F);
+    const long long tiles = static_cast<long long>(lane_tiles) * ((P.N + 7) / 8);
     const int grid = static_cast<int>(std::min<long long>(tiles, blocks));
     tiled_mac_kernel<TT, OutT><<<grid, TILED_THREADS, smem, stream>>>(P);
     return static_cast<int>(cudaGetLastError());
@@ -289,17 +298,6 @@ int launch_tiled_taps(const TiledParams& P, int device, cudaStream_t stream) {
         case 40: return launch_tiled<40, OutT>(P, device, stream);
         default: return launch_tiled<0, OutT>(P, device, stream);
     }
-}
-
-template <typename OutT>
-int launch_general(const int* x, int S, int L, int lane_offset, int lanes, const int* rows,
-                   const int* kv, const int* q, int N, int T, void* out,
-                   cudaStream_t stream) {
-    const dim3 block(LANE_TILE, FRAME_ROWS);
-    const dim3 grid((lanes + LANE_TILE - 1) / LANE_TILE, (N + FRAME_ROWS - 1) / FRAME_ROWS);
-    general_mac_kernel<OutT><<<grid, block, 0, stream>>>(
-        x, S, L, lane_offset, lanes, rows, kv, q, N, T, static_cast<OutT*>(out));
-    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -322,17 +320,6 @@ int crt_tiled_mac(const int* x, int S, int L, int lane_offset, int lanes, const 
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return clamp_s16 ? launch_tiled_taps<int16_t>(P, device, s)
                      : launch_tiled_taps<int32_t>(P, device, s);
-}
-
-int crt_general_mac(const int* x, int S, int L, int lane_offset, int lanes, const int* rows,
-                    const int* kv, const int* q, int N, int T, void* out, int clamp_s16,
-                    int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return clamp_s16
-        ? launch_general<int16_t>(x, S, L, lane_offset, lanes, rows, kv, q, N, T, out, s)
-        : launch_general<int32_t>(x, S, L, lane_offset, lanes, rows, kv, q, N, T, out, s);
 }
 
 const char* crt_error_string(int err) {

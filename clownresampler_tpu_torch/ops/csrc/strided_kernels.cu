@@ -208,8 +208,8 @@ __device__ __forceinline__ void strided_run(const StridedParams& P, const Stride
     auto win = [&](int b) { return stages + b * P.W * TILE_LANES; };
     auto load = [&](const StridedTile& t, int* w) {
         if (t.staged) {
-            load_rows_async(P.x, P.L, P.lane_offset, P.lanes, P.vec, t.first, t.rows, t.lane0,
-                            w, STRIDED_THREADS);
+            load_rows_async<STRIDED_THREADS>(P.x, P.L, P.lane_offset, P.lanes, P.vec, t.first,
+                                             t.rows, t.lane0, w);
         }
     };
 

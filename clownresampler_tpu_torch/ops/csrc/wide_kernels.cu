@@ -196,9 +196,9 @@ wide_mac_kernel(const WideParams P) {
     auto load = [&](int it, int* w) {
         const int run = it / lane_tiles;
         const int b0 = s.a0 + run * WIDE_RUN_ROWS;
-        load_rows_async(P.x, P.L, P.lane_offset, P.lanes, P.vec, b0,
-                        min(WIDE_RUN_ROWS, P.S - b0), (it - run * lane_tiles) * TILE_LANES, w,
-                        WIDE_THREADS);
+        load_rows_async<WIDE_THREADS>(P.x, P.L, P.lane_offset, P.lanes, P.vec, b0,
+                                      min(WIDE_RUN_ROWS, P.S - b0),
+                                      (it - run * lane_tiles) * TILE_LANES, w);
     };
 
     load(item, win(0));

@@ -4,9 +4,8 @@ Counterpart of ``clownresampler_tpu/ops/pallas_resample.py``. Input is
 lane-major ``x (S, L) int32`` (sign-extended s16 samples) with L = streams x
 channels on the fast axis; every lane shares the launch's phase sequence, so
 the per-frame quantities (window row, masked LUT taps, 17.15 reciprocal) are
-computed once per launch and broadcast across lanes: inside the kernel for
-the tiled, strided and wide classes, by ``precompute_launch`` (torch ops)
-for the general class and the plain versions. What is
+computed once per launch and broadcast across lanes: inside the kernels on
+a card, by ``precompute_launch`` (torch ops) in the plain versions. What is
 left is the dense multiply-accumulate with the C reference's per-term
 truncation, which the kernels in csrc/ perform.
 
@@ -17,7 +16,9 @@ Ratio classes (``plan_uniform``, then the tap width):
              frame's geometry itself and stages each tile's shared window in
              shared memory.
   general -- d >= 2 with a nonzero fraction (e.g. 44.1k->8k).
-             ``general_mac_kernel`` reads each frame's window directly.
+             ``tiled_mac_kernel`` too: the kernel takes as many frames a
+             stage as the increment lets the window ``stage_plan`` sized
+             hold.
   strided -- exact integer strides (fraction 0, d >= 2, e.g. 96k->48k).
              One tap vector and one reciprocal serve the launch;
              ``strided_mac_kernel`` computes them, holds the live taps in
@@ -50,12 +51,14 @@ from clownresampler_tpu_torch.ops.convolve import convolve_frames, window_geomet
 
 FRAMES_PER_TILE = 8
 # Frames per stage of a tiled_mac_kernel block, in order of preference; a
-# stage's shared window spans at most tiled_window_rows(d, cand, taps, F)
-# rows of _build.TILED_LANES lanes. tiled_stage_plan takes the first whose two
-# stages fit TILED_SHARED_BUDGET (two blocks an SM), else the first that fits
-# the card's limit.
+# stage's shared window spans at most stage_window_rows(inc, F, taps) rows of
+# _build.TILED_LANES lanes. stage_plan takes the first whose window fits
+# beside its taps with two stages in TILED_SHARED_BUDGET (two blocks an SM),
+# else in the card's limit.
 TILED_STAGE_FRAMES = (64, 32, 16, 8)
 TILED_SHARED_BUDGET = 113 * 1024
+# The smallest increment of the general class: d = 2 and a fraction of 1.
+GENERAL_MIN_INCREMENT = (2 << 16) + 1
 # Frames per tile of a strided_mac_kernel block, in order of preference; a
 # stage's window spans (F - 1)*d + T rows of _build.TILED_LANES lanes.
 # strided_stage_plan takes the first whose two stages fit
@@ -84,7 +87,8 @@ ROUTES: collections.Counter = collections.Counter()
 # ---------------------------------------------------------------------------
 
 def precompute_launch(table, state, *, max_taps: int, n_out: int, table_strided=None):
-    """Per-output-frame scalars for a uniform-ratio launch.
+    """Per-output-frame scalars for a uniform-ratio launch (the plain
+    versions'; the kernels compute them themselves).
 
     Returns (rows (N,), kvals (N, T), q (N,), eps (N,), tile_rows (N/8,)),
     all int32: rows[n] is the first input row of frame n's tap window
@@ -137,28 +141,50 @@ def launch_rows(rows: torch.Tensor, s: int, max_taps: int) -> torch.Tensor:
     return rows.clamp(0, max(s - max_taps, 0)).contiguous()
 
 
-def tiled_window_rows(d: int, cand: int, max_taps: int, frames: int = 64) -> int:
-    """Rows of the shared window a tiled stage of ``frames`` frames stages.
+def stage_window_rows(increment: int, frames: int, max_taps: int) -> int:
+    """Rows of the window that ``frames`` consecutive frames at this
+    increment reach, at most: a frame's first row is p0 + ceil((f0 + n*inc +
+    delta) / 2^16), so it advances by at most ceil((frames - 1)*inc / 2^16)
+    over the stage. Clamping rows into the input only shortens the span."""
+    return -(-(frames - 1) * increment // 65536) + max_taps
 
-    rows[n] = p0 + ceil((f0 + n*inc + delta) / 2^16), so across the
-    frames - 1 frame steps of a stage the first row advances by at most
-    ceil((frames - 1)*inc / 2^16) = (frames - 1)*d + ceil((frames - 1)*lo /
-    2^16), and plan_uniform's cand = 1 + ceil(7*lo / 2^16) bounds the second
-    term by ceil((frames - 1)*(cand - 1) / 7): 9*(cand - 1) at 64 frames.
-    Clamping rows into the input only shortens the span."""
-    return (frames - 1) * d + -(-(frames - 1) * (cand - 1) // 7) + max_taps
+
+def tiled_increment_bound(d: int, cand: int) -> int:
+    """The largest increment of a tiled launch with plan_uniform's (d,
+    cand): cand = 1 + ceil(7*lo / 2^16) bounds lo by (cand - 1)*2^16 / 7."""
+    return (d << 16) + (cand - 1) * 65536 // 7
+
+
+def stage_frames(increment: int, frames: int, max_taps: int, win_rows: int) -> int:
+    """The frames per stage tiled_mac_kernel takes (resample_kernels.cu
+    stage_frames): the most of frames, frames/2, ..., 8 whose window fits
+    the win_rows rows a stage holds; 8 when none does (those tiles read x
+    directly)."""
+    while frames > 8 and stage_window_rows(increment, frames, max_taps) > win_rows:
+        frames //= 2
+    return frames
 
 
 @functools.lru_cache(maxsize=None)
-def tiled_stage_plan(d: int, cand: int, max_taps: int) -> tuple:
-    """(frames per stage, staged window rows) of a tiled launch: the first
-    of TILED_STAGE_FRAMES whose two stages fit TILED_SHARED_BUDGET, else the
-    first within the card's limit, else 8 frames reading x directly (0
-    rows; taps past ~200)."""
+def stage_plan(max_taps: int, increment: int) -> tuple:
+    """(most frames per stage, staged window rows) of a tiled_mac_kernel
+    launch (the tiled and general entries).
+
+    The state and configuration are on the card, so the host plans from an
+    increment it knows: the tiled entry passes its class's bound
+    (tiled_increment_bound), the general entry the smallest general
+    increment. Each stage fills its shared memory with window rows beside
+    the taps of the first of TILED_STAGE_FRAMES whose window at that
+    increment fits: two stages within TILED_SHARED_BUDGET (two blocks an
+    SM), else within the card's limit (one). The kernel then takes as many
+    frames as the launch's own increment lets that window hold
+    (stage_frames): 64 frames of 107 rows at the 48k -> 44.1k headline, 8 of
+    79 in a stage of 107 rows at 44.1k -> 8k and 40 taps. Else 8 frames
+    reading x directly (0 rows)."""
     for budget in (TILED_SHARED_BUDGET, _build.MAX_SHARED_BYTES):
         for frames in TILED_STAGE_FRAMES:
-            rows = tiled_window_rows(d, cand, max_taps, frames)
-            if _build.tiled_shared_bytes(frames, rows, max_taps) <= budget:
+            rows = (budget // 8 - frames * (max_taps + 3)) // _build.TILED_LANES
+            if rows >= stage_window_rows(increment, frames, max_taps):
                 return frames, rows
     return TILED_STAGE_FRAMES[-1], 0
 
@@ -299,7 +325,7 @@ def resample_uniform_lanes_tiled(
             clamp_s16=clamp_s16, lanes=lanes, lane_offset=lane_offset,
             table_strided=table_strided)
     lanes = _lane_range(x, lanes, lane_offset)
-    frames, win_rows = tiled_stage_plan(d, cand, max_taps)
+    frames, win_rows = stage_plan(max_taps, tiled_increment_bound(d, cand))
     out, rows = _build.tiled_mac(
         x, table, table_strided, state.position_integer, state.position_fractional,
         state.cfg, max_taps=max_taps, n_out=n_out, lanes=lanes, lane_offset=lane_offset,
@@ -330,18 +356,24 @@ def resample_uniform_lanes_general(
     lanes: Optional[int] = None, lane_offset: int = 0, table_strided=None,
 ):
     """Any-ratio uniform-lane resample (the general class: increment >= 2^17
-    with a nonzero fraction). Same contract and return as the tiled entry."""
+    with a nonzero fraction). Same contract and return as the tiled entry.
+
+    On a CUDA card this is one launch of ``tiled_mac_kernel``, staged for
+    the smallest general increment: the kernel reads the state's
+    positions (0-dim device tensors or ints) and ``state.cfg`` from device
+    memory and computes each frame's geometry and its frames per stage
+    itself: no host sync and no precompute."""
     _check_x(x)
     if _takes_reference(x, "general"):
         return resample_uniform_lanes_general_reference(
             table, x, state, max_taps=max_taps, n_out=n_out, clamp_s16=clamp_s16,
             lanes=lanes, lane_offset=lane_offset, table_strided=table_strided)
     lanes = _lane_range(x, lanes, lane_offset)
-    rows, kvals, q, _eps, _tile_rows = precompute_launch(
-        table, state, max_taps=max_taps, n_out=n_out, table_strided=table_strided)
-    out = _build.general_mac(
-        x, launch_rows(rows, x.shape[0], max_taps), kvals, q, lanes=lanes,
-        lane_offset=lane_offset, clamp_s16=clamp_s16)
+    frames, win_rows = stage_plan(max_taps, GENERAL_MIN_INCREMENT)
+    out, rows = _build.tiled_mac(
+        x, table, table_strided, state.position_integer, state.position_fractional,
+        state.cfg, max_taps=max_taps, n_out=n_out, lanes=lanes, lane_offset=lane_offset,
+        frames_per_stage=frames, win_rows=win_rows, clamp_s16=clamp_s16)
     ROUTES[("general", "cuda")] += 1
     return out, rows
 
@@ -584,7 +616,8 @@ def plan_uniform(increment: int, n_out: int) -> dict:
 
     tiled   — tiled_mac_kernel; d = increment>>16 in {0,1}
     strided — strided_mac_kernel; fractional part == 0, d >= 2
-    general — general_mac_kernel; any other ratio (wide downsampling)
+    general — tiled_mac_kernel; any other ratio
+              (wide downsampling)
 
     Tap widths past lowlevel.FAST_KERNEL_MAX_TAPS, and general launches from
     lowlevel.GENERAL_WIDE_MIN_TAPS, take the wide class (wide_mac_kernel)

@@ -1,6 +1,7 @@
 """Port checkpoint/resume: every kind of snapshot restores and continues bit
-for bit, and the JAX package's snapshots restore in the port and continue
-equal to the JAX object continuing."""
+for bit; the JAX package's snapshots restore in the port and continue equal
+to the JAX object continuing, and the port's farm snapshots restore in the
+JAX package and continue equal to the port's farm continuing."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ from clownresampler_tpu_torch import checkpoint as ckpt
 from clownresampler_tpu_torch.farm import MixedStreamFarm, UniformStreamFarm
 from clownresampler_tpu_torch.highlevel import HighLevelResampler
 from clownresampler_tpu_torch.lowlevel import LowLevelResampler
+from clownresampler_tpu.models import HIGH_QUALITY_MODEL as JHIGH_QUALITY_MODEL
 from clownresampler_tpu_torch.models import HIGH_QUALITY_MODEL
 
 CHUNK = 256
@@ -142,6 +144,97 @@ def test_torch_restores_jax_highlevel_snapshot():
     b = ckpt.load_highlevel(jckpt.save_highlevel(j), device="cpu")
     cb_b = _feeder(data, cb.cursor)
     np.testing.assert_array_equal(_finish_highlevel(b, cb_b), _finish_highlevel(j, cb))
+
+
+@pytest.mark.parametrize("rates", [(48000, 44100), (96000, 48000), (44100, 8000), (44100, 132),
+                                   (529200, 44100)])
+def test_torch_jax_capacity_matches_the_jax_farm(rates):
+    """The port's copy of the JAX farm's staging capacity rule gives the
+    capacity the JAX farm has, across radius reserves, chunk sizes on both
+    sides of its input-row budget and two models."""
+    for max_radius in (None, 8, 17, 100):
+        for chunk in (256, 8192, 12000, 16384):
+            for model, jmodel in ((None, None), (HIGH_QUALITY_MODEL, JHIGH_QUALITY_MODEL)):
+                extra = {} if model is None else dict(model=model)
+                jextra = {} if jmodel is None else dict(model=jmodel)
+                j = JFarm(1, 2, *rates, chunk_frames=chunk, max_radius=max_radius, **jextra)
+                p = UniformStreamFarm(1, 2, *rates, chunk_frames=chunk, max_radius=max_radius,
+                                      device="cpu", **extra)
+                assert ckpt.jax_capacity(p) == j._capacity, (max_radius, chunk, model)
+
+
+@pytest.mark.parametrize("device_staging", [False, True], ids=["host", "torch"])
+def test_torch_farm_snapshot_restores_in_jax(device_staging):
+    """64 stereo streams (128 lanes): the port's snapshot has the JAX farm's
+    staging shape and keys, restores with the JAX package's load_farm
+    (Pallas in interpret mode on the CPU) and continues over a further
+    chunk and the flush bit for bit with the port's farm."""
+    chunk = 300
+    data = _data(6, 64, 2 * chunk, 2)
+    chunks = [data[:, :chunk], data[:, chunk:]]
+    a = UniformStreamFarm(64, 2, 48000, 44100, chunk_frames=chunk, device="cpu",
+                          device_staging=device_staging)
+    a.process(chunks[0])
+    snap = ckpt.save_farm(a)
+    j = JFarm(64, 2, 48000, 44100, chunk_frames=chunk, interpret=True)
+    assert snap["staging"].shape == (j._capacity, 128) and snap["interpret"] is False
+    assert snap["device_staging"] is device_staging
+    b = jckpt.load_farm(dict(snap, interpret=True, device_staging=False))
+    np.testing.assert_array_equal(_finish_farm(b, chunks[1:]), _finish_farm(a, chunks[1:]))
+
+
+def test_torch_mixed_farm_snapshot_restores_in_jax():
+    """A port mixed farm -- two tiled groups of 3 stereo streams, one stream
+    moved to its own group by adjust_stream -- restores with the JAX
+    package's load_mixed_farm (interpret mode) and continues bit for bit."""
+    specs = MIXED_SPECS[:3]
+    data = _data(7, 2, len(specs), CHUNK, 2)
+    a = MixedStreamFarm(specs, 2, chunk_frames=CHUNK, max_radius=8, device="cpu")
+    a.process(list(data[0]))
+    assert a.adjust_stream(1, 44100, 48000)
+    snap = ckpt.save_mixed_farm(a)
+    assert len(snap["groups"]) == 3 and snap["interpret"] is False
+    snap = dict(snap, interpret=True,
+                groups=[dict(g, farm=dict(g["farm"], interpret=True)) for g in snap["groups"]])
+    b = jckpt.load_mixed_farm(snap)
+    for i, (got, want) in enumerate(zip(_finish_mixed(b, data[1:]), _finish_mixed(a, data[1:]))):
+        np.testing.assert_array_equal(got, want, err_msg=f"stream {i}")
+
+
+def test_torch_mixed_farm_snapshot_after_a_strided_move_restores_in_jax():
+    """A stream of a tiled group moved to 96k -> 48k (strided) under a
+    100-row radius reserve, where the JAX farm sizes a strided group's
+    staging far larger than a tiled one's: its solo farm is saved with the
+    source group's capacity, as the JAX adjust_stream builds it, and the
+    snapshot restores in the JAX package and continues bit for bit."""
+    specs = [(48000, 44100)] * 2
+    data = _data(8, 2, len(specs), CHUNK, 2)
+    a = MixedStreamFarm(specs, 2, chunk_frames=CHUNK, max_radius=100, device="cpu")
+    a.process(list(data[0]))
+    assert a.adjust_stream(1, 96000, 48000)
+    j = JMixedFarm(specs, 2, chunk_frames=CHUNK, max_radius=100, interpret=True)
+    assert j.adjust_stream(1, 96000, 48000)
+    snap = ckpt.save_mixed_farm(a)
+    rows = [g["farm"]["staging"].shape[0] for g in snap["groups"]]
+    assert rows == [f._capacity for f, _ in j._groups] == [rows[0]] * 2
+    assert rows[0] < JFarm(1, 2, 96000, 48000, chunk_frames=CHUNK, max_radius=100)._capacity
+    snap = dict(snap, interpret=True,
+                groups=[dict(g, farm=dict(g["farm"], interpret=True)) for g in snap["groups"]])
+    b = jckpt.load_mixed_farm(snap)
+    for i, (got, want) in enumerate(zip(_finish_mixed(b, data[1:]), _finish_mixed(a, data[1:]))):
+        np.testing.assert_array_equal(got, want, err_msg=f"stream {i}")
+
+
+def test_torch_capacity_ratio_survives_a_port_round_trip():
+    """A farm adjusted after it was built keeps the JAX capacity of the
+    ratio it was built for through save_farm and the port's load_farm."""
+    a = UniformStreamFarm(2, 2, 48000, 44100, chunk_frames=CHUNK, max_radius=100, device="cpu")
+    a.process(_data(9, 2, CHUNK, 2))
+    assert a.adjust(96000, 48000)
+    snap = ckpt.save_farm(a)
+    b = ckpt.load_farm(snap, device="cpu")
+    assert snap["staging"].shape[0] == ckpt.jax_capacity(b) == JFarm(
+        2, 2, 48000, 44100, chunk_frames=CHUNK, max_radius=100)._capacity
 
 
 def test_torch_load_refuses_other_kinds():

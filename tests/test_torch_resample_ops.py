@@ -117,26 +117,26 @@ def test_torch_multi_resample_routes_on_cpu():
 
 
 def test_torch_kernel_wrappers_refuse_cpu_tensors():
-    """The kernel launchers never fall back: CPU tensors are refused before
-    any build is attempted (the tiled launcher takes the launch state and
-    tables and computes its own geometry)."""
-    _, p, m = _launch(48000, 44100, torch.device("cpu"))
-    st = p["state"]
-    rows, kv, q, _, _ = rs.precompute_launch(p["table"], st, max_taps=m["taps"], n_out=64)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _build.tiled_mac(p["x"], p["table"], p["tstr"], st.position_integer,
-                         st.position_fractional, st.cfg, max_taps=m["taps"], n_out=64,
-                         lanes=128, lane_offset=0, frames_per_stage=64, win_rows=100,
-                         clamp_s16=False)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _build.general_mac(p["x"], rows, kv, q, lanes=128, lane_offset=0, clamp_s16=False)
+    """The kernel launcher never falls back: CPU tensors are refused before
+    any build is attempted, for a tiled launch and for a general one (the
+    same launcher, with the general stage plan; both take the launch state
+    and tables and compute their own geometry)."""
+    for rates, plan in (((48000, 44100), (64, 100)), ((44100, 8000), None)):
+        _, p, m = _launch(*rates, torch.device("cpu"))
+        st = p["state"]
+        frames, win_rows = plan or rs.stage_plan(m["taps"], rs.GENERAL_MIN_INCREMENT)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            _build.tiled_mac(p["x"], p["table"], p["tstr"], st.position_integer,
+                             st.position_fractional, st.cfg, max_taps=m["taps"], n_out=64,
+                             lanes=128, lane_offset=0, frames_per_stage=frames,
+                             win_rows=win_rows, clamp_s16=False)
 
 
 def test_torch_tiled_window_rows_bounds_every_block():
     """The shared window a tiled stage holds covers every frame's window in
     every stage, at every stage size the kernel takes (8-64 frames), across
-    the whole tiled increment range; at 64 frames it is 63d + 9(cand - 1)
-    + T rows."""
+    the whole tiled increment range, from the class's increment bound; at
+    64 frames it is at most 63d + 9(cand - 1) + T rows."""
     for frames in rs.TILED_STAGE_FRAMES:
         for inc in list(range(1, 2**17, 997)) + [65535, 65536, 2**17 - 1]:
             plan = rs.plan_uniform(inc, 0)
@@ -145,9 +145,13 @@ def test_torch_tiled_window_rows_bounds_every_block():
                 rows = -(-(f0 + n * inc + delta) // 65536)
                 blocks = rows.reshape(-1, frames)
                 span = (blocks[:, -1] - blocks[:, 0]).max() + 8
-                assert span <= rs.tiled_window_rows(plan["d"], plan["cand"], 8, frames), (
-                    frames, inc)
-    assert rs.tiled_window_rows(1, 8, 40, 64) == 63 + 63 + 40
+                bound = rs.tiled_increment_bound(plan["d"], plan["cand"])
+                assert span <= rs.stage_window_rows(bound, frames, 8), (frames, inc)
+    for d in (0, 1):
+        for cand in range(1, 9):
+            assert rs.stage_window_rows(rs.tiled_increment_bound(d, cand), 64, 40) <= (
+                63 * d + 9 * (cand - 1) + 40)
+    assert rs.stage_window_rows(rs.tiled_increment_bound(1, 8), 64, 40) == 63 + 63 + 40
 
 
 @pytest.fixture
