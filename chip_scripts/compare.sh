@@ -13,11 +13,14 @@
 # split into staging, the launch's host issue, the launch on the device's
 # clock (CUDA events from the end of staging) and the device-to-host copy;
 # one JSON line a farm run into chiprun_out/farm_ab.jsonl, and the medians
-# printed at the end.
+# printed at the end. Before the farms: the four runs' scan and entry times
+# side by side, and the host's time to issue config 7's scan in each tree
+# (chiprun_out/scan_ab.jsonl).
 parent=${1:?usage: compare.sh PARENT_DIR [FARM_PAIRS [FARM_CHECK_PAIRS]]}
 farm_pairs=${2:-0}
 farm_check_pairs=${3:-0}
 mkdir -p chiprun_out
+rm -f chiprun_out/scan_ab.jsonl
 nvidia-smi --query-gpu=name,power.limit,clocks.max.sm --format=csv,noheader
 run() {  # name dir
   local t0=$SECONDS
@@ -32,12 +35,75 @@ run parent2 "$parent"
 t0=$SECONDS
 JAX_PLATFORMS=cpu python3 -m pytest tests/test_torch_resample_ops.py tests/test_torch_strided_wide.py \
   tests/test_torch_scan.py tests/test_torch_tiled_kernel.py tests/test_torch_strided_wide_kernel.py \
-  tests/test_torch_general_kernel.py \
+  tests/test_torch_general_kernel.py tests/test_torch_scan_program.py \
   -q -m cuda -p no:cacheprovider \
   > chiprun_out/cuda_tests.log 2>&1
 echo "cuda tests rc=$? seconds=$(( SECONDS - t0 ))"
 tail -n 2 chiprun_out/cuda_tests.log
 for f in parent1 change1 change2 parent2; do echo "== $f"; tail -n 3 chiprun_out/$f.log | cut -c1-600; done
+# The four runs' scan and entry times side by side (keys a tree's script lacks
+# print as None).
+python3 - <<'PY'
+import json
+
+for name in ("parent1", "change1", "change2", "parent2"):
+    phases = {}
+    for ln in open(f"chiprun_out/{name}.log"):
+        if ln.startswith('{"phase"'):
+            d = json.loads(ln)
+            phases[d["phase"]] = d
+    scan, timing = phases.get("scan_timing", {}), phases.get("timing", {}).get("kernels", {})
+    old = scan.get("profiler", {})
+    loops = scan.get("step_loops") or [{}]
+    print(name, "scan", {k: scan.get(k) for k in (
+        "ms_per_chunk", "msamples_per_s", "peak_allocated_bytes_k40", "host_issue_us_per_chunk",
+        "step_loop_host_us_per_step", "device_busy_share", "host_bound")},
+        "profiled busy share", old.get("device_busy_share",
+                                       loops[0].get("profiled_device_busy_share")),
+        "device ms a step", loops[0].get("device_ms_per_step",
+                                         (old.get("mac_kernel_ms_per_step") or 0)
+                                         + (old.get("other_device_ms_per_step") or 0)))
+    print(name, "entries ms", {k: round(v["ms"], 5) for k, v in timing.items()})
+PY
+# The host's time to issue config 7's scan, parent and change in turns, a fresh
+# process each: the call's return (no synchronise) and the run's end, at
+# SCAN7's two K, best of 3; the K-slope is the host's time a chunk.
+scan_run() {  # tree dir
+  (cd "$2" && python3 - "$1" <<'PY'
+import json, sys, time
+
+import torch
+
+import chip_smoke as cs
+
+gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+k1, k2 = cs.SCAN7["timing_k"]
+c = cs.scan_case(cs.SCAN7["rates"], cs.SCAN7["lanes"], k2 - 1, gen)
+cs.fused_scan(c, k1)
+res = {}
+for k in (k1, k2):
+    issue, wall = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cs.fused_scan(c, k)
+        issue.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        del out
+    res[k] = (min(issue), min(wall))
+print(json.dumps(dict(
+    tree=sys.argv[1], k=[k1, k2], issue_ms=[res[k1][0], res[k2][0]],
+    wall_ms=[res[k1][1], res[k2][1]],
+    host_issue_us_per_chunk=1e3 * (res[k2][0] - res[k1][0]) / (k2 - k1),
+    wall_us_per_chunk=1e3 * (res[k2][1] - res[k1][1]) / (k2 - k1))), flush=True)
+PY
+  )
+}
+for tree in parent change change parent; do
+  dir=$([ "$tree" = parent ] && echo "$parent" || echo .)
+  scan_run "$tree" "$dir" | tee -a chiprun_out/scan_ab.jsonl || echo "scan run $tree rc=$?"
+done
 
 farm_run() {  # tree dir pre
   (cd "$2" && python3 - "$1" "$3" <<'PY'

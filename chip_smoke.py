@@ -10,8 +10,9 @@ the card, drives the public entry points -- the four reference goldens, a
 (strided kernel), the config-5 mixed-ratio farm with a per-stream adjust,
 the wide-kernel paths (44.1 kHz -> 132 Hz, and general ratios of 272 and
 1016 taps), config 7's whole-stream scan (1024 stereo streams, 44.1 kHz ->
-8 kHz, run with no host sync) and the scans of the other engines (the
-tiled one with no host sync too), farm checkpoints restored on the card,
+8 kHz) and the scans of the other three engines, each one device program
+(a scan_stage_kernel launch and the engine's launches a step) run with no
+host sync, farm checkpoints restored on the card,
 and the CLI on the card -- then, with the launch counts reset, the sharded
 paths on a mesh of four dp shards over the machine's cards in turn (one
 card: four shards of it, each on its own CUDA stream): the headline farm,
@@ -20,11 +21,15 @@ farm as sharded farms, the lane-sharded tiled entry, the sharded batch on a
 (dp=2, sp=4) mesh, a sharded farm's checkpoint restored onto the mesh and
 onto the card, and the multichip example as a subprocess. It checks that
 every launch of those paths took a CUDA kernel, checks their outputs against
-the gather oracle, the oracle scan, CPU replays and a golden md5, and every
+the gather oracle, the plain scan (every lane) and the oracle scan, CPU
+replays and a golden md5, and every
 stream of every sharded path against its unsharded counterpart; times the
 kernels beside their bounds, the farms (sharded beside unsharded, each call
 split into staging, launch and copy out), the batched resample_batch beside
-a per-stream loop, the output de-interleave three ways, and the scan; counts
+a per-stream loop, the output de-interleave three ways, and the scan (ms a
+chunk, the host's time to issue a step, scan_stage_kernel beside its bound);
+shows by torch.profiler that each engine's step loop runs no aten op,
+allocates nothing and puts exactly its kernels on the card; counts
 the device launches of one tiled, general, strided and wide entry call (one,
 one, one and two: each entry computes its own launch geometry), and prints
 one line per phase. It runs in about a minute of command time on an H100.
@@ -92,7 +97,9 @@ TILED_CLASSES = tuple((d, c, 48000 if c == 1 else round(48000 * (d + (c - 1.5) /
 # cand-8 increment: windows past the stage, read from device memory);
 # shard (the launch of dp shard i of SHARD_DP: SHARD_LANES lanes at
 # i*SHARD_LANES, issued on a side CUDA stream); and the entry's clamp_s16,
-# lanes and lane_offset.
+# lanes and lane_offset; n_valid (and frame_offset): frames n with n +
+# frame_offset >= n_valid come back 0 (given to the entry as a one-element
+# device tensor, as a scan step's produced count is).
 TILED_CASES = (
     ("48k->44.1k headline", (48000, 44100), 8192, 2048, {}),
     *((f"{a}->48k d={d} cand={c}", (a, 48000), 1024, 512, {}) for d, c, a in TILED_CLASSES),
@@ -113,6 +120,11 @@ TILED_CASES = (
     ("92.6k->48k given cand=1", (92571, 48000), 2048, 512, dict(cand=1)),
     ("48k->44.1k one stereo stream", (48000, 44100), 4096, 2, {}),
     ("48k->44.1k shard 1 of 4 on a side stream", (48000, 44100), 8192, 2048, dict(shard=1)),
+    ("48k->44.1k n_valid 5000", (48000, 44100), 8192, 2048, dict(n_valid=5000)),
+    ("48k->44.1k n_valid 4100 at frame offset 4096, clamp_s16, lane slice 517+1000",
+     (48000, 44100), 8192, 2048,
+     dict(n_valid=4100, frame_offset=4096, clamp_s16=True, lanes=1000, lane_offset=517)),
+    ("48k->44.1k n_valid past the launch", (48000, 44100), 1024, 512, dict(n_valid=1 << 20)),
 )
 # The general entry (tiled_mac_kernel) against its plain version, options
 # as TILED_CASES': d 2 (48k -> 22.05k, 16 taps), 4 (192k -> 44.1k, 32), 5
@@ -153,6 +165,11 @@ GENERAL_CASES = (
      dict(flat=True, cut=600)),
     ("44.1k->8k shard 2 of 4 on a side stream", (44100, 8000), 4096, 2048,
      dict(f0=0x8421, shard=2)),
+    ("44.1k->8k n_valid 1487 of 1536 (a scan step)", (44100, 8000), 1536, 2048,
+     dict(p0=17, n_valid=1487)),
+    ("44.1k->8k n_valid 0, one stereo stream", (44100, 8000), 1536, 2, dict(n_valid=0)),
+    ("44.1k->1100 T=248 n_valid 300 at frame offset 200 (unstaged)", (44100, 1100), 1024, 512,
+     dict(f0=0x8421, n_valid=300, frame_offset=200)),
 )
 STRIDED_RATIOS = ((96000, 48000), (192000, 48000), (132300, 44100), (529200, 44100))
 # The strided kernel against its plain version: (label, rates, n_out, x
@@ -174,6 +191,9 @@ STRIDED_CASES = (
     ("96k->48k one stereo stream", (96000, 48000), 4096, 2, {}),
     ("48k->8k d=6", (48000, 8000), 2048, 512, dict(p0=1)),
     ("96k->48k shard 3 of 4 on a side stream", (96000, 48000), 8192, 2048, dict(shard=3)),
+    ("96k->48k n_valid 4105", (96000, 48000), 8192, 2048, dict(p0=12, n_valid=4105)),
+    ("529.2k->44.1k n_valid 77 at frame offset 64, clamp_s16, one stereo stream",
+     (529200, 44100), 4096, 2, dict(n_valid=77, frame_offset=64, clamp_s16=True)),
 )
 # The wide kernel against its plain version, as STRIDED_CASES (cut: rows
 # 8d + 8 taken off x's end; flat: the flat LUT instead of the strided one):
@@ -197,6 +217,36 @@ WIDE_CASES = (
     ("44.1k->132 1024 frames x 512 lanes", (44100, 132), 1024, 512, {}),
     ("44.1k->132 shard 0 of 4 on a side stream", (44100, 132), 64, 2048,
      dict(f0=0x8421, shard=0)),
+    ("44.1k->1000 taps 272 n_valid 186 of 256 (a scan step)", (44100, 1000), 256, 512,
+     dict(p0=136, n_valid=186)),
+    ("44.1k->132 n_valid 70 at frame offset 64, clamp_s16", (44100, 132), 64, 1024,
+     dict(f0=0x8421, n_valid=70, frame_offset=64, clamp_s16=True)),
+)
+# scan_stage_kernel against its plain version, one launch a case: (label,
+# rates, lanes, n_in, chunk type, options). Options: first (the scan's first
+# step: the other buffer all zeros and the state (radius, 0); else a random
+# other buffer and the state p, f); n_out and launch_step (the engine launches'
+# frame offsets 0, launch_step, ...; one launch by default).
+SCAN_STAGE_CASES = (
+    ("44.1k->8k first step int16 x 2048", (44100, 8000), 2048, 8192, torch.int16,
+     dict(first=True)),
+    ("44.1k->8k int16 x 2048", (44100, 8000), 2048, 8192, torch.int16, dict(p=3, f=0x8421)),
+    ("44.1k->8k int32 x 2048", (44100, 8000), 2048, 8192, torch.int32, dict(p=0, f=0xFFFF)),
+    ("48k->44.1k int16 x 512", (48000, 44100), 512, 8192, torch.int16, dict(p=1, f=12345)),
+    ("96k->48k first step int32 x 512", (96000, 48000), 512, 8192, torch.int32,
+     dict(first=True)),
+    ("44.1k->8k int16 x 6", (44100, 8000), 6, 8192, torch.int16, dict(p=2, f=777)),
+    ("44.1k->8k first step int32 x 6", (44100, 8000), 6, 4000, torch.int32, dict(first=True)),
+    ("44.1k->1000 n_in 128 < 2r int16 x 512", (44100, 1000), 512, 128, torch.int16,
+     dict(p=140, f=0x1111)),
+    ("44.1k->1000 n_in 128 < 2r first step int32 x 6", (44100, 1000), 6, 128, torch.int32,
+     dict(first=True)),
+    ("44.1k->1000 wide engine, launches at 0, 96, 192", (44100, 1000), 512, 8192, torch.int16,
+     dict(p=9, f=0x8421, n_out=256, launch_step=96)),
+    ("8k->44.1k undersized n_out (over)", (8000, 44100), 512, 8192, torch.int16,
+     dict(p=0, f=5, n_out=8192)),
+    ("44.1k->8k state past the chunk (nothing produced)", (44100, 8000), 512, 1024,
+     torch.int16, dict(p=1030, f=1)),
 )
 # General-class ratios at taps 184, 248, 272, 312, 352 and 1016, and 2008:
 # the general entry against the wide entry across their crossover.
@@ -253,7 +303,12 @@ KERNELS = {  # name -> (ROUTES kind, source, TPU kernels it replaces)
     "strided_mac_kernel": ("strided", CSRC + "strided_kernels.cu",
                            f"{PALLAS}:664, {PALLAS}:720"),
     "wide_mac_kernel": ("wide", CSRC + "wide_kernels.cu", f"{PALLAS}:1074, {PALLAS}:1158"),
+    # No Pallas kernel: the stage and bookkeeping XLA compiles into the jitted scan.
+    "scan_stage_kernel": ("scan_stage", CSRC + "scan_kernels.cu",
+                          "clownresampler_tpu/lowlevel.py:378, clownresampler_tpu/lowlevel.py:381"),
 }
+# The kernels the sharded paths launch (they run no scan).
+SHARDED_KERNELS = tuple(name for name in KERNELS if name != "scan_stage_kernel")
 
 
 def phase(name: str, **fields) -> None:
@@ -328,6 +383,12 @@ def _shard_lanes(o: dict) -> None:
         o.update(lanes=SHARD_LANES, lane_offset=SHARD_LANES * o.pop("shard"))
 
 
+def _valid_tensor(o: dict) -> None:
+    """Turn a case's ``n_valid`` option into the entry's device tensor."""
+    if "n_valid" in o:
+        o["n_valid"] = torch.tensor([o["n_valid"]], dtype=torch.int32, device=DEVICE)
+
+
 def _lanes_case(case, gen, kind: str) -> tuple:
     """(launch_case dict, x, state, the entry's arguments) of a TILED_CASES
     or GENERAL_CASES entry on the card."""
@@ -345,6 +406,7 @@ def _lanes_case(case, gen, kind: str) -> tuple:
     if o.pop("ints", False):
         state = DeviceState(int(state.position_integer), int(state.position_fractional),
                             state.cfg)
+    _valid_tensor(o)
     args = dict(max_taps=c["max_taps"], n_out=n_out,
                 table_strided=None if o.pop("flat", False) else c["table_strided"])
     if kind == "tiled":
@@ -395,6 +457,7 @@ def _case_launch(case, gen, kind: str) -> tuple:
     if o.pop("ints", False):
         state = DeviceState(int(state.position_integer), int(state.position_fractional),
                             state.cfg)
+    _valid_tensor(o)
     args = dict(max_taps=c["max_taps"], n_out=n_out, d=c["d"], **o)
     if kind == "wide":
         args["table_strided"] = None if args.pop("flat", False) else c["table_strided"]
@@ -425,6 +488,55 @@ def run_wide_case(case, gen) -> tuple:
     return got, want, rows, rows_ref
 
 
+def scan_stage_inputs(rates, lanes: int, n_in: int, dtype, gen, first=False, p=0, f=0,
+                      n_out=None, launch_step=None) -> dict:
+    """One scan step's inputs on the card: the other buffer (zeros for the
+    first step, else random), the chunk, the state (p carries the scan's
+    +radius bias) and the step's geometry, as scan_case sizes it."""
+    from clownresampler_tpu_torch import fixedpoint as fx
+    from clownresampler_tpu_torch.configure import configure
+    from clownresampler_tpu_torch.lowlevel import make_device_state
+
+    dev = torch.device(DEVICE)
+    cfg = configure(*rates, max(rates))
+    inc = fx.calculate_ratio(*rates)
+    r = cfg.integer_stretched_kernel_radius
+    rows = 2 * r + n_in + fx.round_up(2 * r, 8) + 8
+    rand = lambda shape: torch.randint(-32768, 32768, shape, generator=gen, dtype=torch.int32,
+                                       device=dev)
+    prev = torch.zeros((rows, lanes), dtype=torch.int32, device=dev) if first else rand(
+        (rows, lanes))
+    state = torch.tensor([r, 0] if first else [p + r, f], dtype=torch.int32).to(dev)
+    return dict(prev=prev, chunk=rand((n_in, lanes)).to(dtype), state=state,
+                cfg=make_device_state(0, 0, cfg, inc, dev).cfg, radius=r,
+                n_out=n_out or fx.round_up((((n_in + 2 * r) << 16) // inc) + 8, 128),
+                launch_step=launch_step)
+
+
+def run_scan_stage_case(case, gen) -> int:
+    """One SCAN_STAGE_CASES launch of scan_stage_kernel against
+    scan_stage_reference on the same inputs: the staged rows, produced,
+    over, the launch states and the next state, exact; the buffer's rows
+    past the staged ones untouched. Returns the largest difference (0)."""
+    from clownresampler_tpu_torch.lowlevel import scan_stage, scan_stage_reference
+
+    label, rates, lanes, n_in, dtype, opts = case
+    c = scan_stage_inputs(rates, lanes, n_in, dtype, gen, **opts)
+    args = dict(radius=c["radius"], n_out=c["n_out"], launch_step=c["launch_step"])
+    out = torch.full_like(c["prev"], -7)
+    got = scan_stage(c["prev"], c["chunk"], c["state"], c["cfg"], out=out, **args)
+    want = scan_stage_reference(c["prev"], c["chunk"], c["state"], c["cfg"], **args)
+    err = 0
+    for name, g, w in zip(("rows", "produced", "over", "launch_states", "next_state"),
+                          got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"scan_stage_kernel != plain version at {label}: {name}")
+        err = max(err, int((g.long() - w.long()).abs().max()))
+    if not (out[want[0].shape[0]:] == -7).all():
+        raise AssertionError(f"scan_stage_kernel wrote past the staged rows at {label}")
+    return err
+
+
 def _compare(results, kernel, name, got, want, rows=None, rows_ref=None):
     err = (got.long() - want.long()).abs().max().item()
     if err or got.dtype != want.dtype or got.shape != want.shape or (
@@ -445,6 +557,8 @@ def check_kernels(gen) -> dict:
         _compare(results, "strided_mac_kernel", case[0], *run_strided_case(case, gen))
     for case in WIDE_CASES:
         _compare(results, "wide_mac_kernel", case[0], *run_wide_case(case, gen))
+    for case in SCAN_STAGE_CASES:
+        results["scan_stage_kernel"].append((case[0], run_scan_stage_case(case, gen)))
     torch.cuda.synchronize()
     return results
 
@@ -924,12 +1038,14 @@ def fused_scan(c: dict, k=None):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        return resample_scan_fused(
-            c["table"], c["chunks"][:k], c["state"], max_taps=c["max_taps"],
-            n_out=c["n_out"], radius=c["radius"], increment=c["increment"],
-            table_strided=c["table_strided"])
+        return resample_scan_fused(c["table"], c["chunks"][:k], c["state"], **scan_args(c))
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def scan_args(c: dict) -> dict:
+    return dict(max_taps=c["max_taps"], n_out=c["n_out"], radius=c["radius"],
+                increment=c["increment"], table_strided=c["table_strided"])
 
 
 def run_scans(gen) -> dict:
@@ -946,11 +1062,20 @@ def run_scans(gen) -> dict:
 
 
 def check_scan(run: dict) -> dict:
-    """The fused scan against the port's oracle scan on the card over lanes
-    0-3 and the last four: outputs, produced, state and backlog, exact."""
-    from clownresampler_tpu_torch.lowlevel import resample_scan
+    """The fused scan (the device program) against its plain version on the
+    card over every lane, and against the port's oracle scan over lanes 0-3
+    and the last four: outputs, produced, state and backlog, exact."""
+    from clownresampler_tpu_torch.lowlevel import resample_scan, resample_scan_fused_reference
 
     c, (out, produced, state, backlog) = run["case"], run["result"]
+    plain = resample_scan_fused_reference(c["table"], c["chunks"], c["state"], **scan_args(c))
+    same = (torch.equal(out, plain[0]) and produced.dtype == plain[1].dtype
+            and torch.equal(produced, plain[1]) and bool(backlog) == bool(plain[3])
+            and torch.equal(state.position_integer, plain[2].position_integer)
+            and torch.equal(state.position_fractional, plain[2].position_fractional))
+    if not same:
+        raise AssertionError(f"scan {c['rates']} != resample_scan_fused_reference")
+    del plain
     lanes = c["chunks"].shape[2]
     cols = [0, 1, 2, 3, lanes - 4, lanes - 3, lanes - 2, lanes - 1]
     idx = torch.tensor(cols, device=out.device)
@@ -964,7 +1089,8 @@ def check_scan(run: dict) -> dict:
         raise AssertionError(f"scan {c['rates']} != oracle scan on lanes {cols}")
     return dict(rates=c["rates"], lanes=lanes, chunks=c["chunks"].shape[0], n_in=SCAN7["n_in"],
                 n_out=c["n_out"], taps=c["max_taps"], produced_frames=int(produced.sum()),
-                state=list(pos), backlog=False, oracle_lanes_exact=cols,
+                state=list(pos), backlog=False, plain_version_exact="every lane",
+                oracle_lanes_exact=cols,
                 seconds_with_no_sync=run["seconds"])
 
 
@@ -992,13 +1118,125 @@ def check_scan_replay(run: dict, streams) -> list:
     return list(streams)
 
 
-def time_scan(gen) -> dict:
+def profile_scan_program(c: dict, k: int, attempts: int = 3) -> dict:
+    """The step loop of one scan (``ScanProgram.run`` over the first k
+    chunks, set up outside) under torch.profiler with memory profiling on:
+    fails unless the loop ran no ``aten::`` op, allocated and freed nothing
+    and put exactly its kernels on the card -- a step is one
+    scan_stage_kernel and the engine's launches (one device activity each,
+    two for a wide launch). The profiler now and then loses a kernel's
+    record, so a count that is off is taken again with a new program, up to
+    ``attempts`` times; an aten op, a memory event or an activity that is
+    none of the loop's kernels fails at once. Returns the device activities
+    a step, the device time a step by kernel, and the device's busy share of
+    the loop's wall time (profiled: the profiler slows the host's issue)."""
+    from clownresampler_tpu_torch.lowlevel import ScanProgram
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(1, attempts + 1):
+        program = ScanProgram(c["table"], c["chunks"][:k], c["state"], **scan_args(c))
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts, profile_memory=True) as prof:
+            torch.cuda.synchronize()  # the tracer is up before the first launch
+            t0 = time.perf_counter()
+            program.run()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        device_us, counts, aten, memory_events = {}, {}, [], 0
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                device_us[evt.key] = device_us.get(evt.key, 0) + evt.self_device_time_total
+                counts[evt.key] = counts.get(evt.key, 0) + evt.count
+            elif evt.key.startswith("aten::"):
+                aten.append(evt.key)
+            elif evt.key == "[memory]":
+                memory_events += evt.count
+        kernels = ("scan_stage_kernel", *ENTRY_KERNELS[program.kind])
+        strangers = [key for key in counts if not any(name in key for name in kernels)]
+        if aten or memory_events or strangers:
+            raise AssertionError(
+                f"scan {c['rates']}: the step loop ran aten ops {aten}, {memory_events} memory "
+                f"events and device activities other than its kernels: {strangers}")
+        want = 1 + program.launches * len(ENTRY_KERNELS[program.kind])
+        stage_launches = sum(n for key, n in counts.items() if "scan_stage_kernel" in key)
+        if sum(counts.values()) == want * k and stage_launches == k:
+            break
+        if attempt == attempts:
+            raise AssertionError(
+                f"scan {c['rates']}: {counts} device activities over {k} steps in each of "
+                f"{attempts} profiles (wanted {want} a step)")
+    total_us = sum(device_us.values())
+    return dict(rates=c["rates"], engine=program.kind, steps=k, aten_ops=0, memory_events=0,
+                profiles_taken=attempt, device_activities_per_step=want,
+                device_ms_per_step=total_us / 1e3 / k,
+                device_ms_per_step_by_kernel={key[:60]: v / 1e3 / k
+                                              for key, v in sorted(device_us.items())},
+                profiled_wall_ms=wall_ms, profiled_device_busy_share=total_us / 1e3 / wall_ms)
+
+
+def time_scan_stage(c: dict, peaks: dict) -> dict:
+    """scan_stage_kernel at config 7's step: the C entry as the scan calls
+    it (its arguments built once), CUDA events around 20 back-to-back calls
+    after 20 untimed, the result then checked against the plain version;
+    the plain version's time; the bound -- the chunk and the halo read once,
+    the staged rows written once, over the HBM rate (the bookkeeping's few
+    dozen operations do not count)."""
+    from clownresampler_tpu_torch.lowlevel import scan_stage_reference
+    from clownresampler_tpu_torch.ops import _build
+
+    dev = torch.device(DEVICE)
+    r, n_out = c["radius"], c["n_out"]
+    chunk = c["chunks"][0]
+    n_in, lanes = chunk.shape
+    prev = torch.randint(-32768, 32768, (2 * r + n_in + c["max_taps"] + 8, lanes),
+                         dtype=torch.int32, device=dev)
+    cur = torch.zeros_like(prev)
+    state = torch.tensor([r + 2, 0x8421], dtype=torch.int32).to(dev)
+    book = torch.empty(6, dtype=torch.int32, device=dev)
+    args = _build.ordered_args("crt_scan_stage", _build.scan_stage_args(
+        prev, cur, chunk, state, c["state"].cfg, book[0:1], book[1:2], book[4:6].view(1, 2),
+        book[2:4], halo_rows=2 * r, n_out=n_out, launch_step=n_out))
+    entry = _build.entry_function("crt_scan_stage")
+
+    def issue(reps):
+        for _ in range(reps):
+            _build.raise_on_launch(entry(*args), "crt_scan_stage")
+
+    reps = 20
+    issue(reps)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    issue(reps)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    plain = lambda: scan_stage_reference(prev, chunk, state, c["state"].cfg, radius=r,
+                                         n_out=n_out)
+    want = plain()
+    got = (cur[: 2 * r + n_in], book[0], book[1], book[4:6].view(1, 2), book[2:4])
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("the timed scan_stage_kernel launches != the plain version")
+    nbytes = chunk.nbytes + 4 * 2 * r * lanes + 4 * (2 * r + n_in) * lanes
+    bound_ms = 1e3 * nbytes / peaks["hbm_bytes_per_s"]
+    return dict(ms=ms, plain_ms=cuda_ms(lambda: plain()[0]), bound_ms=bound_ms,
+                bound_by="bytes", bytes=nbytes, bound_share=bound_ms / ms,
+                achieved_bytes_per_s=nbytes / (ms / 1e3),
+                shape=f"chunk ({n_in}, {lanes}) {str(chunk.dtype)[6:]}, halo {2 * r} rows, "
+                      f"n_out {n_out}")
+
+
+def time_scan(gen, peaks: dict) -> dict:
     """Config 7's per-chunk time: the K-slope of the fused scan between
     SCAN7["timing_k"] chunks (every step's output kept), CUDA events around
-    each run, best of 3 after a warm-up; then one step's general entry
-    (events) beside its device activities and their time (torch.profiler),
-    and the device time by kernel over a run (torch.profiler)."""
-    from clownresampler_tpu_torch.lowlevel import make_device_state
+    each run, best of 3 after a warm-up, with the host's time to issue a run
+    (the call's return, before any synchronise) beside it and the step
+    loop's own host time a step (``ScanProgram.run`` alone); scan_stage_kernel
+    alone beside its bound; one step's general entry (events) beside its
+    device activities and their time (torch.profiler); then, last (a
+    profiler run slows later launches), each engine's step loop under
+    torch.profiler (profile_scan_program)."""
+    from clownresampler_tpu_torch.lowlevel import ScanProgram, make_device_state
     from clownresampler_tpu_torch.ops import resample as rs
 
     k1, k2 = SCAN7["timing_k"]
@@ -1007,23 +1245,38 @@ def time_scan(gen) -> dict:
     fused_scan(c, k1)
 
     def timed(k):
-        best, produced = None, None
+        best, issue, produced = None, None, None
         for _ in range(3):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             torch.cuda.synchronize()
             start.record()
+            t0 = time.perf_counter()
             res = fused_scan(c, k)
+            issued = 1e3 * (time.perf_counter() - t0)
             end.record()
             torch.cuda.synchronize()
             best = min(best or 1e30, start.elapsed_time(end))
+            issue = min(issue or 1e30, issued)
             produced = int(res[1].sum())
             del res  # one run's outputs alive at a time: the peak is one scan's
-        return best, produced
+        return best, issue, produced
 
     torch.cuda.reset_peak_memory_stats()
-    (t1, p1), (t2, p2) = timed(k1), timed(k2)
+    (t1, i1, p1), (t2, i2, p2) = timed(k1), timed(k2)
     peak = torch.cuda.max_memory_allocated()
     ms_per_chunk = (t2 - t1) / (k2 - k1)
+
+    # The step loop alone: set-up outside the clock, no synchronise inside it.
+    loop_us = []
+    for _ in range(3):
+        program = ScanProgram(c["table"], c["chunks"][:k2], c["state"], **scan_args(c))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program.run()
+        loop_us.append(1e6 * (time.perf_counter() - t0) / k2)
+        torch.cuda.synchronize()
+        del program
+    stage = time_scan_stage(c, peaks)
 
     # One step's launch: buffer [halo | chunk | zeros], the first step's state.
     r, taps, n_out = c["radius"], c["max_taps"], c["n_out"]
@@ -1035,31 +1288,25 @@ def time_scan(gen) -> dict:
     entry = lambda: rs.resample_uniform_lanes_general(c["table"], buf, st, **args)[0]
     split = dict(entry_ms=cuda_ms(entry))
     split["device_activities"], split["device_ms"] = device_launches(entry)
+    del buf
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fused_scan(c, k1)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    device_us = {}  # device activity only: the host ops that launched it would count it twice
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            device_us[evt.key] = device_us.get(evt.key, 0) + evt.self_device_time_total
-    mac_us = sum(v for key, v in device_us.items() if "mac_kernel" in key)
-    other_us = sum(device_us.values()) - mac_us
-    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+    profiles = [profile_scan_program(c, k1)]
+    del c
+    for rates, engine_lanes in SCAN_ENGINES:
+        e = scan_case(rates, engine_lanes, SCAN_ENGINE_CHUNKS, gen)
+        profiles.append(profile_scan_program(e, SCAN_ENGINE_CHUNKS + 1))
+        del e
+    device_ms = profiles[0]["device_ms_per_step"]
     return dict(
         rates=SCAN7["rates"], lanes=lanes, n_in=SCAN7["n_in"], n_out=n_out, taps=taps,
         k=[k1, k2], run_ms=[t1, t2], ms_per_chunk=ms_per_chunk,
         msamples_per_s=(p2 - p1) * lanes / (ms_per_chunk * (k2 - k1)) / 1e3,
         produced_frames=[p1, p2], peak_allocated_bytes_k40=peak,
-        step_launch=split,
-        profiler=dict(k=k1, wall_ms=wall_ms, mac_kernel_ms_per_step=mac_us / 1e3 / k1,
-                      other_device_ms_per_step=other_us / 1e3 / k1,
-                      device_busy_share=(mac_us + other_us) / 1e3 / wall_ms,
-                      top_device_us={key[:90]: v for key, v in top}))
+        host_issue_ms=[i1, i2], host_issue_us_per_chunk=1e3 * (i2 - i1) / (k2 - k1),
+        step_loop_host_us_per_step=min(loop_us), step_loop_host_us_per_step_runs=loop_us,
+        device_busy_share=device_ms / ms_per_chunk,
+        host_bound=min(loop_us) / 1e3 > device_ms,
+        scan_stage_kernel=stage, step_launch=split, step_loops=profiles)
 
 
 def run_checkpoints(rng) -> dict:
@@ -1461,9 +1708,10 @@ def main() -> int:
     phase("routes", launches={f"{k}/{impl}": v for (k, impl), v in sorted(launches.items())},
           sharded_launches={f"{k}/{impl}": v
                             for (k, impl), v in sorted(sharded_launches.items())})
-    for name, counts in (("main", launches), ("sharded", sharded_launches)):
-        if set(counts) != {(kind, "cuda") for kind, _, _ in KERNELS.values()}:
-            raise AssertionError(f"{name} paths took routes other than the four kernels: "
+    for name, counts, names in (("main", launches, KERNELS),
+                                ("sharded", sharded_launches, SHARDED_KERNELS)):
+        if set(counts) != {(KERNELS[kernel][0], "cuda") for kernel in names}:
+            raise AssertionError(f"{name} paths took routes other than their kernels: "
                                  f"{counts}")
 
     phase("goldens", passed=goldens, md5_ok=True)
@@ -1518,8 +1766,10 @@ def main() -> int:
     phase("timing", nvidia_smi=smi, **timing)
     phase("sharded_timing", nvidia_smi=smi, **time_sharded(rng, farm, batch))
     del farm, batch
-    phase("scan_timing", nvidia_smi=smi, **time_scan(gen))
+    scan_timing = time_scan(gen, timing["peaks"])
+    phase("scan_timing", nvidia_smi=smi, **scan_timing)
     phase("entry_launches", nvidia_smi=smi, **count_entry_launches(gen))
+    timing["kernels"]["scan_stage_kernel"] = scan_timing["scan_stage_kernel"]
 
     kernels = []
     for name, (kind, source, replaces) in KERNELS.items():
@@ -1532,9 +1782,11 @@ def main() -> int:
             bound_ms=timing["kernels"][name]["bound_ms"],
             bound_by=timing["kernels"][name]["bound_by"],
             # No single PyTorch call computes these launches: each tap term is
-            # truncated on its own (PERF.md).
+            # truncated on its own; the stage is a cat of a slice and a widened
+            # chunk beside integer bookkeeping (PERF.md).
             library_ms=None))
-        if kernels[-1]["launches"] < 1 or kernels[-1]["sharded_launches"] < 1:
+        if kernels[-1]["launches"] < 1 or (
+                name in SHARDED_KERNELS and kernels[-1]["sharded_launches"] < 1):
             raise AssertionError(f"{name} was not launched on the main or the sharded paths")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,7 +14,9 @@ frac(n) = t & 0xFFFF, which turns the loop into one batched launch per tile.
   every chunk on the device, with the high-level layer's 2*radius halo
   carried between chunks (clownresampler.h:1143-1154): the oracle scan
   (``resample_chunk`` per step) and the scan whose steps run the ratio
-  class's kernel, with no host sync between steps.
+  class's kernel: on a card one device program (``ScanProgram``: per step a
+  launch of scan_stage_kernel and the engine's launches, nothing else), on
+  the CPU its plain version (``resample_scan_fused_reference``).
 * ``LowLevelResampler`` -- the host streaming class mirroring the C API,
   including the per-frame output-callback contract. Bookkeeping uses exact
   Python ints; the frames are computed on the resampler's ``device``, in
@@ -37,8 +39,11 @@ from clownresampler_tpu_torch import fixedpoint as fx
 from clownresampler_tpu_torch.configure import Configuration, configure
 from clownresampler_tpu_torch.device import DEFAULT_DEVICE, Device, resolve_device
 from clownresampler_tpu_torch.models import DEFAULT_MODEL, KernelModel, table_tensor
+from clownresampler_tpu_torch.ops import _build
 from clownresampler_tpu_torch.ops.convolve import ConfigScalars, convolve_frames
 from clownresampler_tpu_torch.ops.resample import (
+    ROUTES,
+    entry_launch_args,
     multi_resample,
     plan_uniform,
     wide_launch_frames,
@@ -227,39 +232,36 @@ def resample_scan(table, chunks, state: DeviceState, *, max_taps: int, n_out: in
     return _scan_result(outs, produced, over, st, radius)
 
 
-def resample_scan_fused(table, chunks, state: DeviceState, *, max_taps: int, n_out: int,
-                        radius: int, increment: int, table_strided=None):
-    """``resample_scan`` with the ratio class's kernel as each step's engine.
+def _scan_engine(increment: int, max_taps: int, n_out: int) -> tuple:
+    """(kind, d, cand, frames between launches) of the fused scan's engine:
+    ``launch_kind``'s class, one launch a step except for the wide class,
+    which cuts n_out into launches of ``wide_launch_frames(max_taps)``."""
+    if max_taps > FAST_KERNEL_MAX_TAPS:
+        raise ValueError(f"the fused scan takes at most {FAST_KERNEL_MAX_TAPS} taps, got "
+                         f"{max_taps}: stream wider kernels through LowLevelResampler")
+    if n_out < 8 or n_out % 8:
+        raise ValueError(f"n_out must be a multiple of 8, got {n_out}")
+    kind, d, cand = launch_kind(increment, max_taps)
+    step = min(n_out, wide_launch_frames(max_taps)) if kind == "wide" else n_out
+    return kind, d, cand, step
 
-    Same arguments, semantics and return as ``resample_scan``, plus the
-    16.16 ``increment``, which picks the engine once (``launch_kind``):
-    the tiled, strided or general entry point of ops/resample.py, or the
-    wide one for general ratios of GENERAL_WIDE_MIN_TAPS to
-    FAST_KERNEL_MAX_TAPS taps, in launches of at most
-    ``wide_launch_frames(max_taps)`` frames. ``max_taps`` past
-    FAST_KERNEL_MAX_TAPS is refused, as in the JAX package (stream those
-    through LowLevelResampler). ``table_strided``
-    (KernelModel.strided_table(step, max_taps)) turns the precompute's tap
-    gather into a row take. ``n_out`` must be a multiple of 8.
+
+def resample_scan_fused_reference(table, chunks, state: DeviceState, *, max_taps: int,
+                                  n_out: int, radius: int, increment: int,
+                                  table_strided=None):
+    """Plain PyTorch version of ``resample_scan_fused`` (same arguments and
+    return): a Python loop of torch ops around each step's engine entry.
 
     Each step stages [halo | chunk widened to int32 | max_taps + 8 zero
     rows]: the zero rows keep every real frame's launch-width window inside
     the buffer, so ``launch_rows`` never moves it. The loop's state stays in
-    0-dim device tensors and its constants are made on the device before
-    it, so on a CUDA card the steps are launched with no host sync between
-    them (the host only queues work).
+    0-dim tensors on the chunks' device.
     """
-    if max_taps > FAST_KERNEL_MAX_TAPS:
-        raise ValueError(f"the fused scan takes at most {FAST_KERNEL_MAX_TAPS} taps, got "
-                         f"{max_taps}: stream wider kernels through LowLevelResampler")
-    if n_out % 8:
-        raise ValueError(f"n_out must be a multiple of 8, got {n_out}")
+    kind, d, cand, step = _scan_engine(increment, max_taps, n_out)
     st = _scan_setup(chunks, state, radius)
     _, n_in, lanes = chunks.shape
     dev = chunks.device
     cfg = st.cfg
-    kind, d, cand = launch_kind(increment, max_taps)
-    step = min(n_out, wide_launch_frames(max_taps)) if kind == "wide" else n_out
     offsets = range(0, n_out, step)
     plans = tuple((kind, d, cand, max_taps, min(step, n_out - o), False) for o in offsets)
     tstrs = (table_strided,) * len(plans)
@@ -284,6 +286,202 @@ def resample_scan_fused(table, chunks, state: DeviceState, *, max_taps: int, n_o
         produced.append(prod)
         over.append(natural > n_out)
     return _scan_result(outs, produced, over, DeviceState(p, f, cfg), radius)
+
+
+def scan_stage_reference(prev_buffer, chunk, state, cfg: ConfigScalars, *, radius: int,
+                         n_out: int, launch_step: Optional[int] = None):
+    """Plain PyTorch version of ``scan_stage``: what one launch of
+    scan_stage_kernel writes for one step of the fused scan.
+
+    ``prev_buffer`` (S, L) int32 is the buffer the step before staged (all
+    zeros before the first step), ``chunk`` (n_in, L) int16/int32 the step's
+    input, ``state`` (2,) int32 the step's (position_integer with the scan's
+    +radius bias, position_fractional). Returns
+    (rows (2*radius + n_in, L) int32 = [rows [n_in, n_in + 2*radius) of
+    prev_buffer | chunk widened], produced (), over () -- 1 iff more than
+    n_out frames were due --, launch_states (launches, 2) -- the (p0, f0) of
+    the engine launches at frame offsets 0, launch_step, ... < n_out
+    (launch_step defaults to n_out: one launch) --, next_state (2,)), all
+    int32.
+    """
+    n_in = chunk.shape[0]
+    hi, lo = cfg.increment_hi, cfg.increment_lo
+    rows = torch.cat([prev_buffer[n_in : n_in + 2 * radius], chunk.to(torch.int32)])
+    p, f = state[0], state[1]
+    natural = natural_output_count(p, f, hi, lo, n_in)
+    produced = natural.clamp_max(n_out)
+    offsets = torch.arange(0, n_out, launch_step or n_out, dtype=torch.int32,
+                           device=chunk.device)
+    launch_states = torch.stack(fx.positions_from_state(p, f, hi, lo, offsets), dim=1)
+    p_after, f_next = fx.positions_from_state(p, f, hi, lo, produced)
+    next_state = torch.stack([p_after - p_after.clamp_max(n_in), f_next])
+    return (rows, produced.to(torch.int32), (natural > n_out).to(torch.int32),
+            launch_states.to(torch.int32), next_state.to(torch.int32))
+
+
+def scan_stage(prev_buffer, chunk, state, cfg: ConfigScalars, *, radius: int, n_out: int,
+               launch_step: Optional[int] = None, out=None):
+    """One step's stage and bookkeeping of the fused scan; arguments and
+    return as ``scan_stage_reference``.
+
+    On a CUDA card this is one launch of scan_stage_kernel
+    (ops/csrc/scan_kernels.cu), which writes the rows into ``out`` (a buffer
+    of prev_buffer's shape, not prev_buffer itself; a new zero buffer by
+    default) and returns its first 2*radius + n_in rows; on the CPU the
+    plain version runs (and ``out``, when given, receives the rows)."""
+    n_in = chunk.shape[0]
+    staged = 2 * radius + n_in
+    if prev_buffer.device.type == "cpu":
+        ROUTES[("scan_stage", "reference")] += 1
+        res = scan_stage_reference(prev_buffer, chunk, state, cfg, radius=radius, n_out=n_out,
+                                   launch_step=launch_step)
+        if out is not None:
+            out[:staged] = res[0]
+        return res
+    if prev_buffer.device.type != "cuda":
+        raise ValueError(f"no scan_stage route for device {prev_buffer.device}")
+    if out is None:
+        out = torch.zeros_like(prev_buffer)
+    step = launch_step or n_out
+    book = torch.empty(2 * -(-n_out // step) + 4, dtype=torch.int32, device=chunk.device)
+    produced, over, next_state, launch_states = book[0:1], book[1:2], book[2:4], book[4:]
+    launch_states = launch_states.view(-1, 2)
+    _build.scan_stage(prev_buffer, out, chunk, state, cfg, produced, over, launch_states,
+                      next_state, halo_rows=2 * radius, n_out=n_out, launch_step=step)
+    ROUTES[("scan_stage", "cuda")] += 1
+    return out[:staged], produced[0], over[0], launch_states, next_state
+
+
+class ScanProgram:
+    """``resample_scan_fused`` on a CUDA card as one device program: set up
+    once, then ``run`` is kernel launches and nothing else.
+
+    The constructor validates, plans the engine's launches, allocates (the
+    (K, n_out, L) outputs, two staging buffers of 2*radius + n_in + max_taps
+    + 8 rows whose tail rows stay zero, the wide engine's scratch, and one
+    int32 array for produced (K,), over (K,), the launch states (K,
+    launches, 2) and the carried states (K + 1, 2)) and builds every
+    launch's argument list. ``run`` then calls, for each step, the C entry
+    of scan_stage_kernel -- which stages [halo | chunk] into the step's
+    buffer (the halo from the other buffer) and computes the step's
+    bookkeeping on the device -- and the engine's C entry once per launch
+    offset, which reads its launch state and the step's produced count from
+    device memory, stores the frames past it as 0 and writes straight into
+    the outputs. No torch op, allocation, argument check or host sync
+    happens between the first launch and the last. A program runs once."""
+
+    def __init__(self, table, chunks, state: DeviceState, *, max_taps: int, n_out: int,
+                 radius: int, increment: int, table_strided=None):
+        kind, d, cand, step = _scan_engine(increment, max_taps, n_out)
+        if chunks.dim() == 3 and chunks.dtype not in (torch.int16, torch.int32):
+            chunks = chunks.to(torch.int32)
+        st = _scan_setup(chunks, state, radius)
+        chunks = chunks.contiguous()
+        k, n_in, lanes = chunks.shape
+        dev = chunks.device
+        offsets = range(0, n_out, step)
+        launches = len(offsets)
+        i32 = dict(dtype=torch.int32, device=dev)
+        # Every tensor a launch reads by pointer stays referenced here.
+        self.chunks, self.cfg, self.tables = chunks, st.cfg, (table, table_strided)
+        self.radius, self.kind = radius, kind
+        self.steps, self.launches = k, launches
+        self.outputs = torch.empty((k, n_out, lanes), **i32)
+        self.buffers = torch.zeros((2, 2 * radius + n_in + max_taps + 8, lanes), **i32)
+        book = torch.empty(2 * k + 2 * launches * k + 2 * (k + 1), **i32)
+        self.produced, self.over = book[:k], book[k : 2 * k]
+        launch_states = book[2 * k : 2 * k * (1 + launches)].view(k, launches, 2)
+        self.states = book[2 * k * (1 + launches) :].view(k + 1, 2)
+        self.states[0] = torch.stack([st.position_integer, st.position_fractional])
+        self.scratch = None
+        if kind == "wide":
+            self.scratch = torch.empty(_build.wide_scratch_ints(max_taps, step, lanes), **i32)
+
+        # Step 0's launches, checked; the other steps' differ in pointers only.
+        stage = _build.scan_stage_args(
+            self.buffers[1], self.buffers[0], chunks[0], self.states[0], st.cfg,
+            self.produced[:1], self.over[:1], launch_states[0], self.states[1],
+            halo_rows=2 * radius, n_out=n_out, launch_step=step)
+        macs = []
+        for i, o in enumerate(offsets):
+            frames = min(step, n_out - o)
+            entry, args = entry_launch_args(
+                kind, table, self.buffers[0],
+                DeviceState(launch_states[0, i, 0], launch_states[0, i, 1], st.cfg),
+                d=d, cand=cand, max_taps=max_taps, n_out=frames, table_strided=table_strided,
+                partial=self.scratch)
+            macs.append(dict(args, out=self.outputs[0, o : o + frames].data_ptr(), rows_out=None,
+                             clamp_s16=0, n_valid=self.produced.data_ptr(), frame_offset=o))
+        stage_fn, mac_fn = _build.entry_function("crt_scan_stage"), _build.entry_function(entry)
+        buffer = [self.buffers[0].data_ptr(), self.buffers[1].data_ptr()]
+        chunk_bytes, out_bytes = chunks[0].nbytes, self.outputs[0].nbytes
+        self.calls = []
+        for s in range(k):
+            cur, prev = buffer[s % 2], buffer[(s + 1) % 2]
+            self.calls.append((stage_fn, "crt_scan_stage", _build.ordered_args(
+                "crt_scan_stage", dict(
+                    stage, prev=prev, cur=cur, chunk=stage["chunk"] + s * chunk_bytes,
+                    state_in=stage["state_in"] + 8 * s, state_out=stage["state_out"] + 8 * s,
+                    produced=stage["produced"] + 4 * s, over=stage["over"] + 4 * s,
+                    launch_states=stage["launch_states"] + 8 * launches * s))))
+            for args in macs:
+                self.calls.append((mac_fn, entry, _build.ordered_args(entry, dict(
+                    args, x=cur, p0_ptr=args["p0_ptr"] + 8 * launches * s,
+                    f0_ptr=args["f0_ptr"] + 8 * launches * s, out=args["out"] + s * out_bytes,
+                    n_valid=args["n_valid"] + 4 * s))))
+
+    def run(self) -> None:
+        """Queue every launch of the scan on the stream that was current at
+        construction; raises if a launch is refused."""
+        if self.calls is None:
+            raise RuntimeError("a ScanProgram runs once")
+        calls, self.calls = self.calls, None
+        for fn, entry, args in calls:
+            err = fn(*args)
+            if err:
+                _build.raise_on_launch(err, entry)
+        ROUTES[("scan_stage", "cuda")] += self.steps
+        ROUTES[(self.kind, "cuda")] += self.steps * self.launches
+
+    def result(self):
+        """What ``resample_scan_fused`` returns."""
+        last = self.states[self.steps]
+        return (self.outputs, self.produced,
+                DeviceState(last[0] - self.radius, last[1], self.cfg), self.over.any())
+
+
+def resample_scan_fused(table, chunks, state: DeviceState, *, max_taps: int, n_out: int,
+                        radius: int, increment: int, table_strided=None):
+    """``resample_scan`` with the ratio class's kernel as each step's engine.
+
+    Same arguments, semantics and return as ``resample_scan``, plus the
+    16.16 ``increment``, which picks the engine once (``launch_kind``):
+    the tiled, strided or general entry point of ops/resample.py, or the
+    wide one for general ratios of GENERAL_WIDE_MIN_TAPS to
+    FAST_KERNEL_MAX_TAPS taps, in launches of at most
+    ``wide_launch_frames(max_taps)`` frames. ``max_taps`` past
+    FAST_KERNEL_MAX_TAPS is refused, as in the JAX package (stream those
+    through LowLevelResampler). ``table_strided``
+    (KernelModel.strided_table(step, max_taps)) turns the precompute's tap
+    gather into a row take. ``n_out`` must be a multiple of 8.
+
+    On a CUDA card the scan is one device program (``ScanProgram``): after
+    one set-up every step is a launch of scan_stage_kernel and the engine's
+    launches, which take the step's state and produced count from device
+    memory and write the outputs in place, so the host only queues kernels
+    and never synchronises. On the CPU the plain version runs
+    (``resample_scan_fused_reference``).
+    """
+    if chunks.device.type == "cpu":
+        return resample_scan_fused_reference(
+            table, chunks, state, max_taps=max_taps, n_out=n_out, radius=radius,
+            increment=increment, table_strided=table_strided)
+    if chunks.device.type != "cuda":
+        raise ValueError(f"no fused scan route for device {chunks.device}")
+    program = ScanProgram(table, chunks, state, max_taps=max_taps, n_out=n_out, radius=radius,
+                          increment=increment, table_strided=table_strided)
+    program.run()
+    return program.result()
 
 
 def resample_scan_tiled(table, chunks, state: DeviceState, *, max_taps: int, n_out: int,

@@ -10,13 +10,18 @@ stream. Nothing here falls back: a failed compile, load or launch raises.
 
 The launchers check device, dtype, shape and contiguity before they hand
 pointers to C, allocate outputs and scratch with ``torch.empty`` and never
-synchronise.
+synchronise. Each C entry's arguments have names (ENTRY_ARGS): a launcher
+checks its tensors and builds the arguments by name (``*_launch_args``), so a
+caller that repeats a launch (the whole-stream scan) checks once and then
+calls the entry (``entry_function``) with ``ordered_args`` of the same
+arguments, a few pointers replaced, with no torch op in between.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -36,22 +41,39 @@ NVCC_FLAGS = (
 # Largest dynamic shared memory a Hopper block may opt in to (232,448 bytes).
 MAX_SHARED_BYTES = 227 * 1024
 
-_p, _i = ctypes.c_void_p, ctypes.c_int
-# library -> (source file, {C entry: argtypes}); every entry returns int.
-LIBRARIES = {
-    "resample": ("resample_kernels.cu", {
-        "crt_tiled_mac": [_p, _i, _i, _i, _i, _p, _i, _p, _i, _p, _p, _p, _p, _p, _p,
-                          _p, _i, _p, _i, _i, _i, _i, _i, _i, _p, _p, _i, _i, _p],
-    }),
-    "strided": ("strided_kernels.cu", {
-        "crt_strided_mac": [_p, _i, _i, _i, _i, _p, _i, _p, _i, _p, _p, _p, _p, _p, _p,
-                            _p, _i, _i, _i, _i, _i, _i, _i, _p, _p, _i, _i, _p],
-    }),
-    "wide": ("wide_kernels.cu", {
-        "crt_wide_mac": [_p, _i, _i, _i, _i, _p, _i, _p, _i, _p, _p, _p, _p, _p, _p,
-                         _p, _i, _p, _i, _i, _i, _i, _i, _i, _p, _p, _p, _p, _i, _i, _p],
-    }),
+# The C entries' arguments, in order and by name; the names in POINTER_ARGS
+# pass as pointers (void*), every other as int. Every entry returns int.
+POINTER_ARGS = frozenset((
+    "x", "p0_ptr", "f0_ptr", "inc_hi", "inc_lo", "radius", "delta", "int_radius", "step",
+    "table", "tstr", "partial", "tap_sums", "out", "rows_out", "n_valid", "stream",
+    "prev", "cur", "chunk", "state_in", "produced", "over", "launch_states", "state_out"))
+_LAUNCH_INPUT = ("x", "S", "L", "lane_offset", "lanes", "p0_ptr", "p0_val", "f0_ptr", "f0_val",
+                 "inc_hi", "inc_lo", "radius", "delta", "int_radius", "step",
+                 "table", "table_size")
+_LAUNCH_OUTPUT = ("out", "rows_out", "clamp_s16", "n_valid", "frame_offset", "device", "stream")
+ENTRY_ARGS = {
+    "crt_tiled_mac": (*_LAUNCH_INPUT, "tstr", "tstr_rows", "N", "T", "frames_per_stage",
+                      "win_rows", "vec", *_LAUNCH_OUTPUT),
+    "crt_strided_mac": (*_LAUNCH_INPUT, "N", "T", "d", "frames_per_tile", "win_rows", "vec",
+                        *_LAUNCH_OUTPUT),
+    "crt_wide_mac": (*_LAUNCH_INPUT, "tstr", "tstr_rows", "N", "T", "K", "runs_bound", "vec",
+                     "partial", "tap_sums", *_LAUNCH_OUTPUT),
+    "crt_scan_stage": ("prev", "cur", "chunk", "chunk_s16", "n_in", "halo_rows", "L", "vec",
+                       "state_in", "inc_hi", "inc_lo", "n_out", "launches", "launch_step",
+                       "produced", "over", "launch_states", "state_out", "device", "stream"),
 }
+# library -> (source file, its C entries).
+LIBRARIES = {
+    "resample": ("resample_kernels.cu", ("crt_tiled_mac",)),
+    "strided": ("strided_kernels.cu", ("crt_strided_mac",)),
+    "wide": ("wide_kernels.cu", ("crt_wide_mac",)),
+    "scan": ("scan_kernels.cu", ("crt_scan_stage",)),
+}
+# C entry -> (its library, the kernel it launches, for error messages).
+ENTRIES = {"crt_tiled_mac": ("resample", "tiled_mac_kernel"),
+           "crt_strided_mac": ("strided", "strided_mac_kernel"),
+           "crt_wide_mac": ("wide", "wide_mac_kernel"),
+           "crt_scan_stage": ("scan", "scan_stage_kernel")}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -110,9 +132,10 @@ def library(name: str) -> ctypes.CDLL:
             for lib_name, (_, entries) in LIBRARIES.items():
                 so = library_path(lib_name)
                 lib = ctypes.CDLL(so)
-                for entry, argtypes in entries.items():
+                for entry in entries:
                     fn = getattr(lib, entry)
-                    fn.argtypes = argtypes
+                    fn.argtypes = [ctypes.c_void_p if arg in POINTER_ARGS else ctypes.c_int
+                                   for arg in ENTRY_ARGS[entry]]
                     fn.restype = ctypes.c_int
                 BUILD_LOG["paths"][lib_name] = so
                 _libs[lib_name] = lib
@@ -123,12 +146,16 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def _check_cuda(x) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {x.device}")
+
+
 def _check_tensors(x, lanes, lane_offset, **tensors):
     """x is a contiguous (S, L) int32 CUDA tensor, each named tensor
     (value: (tensor, ndim)) a contiguous int32 tensor of that rank on x's
     device, and [lane_offset, lane_offset + lanes) lies inside x's lanes."""
-    if x.device.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {x.device}")
+    _check_cuda(x)
     for name, (t, nd) in {"x": (x, 2), **tensors}.items():
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -140,15 +167,28 @@ def _check_tensors(x, lanes, lane_offset, **tensors):
                          f"{x.shape[1]} lanes")
 
 
-def _raise_on(err: int, what: str) -> None:
+def entry_function(entry: str):
+    """The C entry ``entry`` of its loaded library, its argument types set."""
+    return getattr(library(ENTRIES[entry][0]), entry)
+
+
+_ORDERED = {entry: operator.itemgetter(*names) for entry, names in ENTRY_ARGS.items()}
+
+
+def ordered_args(entry: str, args: dict) -> tuple:
+    """``args`` (by name) in the order the C entry takes them."""
+    return _ORDERED[entry](args)
+
+
+def raise_on_launch(err: int, entry: str) -> None:
+    """Raise if the C entry ``entry`` returned a CUDA error."""
     if err != 0:
         msg = library("resample").crt_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: {msg}")
+        raise RuntimeError(f"{ENTRIES[entry][1]} launch failed: {msg}")
 
 
-def _out(n: int, lanes: int, clamp_s16: bool, device) -> torch.Tensor:
-    return torch.empty((n, lanes), dtype=torch.int16 if clamp_s16 else torch.int32,
-                       device=device)
+def _launch(entry: str, args: dict) -> None:
+    raise_on_launch(entry_function(entry)(*ordered_args(entry, args)), entry)
 
 
 def _stream(x) -> int:
@@ -201,14 +241,44 @@ def _scalar_arg(v, x, name: str) -> tuple:
     return None, v
 
 
-def _geometry_args(x, p0, f0, cfg) -> list:
-    """The C entries' GeometryArgs: p0 and f0 (pointer, value) and the
+def _geometry_args(x, p0, f0, cfg) -> dict:
+    """The C entries' GeometryArgs by name: p0 and f0 (pointer, value) and the
     pointers of TILED_CONFIG_FIELDS, which must be tensors on x's device."""
     scalars = [_scalar_arg(getattr(cfg, f), x, f)[0] for f in TILED_CONFIG_FIELDS]
     if None in scalars:
         raise ValueError("the kernels read ConfigScalars as tensors on x's device")
-    return [*_scalar_arg(p0, x, "position_integer"), *_scalar_arg(f0, x, "position_fractional"),
-            *scalars]
+    p0_ptr, p0_val = _scalar_arg(p0, x, "position_integer")
+    f0_ptr, f0_val = _scalar_arg(f0, x, "position_fractional")
+    inc_hi, inc_lo, radius, delta, int_radius, step = scalars
+    return dict(p0_ptr=p0_ptr, p0_val=p0_val, f0_ptr=f0_ptr, f0_val=f0_val, inc_hi=inc_hi,
+                inc_lo=inc_lo, radius=radius, delta=delta, int_radius=int_radius, step=step)
+
+
+def _input_args(x, table, p0, f0, cfg, lanes: int, lane_offset: int) -> dict:
+    """The arguments every MAC entry starts with, by name, and the launch's
+    device and stream (PyTorch's current one on x's device), in a new dict
+    that the caller completes."""
+    args = _geometry_args(x, p0, f0, cfg)
+    args.update(x=x.data_ptr(), S=x.shape[0], L=x.shape[1], lane_offset=lane_offset,
+                lanes=lanes, table=table.data_ptr(), table_size=table.shape[0],
+                vec=_vec(x, lanes, lane_offset), device=x.device.index, stream=_stream(x))
+    return args
+
+
+def _allocate_outputs(args: dict, x, n_out: int, lanes: int, clamp_s16: bool, n_valid,
+                      frame_offset: int) -> tuple:
+    """(out, rows) of a launcher that allocates its outputs, their arguments
+    added to ``args``; ``n_valid`` is None or a one-element int32 tensor on
+    x's device."""
+    out = torch.empty((n_out, lanes), dtype=torch.int16 if clamp_s16 else torch.int32,
+                      device=x.device)
+    rows = torch.empty(n_out, dtype=torch.int32, device=x.device)
+    valid = None if n_valid is None else _scalar_arg(n_valid, x, "n_valid")[0]
+    if n_valid is not None and valid is None:
+        raise ValueError("n_valid must be a one-element int32 tensor on x's device")
+    args.update(out=out.data_ptr(), rows_out=rows.data_ptr(), clamp_s16=int(clamp_s16),
+                n_valid=valid, frame_offset=int(frame_offset))
+    return out, rows
 
 
 def _vec(x, lanes: int, lane_offset: int) -> int:
@@ -226,19 +296,12 @@ def _check_taps(x, max_taps: int, table_strided=None) -> None:
         raise ValueError(f"{max_taps} taps exceed the {x.shape[0]}-row input")
 
 
-def tiled_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int, lanes: int,
-              lane_offset: int, frames_per_stage: int, win_rows: int,
-              clamp_s16: bool) -> tuple:
-    """Launch tiled_mac_kernel (the tiled and general entries), which
-    computes each frame's geometry itself from the launch state (p0, f0:
-    0-dim int32 tensors on x's device, or ints) and ``cfg`` (ConfigScalars
-    on x's device), reading the flat LUT ``table`` or, when given, its
-    strided form (R, max_taps). Each stage holds ``win_rows`` rows (0: read
-    x directly) and the frames of at most ``frames_per_stage`` frames: the
-    kernel takes the most of frames_per_stage, half that, ..., 8 whose
-    window fits (ops.resample.stage_frames). Returns (out (n_out, lanes)
-    int32 -- int16 if clamped --, rows (n_out,) int32, the unclamped first
-    window rows)."""
+def tiled_launch_args(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int,
+                      lanes: int, lane_offset: int, frames_per_stage: int,
+                      win_rows: int) -> dict:
+    """Check a tiled_mac_kernel launch and return crt_tiled_mac's arguments by
+    name, all but the outputs' (out, rows_out, clamp_s16, n_valid,
+    frame_offset)."""
     tables = {"table": (table, 1)}
     if table_strided is not None:
         tables["table_strided"] = (table_strided, 2)
@@ -250,33 +313,43 @@ def tiled_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"tiled stages of {smem} bytes exceed {MAX_SHARED_BYTES} bytes "
                          f"of shared memory")
-    geometry = _geometry_args(x, p0, f0, cfg)
-    lib = library("resample")
-    out = _out(n_out, lanes, clamp_s16, x.device)
-    rows = torch.empty(n_out, dtype=torch.int32, device=x.device)
+    tstr_ptr, tstr_rows = ((None, 0) if table_strided is None
+                           else (table_strided.data_ptr(), table_strided.shape[0]))
+    args = _input_args(x, table, p0, f0, cfg, lanes, lane_offset)
+    args.update(tstr=tstr_ptr, tstr_rows=tstr_rows, N=n_out, T=max_taps,
+                frames_per_stage=frames_per_stage, win_rows=win_rows)
+    return args
+
+
+def tiled_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int, lanes: int,
+              lane_offset: int, frames_per_stage: int, win_rows: int,
+              clamp_s16: bool, n_valid=None, frame_offset: int = 0) -> tuple:
+    """Launch tiled_mac_kernel (the tiled and general entries), which
+    computes each frame's geometry itself from the launch state (p0, f0:
+    0-dim int32 tensors on x's device, or ints) and ``cfg`` (ConfigScalars
+    on x's device), reading the flat LUT ``table`` or, when given, its
+    strided form (R, max_taps). Each stage holds ``win_rows`` rows (0: read
+    x directly) and the frames of at most ``frames_per_stage`` frames: the
+    kernel takes the most of frames_per_stage, half that, ..., 8 whose
+    window fits (ops.resample.stage_frames). With ``n_valid`` (a one-element
+    int32 tensor on x's device) frames n with n + frame_offset >= n_valid
+    are stored as 0. Returns (out (n_out, lanes)
+    int32 -- int16 if clamped --, rows (n_out,) int32, the unclamped first
+    window rows)."""
+    args = tiled_launch_args(x, table, table_strided, p0, f0, cfg, max_taps=max_taps,
+                             n_out=n_out, lanes=lanes, lane_offset=lane_offset,
+                             frames_per_stage=frames_per_stage, win_rows=win_rows)
+    out, rows = _allocate_outputs(args, x, n_out, lanes, clamp_s16, n_valid, frame_offset)
     if n_out:
-        tstr_ptr, tstr_rows = ((None, 0) if table_strided is None
-                               else (table_strided.data_ptr(), table_strided.shape[0]))
-        err = lib.crt_tiled_mac(
-            x.data_ptr(), x.shape[0], x.shape[1], lane_offset, lanes, *geometry,
-            table.data_ptr(), table.shape[0], tstr_ptr, tstr_rows, n_out, max_taps,
-            frames_per_stage, win_rows, _vec(x, lanes, lane_offset), out.data_ptr(),
-            rows.data_ptr(), int(clamp_s16), x.device.index, _stream(x))
-        _raise_on(err, "tiled_mac_kernel")
+        _launch("crt_tiled_mac", args)
     return out, rows
 
 
-def strided_mac(x, table, p0, f0, cfg, *, max_taps: int, n_out: int, d: int, lanes: int,
-                lane_offset: int, frames_per_tile: int, win_rows: int,
-                clamp_s16: bool) -> tuple:
-    """Launch strided_mac_kernel, which computes the launch's geometry itself
-    from the launch state (p0, f0: 0-dim int32 tensors on x's device, or
-    ints) and ``cfg`` (ConfigScalars on x's device): frame n's window starts
-    at r0 + n*d (clamped into x), its taps are frame 0's masked taps k0 from
-    the flat LUT ``table``. Tiles of ``frames_per_tile`` frames stage
-    ``win_rows`` rows each (0: read x directly). Returns (out (n_out, lanes)
-    int32 -- int16 if clamped --, rows (n_out,) int32, the unclamped first
-    window rows)."""
+def strided_launch_args(x, table, p0, f0, cfg, *, max_taps: int, n_out: int, d: int,
+                        lanes: int, lane_offset: int, frames_per_tile: int,
+                        win_rows: int) -> dict:
+    """Check a strided_mac_kernel launch and return crt_strided_mac's
+    arguments by name, all but the outputs'."""
     _check_tensors(x, lanes, lane_offset, table=(table, 1))
     _check_taps(x, max_taps)
     if d < 1 or frames_per_tile not in (8, 16, 32, 64) or win_rows < 0:
@@ -286,55 +359,134 @@ def strided_mac(x, table, p0, f0, cfg, *, max_taps: int, n_out: int, d: int, lan
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"strided stages of {smem} bytes exceed {MAX_SHARED_BYTES} bytes "
                          f"of shared memory")
-    geometry = _geometry_args(x, p0, f0, cfg)
-    lib = library("strided")
-    out = _out(n_out, lanes, clamp_s16, x.device)
-    rows = torch.empty(n_out, dtype=torch.int32, device=x.device)
+    args = _input_args(x, table, p0, f0, cfg, lanes, lane_offset)
+    args.update(N=n_out, T=max_taps, d=d, frames_per_tile=frames_per_tile, win_rows=win_rows)
+    return args
+
+
+def strided_mac(x, table, p0, f0, cfg, *, max_taps: int, n_out: int, d: int, lanes: int,
+                lane_offset: int, frames_per_tile: int, win_rows: int,
+                clamp_s16: bool, n_valid=None, frame_offset: int = 0) -> tuple:
+    """Launch strided_mac_kernel, which computes the launch's geometry itself
+    from the launch state (p0, f0: 0-dim int32 tensors on x's device, or
+    ints) and ``cfg`` (ConfigScalars on x's device): frame n's window starts
+    at r0 + n*d (clamped into x), its taps are frame 0's masked taps k0 from
+    the flat LUT ``table``. Tiles of ``frames_per_tile`` frames stage
+    ``win_rows`` rows each (0: read x directly). ``n_valid`` and
+    ``frame_offset`` as for tiled_mac. Returns (out (n_out, lanes)
+    int32 -- int16 if clamped --, rows (n_out,) int32, the unclamped first
+    window rows)."""
+    args = strided_launch_args(x, table, p0, f0, cfg, max_taps=max_taps, n_out=n_out, d=d,
+                               lanes=lanes, lane_offset=lane_offset,
+                               frames_per_tile=frames_per_tile, win_rows=win_rows)
+    out, rows = _allocate_outputs(args, x, n_out, lanes, clamp_s16, n_valid, frame_offset)
     if n_out:
-        err = lib.crt_strided_mac(
-            x.data_ptr(), x.shape[0], x.shape[1], lane_offset, lanes, *geometry,
-            table.data_ptr(), table.shape[0], n_out, max_taps, d, frames_per_tile, win_rows,
-            _vec(x, lanes, lane_offset), out.data_ptr(), rows.data_ptr(), int(clamp_s16),
-            x.device.index, _stream(x))
-        _raise_on(err, "strided_mac_kernel")
+        _launch("crt_strided_mac", args)
     return out, rows
 
 
-def wide_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int, d: int,
-             lanes: int, lane_offset: int, clamp_s16: bool) -> tuple:
-    """Launch wide_mac_kernel, which computes each frame's geometry itself
-    from the launch state and ``cfg`` (as for tiled_mac) and sums each frame's
-    taps run by run of WIDE_RUN_ROWS input rows into an int32 scratch
-    (n_out, wide_slots(max_taps), lanes), with
-    each slot's sum of taps beside it, then wide_fold_kernel, which sums
-    each frame's slots and normalises. ``d``
-    (increment >> 16) only sizes the grid. Returns (out (n_out, lanes) int32 -- int16 if clamped --, rows
-    (n_out,) int32, the unclamped first window rows)."""
-    tables = {"table": (table, 1)}
+def wide_scratch_ints(max_taps: int, n_out: int, lanes: int) -> int:
+    """Ints of a wide launch's scratch: (n_out, slots, lanes) partial sums,
+    then (n_out, slots) tap sums."""
+    return n_out * wide_slots(max_taps) * (lanes + 1)
+
+
+def wide_launch_args(x, table, table_strided, p0, f0, cfg, partial, *, max_taps: int,
+                     n_out: int, d: int, lanes: int, lane_offset: int) -> dict:
+    """Check a wide launch (wide_mac_kernel, then wide_fold_kernel) and return
+    crt_wide_mac's arguments by name, all but the outputs'; ``partial`` is
+    its int32 scratch of at least wide_scratch_ints ints on x's device."""
+    tables = {"table": (table, 1), "partial": (partial, 1)}
     if table_strided is not None:
         tables["table_strided"] = (table_strided, 2)
     _check_tensors(x, lanes, lane_offset, **tables)
     _check_taps(x, max_taps, table_strided)
     if n_out > 65535 or d < 0:
         raise ValueError(f"bad wide launch: {n_out} frames, d {d}")
-    geometry = _geometry_args(x, p0, f0, cfg)
-    lib = library("wide")
     slots = wide_slots(max_taps)
-    # (n_out, slots, lanes) partial sums, then (n_out, slots) tap sums.
-    partial = torch.empty(n_out * slots * (lanes + 1), dtype=torch.int32, device=x.device)
-    out = _out(n_out, lanes, clamp_s16, x.device)
-    rows = torch.empty(n_out, dtype=torch.int32, device=x.device)
+    if partial.numel() < wide_scratch_ints(max_taps, n_out, lanes):
+        raise ValueError(f"wide scratch of {partial.numel()} ints is too small")
+    # Runs the input span can hold: the last frame's window starts at most
+    # (n_out - 1)(d + 1) rows after the first's.
+    runs_bound = -(-(max(n_out - 1, 0) * (d + 1) + max_taps) // WIDE_RUN_ROWS) + 1
+    tstr_ptr, tstr_rows = ((None, 0) if table_strided is None
+                           else (table_strided.data_ptr(), table_strided.shape[0]))
+    args = _input_args(x, table, p0, f0, cfg, lanes, lane_offset)
+    args.update(tstr=tstr_ptr, tstr_rows=tstr_rows, N=n_out, T=max_taps, K=slots,
+                runs_bound=runs_bound, partial=partial.data_ptr(),
+                tap_sums=partial.data_ptr() + 4 * n_out * slots * lanes)
+    return args
+
+
+def wide_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int, d: int,
+             lanes: int, lane_offset: int, clamp_s16: bool, n_valid=None,
+             frame_offset: int = 0) -> tuple:
+    """Launch wide_mac_kernel, which computes each frame's geometry itself
+    from the launch state and ``cfg`` (as for tiled_mac) and sums each frame's
+    taps run by run of WIDE_RUN_ROWS input rows into an int32 scratch
+    (n_out, wide_slots(max_taps), lanes), with
+    each slot's sum of taps beside it, then wide_fold_kernel, which sums
+    each frame's slots and normalises. ``d``
+    (increment >> 16) only sizes the grid. ``n_valid`` and ``frame_offset``
+    as for tiled_mac (the fold stores the zeros). Returns (out (n_out, lanes) int32 -- int16 if clamped --, rows
+    (n_out,) int32, the unclamped first window rows)."""
+    partial = torch.empty(wide_scratch_ints(max_taps, n_out, lanes), dtype=torch.int32,
+                          device=x.device)
+    args = wide_launch_args(x, table, table_strided, p0, f0, cfg, partial, max_taps=max_taps,
+                            n_out=n_out, d=d, lanes=lanes, lane_offset=lane_offset)
+    out, rows = _allocate_outputs(args, x, n_out, lanes, clamp_s16, n_valid, frame_offset)
     if n_out:
-        # Runs the input span can hold: the last frame's window starts at most
-        # (n_out - 1)(d + 1) rows after the first's.
-        runs_bound = -(-((n_out - 1) * (d + 1) + max_taps) // WIDE_RUN_ROWS) + 1
-        tstr_ptr, tstr_rows = ((None, 0) if table_strided is None
-                               else (table_strided.data_ptr(), table_strided.shape[0]))
-        err = lib.crt_wide_mac(
-            x.data_ptr(), x.shape[0], x.shape[1], lane_offset, lanes, *geometry,
-            table.data_ptr(), table.shape[0], tstr_ptr, tstr_rows, n_out, max_taps, slots,
-            runs_bound, _vec(x, lanes, lane_offset), partial.data_ptr(),
-            partial.data_ptr() + 4 * n_out * slots * lanes, out.data_ptr(),
-            rows.data_ptr(), int(clamp_s16), x.device.index, _stream(x))
-        _raise_on(err, "wide_mac_kernel")
+        _launch("crt_wide_mac", args)
     return out, rows
+
+
+def scan_stage_args(prev, cur, chunk, state_in, cfg, produced, over, launch_states, state_out,
+                    *, halo_rows: int, n_out: int, launch_step: int) -> dict:
+    """Check one scan_stage_kernel launch and return crt_scan_stage's
+    arguments by name. ``prev`` and ``cur`` are the scan's two (S, L) int32
+    buffers, S >= halo_rows + n_in; ``chunk`` is (n_in, L) int16 or int32;
+    ``state_in`` and ``state_out`` are (2,), ``produced`` and ``over`` one
+    element, ``launch_states`` (launches, 2), all int32; ``cfg`` is
+    ConfigScalars; everything contiguous on cur's device."""
+    if chunk.dim() != 2 or chunk.dtype not in (torch.int16, torch.int32):
+        raise ValueError(f"chunk must be (n_in, L) int16 or int32, got {chunk.dtype} "
+                         f"{tuple(chunk.shape)}")
+    n_in, lanes = chunk.shape
+    small = dict(state_in=(state_in, 2), state_out=(state_out, 2), produced=(produced, 1),
+                 over=(over, 1))
+    _check_tensors(cur, lanes, 0, prev=(prev, 2), launch_states=(launch_states, 2),
+                   inc_hi=(cfg.increment_hi, 0), inc_lo=(cfg.increment_lo, 0),
+                   **{k: (t, 1) for k, (t, _) in small.items()})
+    for name, (t, numel) in small.items():
+        if t.numel() != numel:
+            raise ValueError(f"{name} must have {numel} elements, got {t.numel()}")
+    if chunk.device != cur.device or not chunk.is_contiguous():
+        raise ValueError(f"chunk must be contiguous on {cur.device}")
+    launches = launch_states.shape[0]
+    if (prev.shape != cur.shape or prev.data_ptr() == cur.data_ptr() or cur.shape[1] != lanes
+            or halo_rows < 0 or cur.shape[0] < halo_rows + n_in
+            or launch_states.shape[1] != 2 or launches < 1 or launch_step < 1):
+        raise ValueError(f"bad scan stage: buffers {tuple(prev.shape)} and {tuple(cur.shape)}, "
+                         f"chunk {tuple(chunk.shape)}, {halo_rows} halo rows, {launches} "
+                         f"launches of {launch_step} frames")
+    vec = int(lanes % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (prev, cur, chunk)))
+    return dict(prev=prev.data_ptr(), cur=cur.data_ptr(), chunk=chunk.data_ptr(),
+                chunk_s16=int(chunk.dtype == torch.int16), n_in=n_in, halo_rows=halo_rows,
+                L=lanes, vec=vec, state_in=state_in.data_ptr(),
+                inc_hi=cfg.increment_hi.data_ptr(), inc_lo=cfg.increment_lo.data_ptr(),
+                n_out=n_out, launches=launches, launch_step=launch_step,
+                produced=produced.data_ptr(), over=over.data_ptr(),
+                launch_states=launch_states.data_ptr(), state_out=state_out.data_ptr(),
+                device=cur.device.index, stream=_stream(cur))
+
+
+def scan_stage(prev, cur, chunk, state_in, cfg, produced, over, launch_states, state_out, *,
+               halo_rows: int, n_out: int, launch_step: int) -> None:
+    """Launch scan_stage_kernel once: one scan step's stage (rows [0,
+    halo_rows + n_in) of ``cur`` = [rows [n_in, n_in + halo_rows) of ``prev`` |
+    chunk widened to int32]) and bookkeeping (produced, over, the launch
+    states at frame offsets i * launch_step, the next state), written in
+    place."""
+    _launch("crt_scan_stage", scan_stage_args(
+        prev, cur, chunk, state_in, cfg, produced, over, launch_states, state_out,
+        halo_rows=halo_rows, n_out=n_out, launch_step=launch_step))

@@ -247,18 +247,40 @@ __device__ __forceinline__ void store_lanes(void* out, int lanes, int vec, int n
     if (lane + 3 < lanes) o[3] = v3;
 }
 
+// The frames of a launch that keep their values: frame n is stored as 0 when
+// n + frame_offset >= *n_valid (a scan step's frames past `produced`, read
+// from device memory: no host sync); every frame when n_valid is null.
+__device__ __forceinline__ int valid_frames(const int* n_valid, int frame_offset) {
+    return n_valid ? __ldg(n_valid) - frame_offset : 0x7FFFFFFF;
+}
+
 // ---------------------------------------------------------------------------
 // Host side: the launch's device and a persistent grid
 // ---------------------------------------------------------------------------
 
 constexpr int MAX_DEVICES = 64;
 
-inline int use_device(int device) {
-    int current = -1;
-    cudaError_t err = cudaGetDevice(&current);
-    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-    return static_cast<int>(err);
-}
+// Makes `device` current for the launches of one C entry and puts the
+// caller's device back when the entry returns; `err` is the cudaError_t of
+// getting and setting it.
+struct DeviceGuard {
+    int previous = -1;
+    bool changed = false;
+    int err;
+    explicit DeviceGuard(int device) {
+        cudaError_t e = cudaGetDevice(&previous);
+        if (e == cudaSuccess && previous != device) {
+            e = cudaSetDevice(device);
+            changed = e == cudaSuccess;
+        }
+        err = static_cast<int>(e);
+    }
+    ~DeviceGuard() {
+        if (changed) cudaSetDevice(previous);
+    }
+    DeviceGuard(const DeviceGuard&) = delete;
+    DeviceGuard& operator=(const DeviceGuard&) = delete;
+};
 
 // Per-device cache of one kernel's persistent grid: its opt-in to the card's
 // shared memory and the SM count (set up once per device), the blocks an SM

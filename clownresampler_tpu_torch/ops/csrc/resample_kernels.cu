@@ -67,7 +67,9 @@ struct TiledParams {
     int F, W;                         // most frames per stage, staged window rows per stage
     int vec;                          // x, L, lane_offset, lanes 4-lane aligned: 16-byte path
     void* out;
-    int* rows_out;
+    int* rows_out;                    // null: the rows are not written
+    const int* n_valid;               // frames from *n_valid - frame_offset on are stored
+    int frame_offset;                 // as 0 (valid_frames); null: every frame is kept
 };
 
 // One stage of a block's shared memory, in ints: the staged window
@@ -118,7 +120,8 @@ __device__ __forceinline__ void tiled_load_window(const TiledParams& P, const Ti
 // The tile's geometry (the launch precompute, ops/resample.py): each frame's
 // masked taps, 17.15 reciprocal, clamped window row and live tap count (at
 // most T; its taps past that are zero), into shared memory;
-// the unclamped rows to rows_out (by the blocks of lane tile 0). 256 / F
+// the unclamped rows to rows_out (by the blocks of lane tile 0, when the
+// caller wants them). 256 / F
 // threads share a frame: its taps are split between them and their sum is
 // reduced by shuffles. (One warp doing every frame's geometry measured
 // slower: the others wait out its latency.)
@@ -143,7 +146,7 @@ __device__ __forceinline__ void tiled_geometry(const TiledParams& P, const Launc
         q[f] = reciprocal_q31(sum);
         rl[f] = clamp_row(w.row, row_max);
         lv[f] = min(max(w.taps, 0), T);
-        if (t.lane0 == 0) P.rows_out[t.n0 + f] = w.row;
+        if (t.lane0 == 0 && P.rows_out) P.rows_out[t.n0 + f] = w.row;
     }
 }
 
@@ -152,11 +155,13 @@ __device__ __forceinline__ void tiled_geometry(const TiledParams& P, const Launc
 // each tap's row as one 16-byte shared load and its tap value as a
 // broadcast; the taps of the main path's widths (TT) are unrolled. A frame
 // stops at its live taps (from 24 taps up, in fours): a reserve or a width
-// rounded up to 8 adds taps that are zero, and a zero tap adds nothing.
+// rounded up to 8 adds taps that are zero, and a zero tap adds nothing. A
+// frame from `valid` on (valid_frames) skips its taps and is stored as 0: its
+// sum stays 0, and 0 normalises and clamps to 0.
 template <int TT, typename OutT>
 __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& t, int T,
                                               const int* win, const int* kv, const int* rl,
-                                              const int* q, const int* lv) {
+                                              const int* q, const int* lv, int valid) {
     const int tx = threadIdx.x & 31;
     const int lane = t.lane0 + 4 * tx;
     if (lane >= P.lanes) return;
@@ -164,7 +169,9 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
         const int* k = kv + f * T;
         const int live = lv[f];
         int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-        if (t.staged) {
+        if (t.n0 + f >= valid) {
+            // masked: the zeros are stored below
+        } else if (t.staged) {
             const int4* w =
                 reinterpret_cast<const int4*>(win) + (rl[f] - t.first) * TILE_COLS + tx;
             if (TT) {
@@ -235,6 +242,7 @@ tiled_mac_kernel(const TiledParams P) {
     const int F = stage_frames(g, P.F, T, P.W);
     const int stage_ints = tiled_stage_ints(F, T, P.W);
     const int row_max = max(P.S - T, 0);
+    const int valid = valid_frames(P.n_valid, P.frame_offset);
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
     const int tiles = lane_tiles * ((P.N + F - 1) / F);
     int tile = blockIdx.x;
@@ -261,7 +269,7 @@ tiled_mac_kernel(const TiledParams P) {
             tiled_load_window(P, nxt, win(b ^ 1));
         }
         cp_async_commit();
-        tiled_compute<TT, OutT>(P, cur, T, win(b), taps(b), rows(b), recip(b), live(b));
+        tiled_compute<TT, OutT>(P, cur, T, win(b), taps(b), rows(b), recip(b), live(b), valid);
         if (next >= tiles) break;
         tiled_geometry(P, g, nxt, F, T, row_max, taps(b ^ 1), rows(b ^ 1), recip(b ^ 1),
                        live(b ^ 1));
@@ -309,14 +317,15 @@ int crt_tiled_mac(const int* x, int S, int L, int lane_offset, int lanes, const 
                   const int* inc_lo, const int* radius, const int* delta,
                   const int* int_radius, const int* step, const int* table, int table_size,
                   const int* tstr, int tstr_rows, int N, int T, int frames_per_stage,
-                  int win_rows, int vec, void* out, int* rows_out, int clamp_s16, int device,
-                  void* stream) {
-    const int err = use_device(device);
-    if (err != 0) return err;
+                  int win_rows, int vec, void* out, int* rows_out, int clamp_s16,
+                  const int* n_valid, int frame_offset, int device, void* stream) {
+    const DeviceGuard guard(device);
+    if (guard.err != 0) return guard.err;
     const GeometryArgs geo{p0_ptr, p0_val, f0_ptr, f0_val, inc_hi, inc_lo,
                            radius, delta, int_radius, step};
     const TiledParams P{x, S, L, lane_offset, lanes, geo, {table, table_size, tstr, tstr_rows, T},
-                        N, T, frames_per_stage, win_rows, vec, out, rows_out};
+                        N, T, frames_per_stage, win_rows, vec, out, rows_out, n_valid,
+                        frame_offset};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return clamp_s16 ? launch_tiled_taps<int16_t>(P, device, s)
                      : launch_tiled_taps<int32_t>(P, device, s);

@@ -62,7 +62,9 @@ struct StridedParams {
     int F, W;                         // frames per tile, staged rows per stage (0: unstaged)
     int vec;                          // x, L, lane_offset, lanes 4-lane aligned: 16-byte path
     void* out;
-    int* rows_out;
+    int* rows_out;                    // null: the rows are not written
+    const int* n_valid;               // frames from *n_valid - frame_offset on are stored
+    int frame_offset;                 // as 0 (valid_frames); null: every frame is kept
 };
 
 // Shared memory, in ints: k0 padded to a multiple of 4, the tap sum (and 3
@@ -149,22 +151,25 @@ __device__ __forceinline__ void strided_taps(const int4* w0, int stride,
 
 // The MACs of one tile: warp w takes frames w, w + 8, ...; thread tx of a
 // warp takes lanes lane0 + 4tx .. + 3. The blocks of lane tile 0 write the
-// unclamped rows.
+// unclamped rows (when the caller wants them). A frame from `valid` on
+// (valid_frames) skips its taps and is stored as 0.
 template <int TT, typename OutT>
 __device__ __forceinline__ void strided_compute(const StridedParams& P, const StridedLaunch& s,
                                                 const StridedTile& t, const int (&k)[TT ? TT : 1],
-                                                const int* s_k, const int* win) {
+                                                const int* s_k, const int* win, int valid) {
     const int tx = threadIdx.x & 31;
     const int lane = t.lane0 + 4 * tx;
     if (lane >= P.lanes) return;
     for (int f = threadIdx.x >> 5; f < t.nb; f += STRIDED_WARPS) {
         const int n = t.n0 + f;
         const int row = strided_row(s, n, P.d);
-        if (t.lane0 == 0 && tx == 0) {
+        if (t.lane0 == 0 && tx == 0 && P.rows_out) {
             P.rows_out[n] = static_cast<int>(s.r0 + static_cast<long long>(n) * P.d);
         }
         int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-        if (t.staged) {
+        if (n >= valid) {
+            // masked: the zeros are stored below
+        } else if (t.staged) {
             const int4* w0 = reinterpret_cast<const int4*>(win) + (row - t.first) * TILE_COLS + tx;
             strided_taps<TT>(w0, TILE_COLS, k, s_k, s.live, a0, a1, a2, a3);
         } else {
@@ -205,6 +210,7 @@ __device__ __forceinline__ void strided_run(const StridedParams& P, const Stride
 #pragma unroll
     for (int j = 0; j < (TT ? TT : 1); ++j) k[j] = TT ? s_k[j] : 0;
     const int reads = TT ? TT : s.live;
+    const int valid = valid_frames(P.n_valid, P.frame_offset);
     auto win = [&](int b) { return stages + b * P.W * TILE_LANES; };
     auto load = [&](const StridedTile& t, int* w) {
         if (t.staged) {
@@ -226,7 +232,7 @@ __device__ __forceinline__ void strided_run(const StridedParams& P, const Stride
             load(nxt, win(b ^ 1));
         }
         cp_async_commit();
-        strided_compute<TT, OutT>(P, s, cur, k, s_k, win(b));
+        strided_compute<TT, OutT>(P, s, cur, k, s_k, win(b), valid);
         if (next >= tiles) break;
         cur = nxt;
         tile = next;
@@ -307,13 +313,15 @@ int crt_strided_mac(const int* x, int S, int L, int lane_offset, int lanes, cons
                     const int* inc_lo, const int* radius, const int* delta,
                     const int* int_radius, const int* step, const int* table, int table_size,
                     int N, int T, int d, int frames_per_tile, int win_rows, int vec, void* out,
-                    int* rows_out, int clamp_s16, int device, void* stream) {
-    const int err = use_device(device);
-    if (err != 0) return err;
+                    int* rows_out, int clamp_s16, const int* n_valid, int frame_offset,
+                    int device, void* stream) {
+    const DeviceGuard guard(device);
+    if (guard.err != 0) return guard.err;
     const GeometryArgs geo{p0_ptr, p0_val, f0_ptr, f0_val, inc_hi, inc_lo,
                            radius, delta, int_radius, step};
     const StridedParams P{x, S, L, lane_offset, lanes, geo, {table, table_size, nullptr, 0, T},
-                          N, T, d, frames_per_tile, win_rows, vec, out, rows_out};
+                          N, T, d, frames_per_tile, win_rows, vec, out, rows_out, n_valid,
+                          frame_offset};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return clamp_s16 ? launch_strided<int16_t>(P, device, s)
                      : launch_strided<int32_t>(P, device, s);

@@ -66,7 +66,9 @@ struct WideParams {
     int* partial;                     // (N, K, lanes) partial sums
     int* tap_sums;                    // (N, K) the slots' sums of taps
     void* out;
-    int* rows_out;
+    int* rows_out;                    // null: the rows are not written
+    const int* n_valid;               // frames from *n_valid - frame_offset on are stored
+    int frame_offset;                 // as 0 (valid_frames); null: every frame is kept
 };
 
 // The launch's input span: runs of WIDE_RUN_ROWS rows from a0, the first
@@ -114,15 +116,18 @@ __device__ __forceinline__ int2 wide_run_frames(const WideParams& P, const Launc
 // frames n_lo + w, n_lo + w + 8, ... < n_hi; its 32 threads read the frame's
 // taps j0 .. j1 - 1 from the LUT at once into the warp's `warp_taps` row,
 // and the tap loop reads them 4 at a time as a broadcast. The items of lane
-// tile 0 also write each slot's sum of taps.
+// tile 0 also write each slot's sum of taps. Frames from `valid` on
+// (valid_frames) are left out: the fold stores them as 0 and reads no slot.
 __device__ __forceinline__ void wide_compute(const WideParams& P, const LaunchGeometry& g,
                                              const WideSpan& s, int run, int lane0,
-                                             int2 frames, const int* win, int* warp_taps) {
+                                             int2 frames, const int* win, int* warp_taps,
+                                             int valid) {
     const int tx = threadIdx.x & 31;
     const int lane = lane0 + 4 * tx;
     const int b0 = s.a0 + run * WIDE_RUN_ROWS;
     int* const kw = warp_taps + (threadIdx.x >> 5) * WIDE_RUN_ROWS;
-    for (int n = frames.x + (threadIdx.x >> 5); n < frames.y; n += WIDE_WARPS) {
+    const int n_end = min(frames.y, valid);
+    for (int n = frames.x + (threadIdx.x >> 5); n < n_end; n += WIDE_WARPS) {
         const FrameWindow w = frame_window(g, n);
         const int row = clamp_row(w.row, s.row_max);
         const int live = min(max(w.taps, 0), P.T);
@@ -190,6 +195,7 @@ wide_mac_kernel(const WideParams P) {
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
     const int items = s.runs * lane_tiles;
     const bool finder = threadIdx.x == WIDE_THREADS - 32;
+    const int valid = valid_frames(P.n_valid, P.frame_offset);
     int item = blockIdx.x;
     if (item >= items) return;
     auto win = [&](int b) { return smem + b * WIDE_RUN_ROWS * TILE_LANES; };
@@ -215,7 +221,7 @@ wide_mac_kernel(const WideParams P) {
         }
         const int run = item / lane_tiles;
         wide_compute(P, g, s, run, (item - run * lane_tiles) * TILE_LANES, s_frames[b],
-                     win(b), s_taps);
+                     win(b), s_taps, valid);
         if (next >= items) break;
         item = next;
     }
@@ -223,7 +229,9 @@ wide_mac_kernel(const WideParams P) {
 
 // grid (ceil(lanes / WIDE_FOLD_THREADS), N): out[n][l] = finish(mul_shift15(
 // sum of frame n's slots, q[n])), q[n] the reciprocal of the sum of its
-// slots' tap sums (its live taps); rows_out[n] its unclamped row.
+// slots' tap sums (its live taps); rows_out[n] its unclamped row (when the
+// caller wants it). A frame from valid_frames on is stored as 0, its slots
+// unread.
 template <typename OutT>
 __global__ void __launch_bounds__(WIDE_FOLD_THREADS)
 wide_fold_kernel(const WideParams P) {
@@ -232,8 +240,13 @@ wide_fold_kernel(const WideParams P) {
     const LaunchGeometry g = read_geometry(P.geo);
     const WideSpan s = wide_span(P, g);
     const FrameWindow w = frame_window(g, n);
-    if (blockIdx.x == 0 && threadIdx.x == 0) P.rows_out[n] = w.row;
+    if (blockIdx.x == 0 && threadIdx.x == 0 && P.rows_out) P.rows_out[n] = w.row;
     if (l >= P.lanes) return;
+    OutT* const o = static_cast<OutT*>(P.out) + static_cast<size_t>(n) * P.lanes + l;
+    if (n >= valid_frames(P.n_valid, P.frame_offset)) {
+        *o = 0;
+        return;
+    }
     const int row = clamp_row(w.row, s.row_max);
     const int live = min(max(w.taps, 0), P.T);
     const int slots = live > 0 ? (row + live - 1 - s.a0) / WIDE_RUN_ROWS -
@@ -261,8 +274,7 @@ wide_fold_kernel(const WideParams P) {
         a += acc[i];
         t += taps[i];
     }
-    static_cast<OutT*>(P.out)[static_cast<size_t>(n) * P.lanes + l] =
-        finish<OutT>(mul_shift15(a, reciprocal_q31(t)));
+    *o = finish<OutT>(mul_shift15(a, reciprocal_q31(t)));
 }
 
 // The MAC kernel on a persistent grid (persistent_grid, mac_common.cuh), at
@@ -295,14 +307,15 @@ int crt_wide_mac(const int* x, int S, int L, int lane_offset, int lanes, const i
                  const int* radius, const int* delta, const int* int_radius, const int* step,
                  const int* table, int table_size, const int* tstr, int tstr_rows, int N, int T,
                  int K, int runs_bound, int vec, int* partial, int* tap_sums,
-                 void* out, int* rows_out,
-                 int clamp_s16, int device, void* stream) {
-    const int err = use_device(device);
-    if (err != 0) return err;
+                 void* out, int* rows_out, int clamp_s16, const int* n_valid, int frame_offset,
+                 int device, void* stream) {
+    const DeviceGuard guard(device);
+    if (guard.err != 0) return guard.err;
     const GeometryArgs geo{p0_ptr, p0_val, f0_ptr, f0_val, inc_hi, inc_lo,
                            radius, delta, int_radius, step};
     const WideParams P{x, S, L, lane_offset, lanes, geo, {table, table_size, tstr, tstr_rows, T},
-                       N, T, K, vec, partial, tap_sums, out, rows_out};
+                       N, T, K, vec, partial, tap_sums, out, rows_out, n_valid,
+                       frame_offset};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return clamp_s16 ? launch_wide<int16_t>(P, runs_bound, device, s)
                      : launch_wide<int32_t>(P, runs_bound, device, s);

@@ -261,6 +261,21 @@ def mac_reference(x, rows, kvals, q, lanes, lane_offset, clamp_s16, tap_block=1)
     return out
 
 
+def mask_frames(out, n_valid, frame_offset: int = 0):
+    """``out`` (n_out, lanes) with every frame n, n + frame_offset >= n_valid,
+    set to 0: the kernels' ``n_valid`` (a one-element int32 tensor on out's
+    device; None leaves out as it is) in plain torch."""
+    if n_valid is None:
+        return out
+    n = torch.arange(out.shape[0], dtype=torch.int32, device=out.device) + frame_offset
+    return torch.where((n < n_valid.reshape(()))[:, None], out, 0)
+
+
+def _valid_args(n_valid, frame_offset: int) -> dict:
+    """The launchers' n_valid arguments (none without an n_valid)."""
+    return {} if n_valid is None else dict(n_valid=n_valid, frame_offset=frame_offset)
+
+
 def _check_x(x):
     if x.dtype != torch.int32 or x.dim() != 2:
         raise ValueError(f"x must be (S, L) int32, got {x.dtype} {tuple(x.shape)}")
@@ -285,7 +300,7 @@ def _takes_reference(x, kind: str) -> bool:
 def resample_uniform_lanes_tiled_reference(
     table, x, state, *, max_taps: int, n_out: int, d: int, cand: int,
     clamp_s16: bool = False, lanes: Optional[int] = None, lane_offset: int = 0,
-    table_strided=None,
+    table_strided=None, n_valid=None, frame_offset: int = 0,
 ):
     """Plain PyTorch version of ``resample_uniform_lanes_tiled``."""
     _check_x(x)
@@ -293,20 +308,25 @@ def resample_uniform_lanes_tiled_reference(
     rows, kvals, q, _eps, _tile_rows = precompute_launch(
         table, state, max_taps=max_taps, n_out=n_out, table_strided=table_strided)
     rl = launch_rows(rows, x.shape[0], max_taps)
-    return mac_reference(x, rl, kvals, q, lanes, lane_offset, clamp_s16), rows
+    out = mac_reference(x, rl, kvals, q, lanes, lane_offset, clamp_s16)
+    return mask_frames(out, n_valid, frame_offset), rows
 
 
 def resample_uniform_lanes_tiled(
     table, x, state, *, max_taps: int, n_out: int, d: int, cand: int,
     clamp_s16: bool = False, lanes: Optional[int] = None, lane_offset: int = 0,
-    table_strided=None,
+    table_strided=None, n_valid=None, frame_offset: int = 0,
 ):
     """Fast-path uniform-ratio resample; requires increment < 2^17, i.e.
     d = increment >> 16 in {0, 1} and cand = plan_uniform's candidate count.
 
     The caller pads x so that every real frame's window [row, row + max_taps)
     fits in its S rows. ``lanes``/``lane_offset`` run the launch over a column
-    slice of x with no copy. Returns (out (n_out, lanes) int32 -- int16 when
+    slice of x with no copy. With ``n_valid`` (a one-element int32 tensor on
+    x's device, e.g. a scan step's produced count) every frame n with
+    n + frame_offset >= n_valid comes back as 0, stored so by the kernel
+    (``mask_frames`` in the plain versions); the other entries take the same
+    pair. Returns (out (n_out, lanes) int32 -- int16 when
     ``clamp_s16`` -- and rows (n_out,)).
 
     On a CUDA card this is one launch of ``tiled_mac_kernel``, which reads
@@ -323,13 +343,14 @@ def resample_uniform_lanes_tiled(
         return resample_uniform_lanes_tiled_reference(
             table, x, state, max_taps=max_taps, n_out=n_out, d=d, cand=cand,
             clamp_s16=clamp_s16, lanes=lanes, lane_offset=lane_offset,
-            table_strided=table_strided)
+            table_strided=table_strided, n_valid=n_valid, frame_offset=frame_offset)
     lanes = _lane_range(x, lanes, lane_offset)
     frames, win_rows = stage_plan(max_taps, tiled_increment_bound(d, cand))
     out, rows = _build.tiled_mac(
         x, table, table_strided, state.position_integer, state.position_fractional,
         state.cfg, max_taps=max_taps, n_out=n_out, lanes=lanes, lane_offset=lane_offset,
-        frames_per_stage=frames, win_rows=win_rows, clamp_s16=clamp_s16)
+        frames_per_stage=frames, win_rows=win_rows, clamp_s16=clamp_s16,
+        **_valid_args(n_valid, frame_offset))
     ROUTES[("tiled", "cuda")] += 1
     return out, rows
 
@@ -341,6 +362,7 @@ def resample_uniform_lanes_tiled(
 def resample_uniform_lanes_general_reference(
     table, x, state, *, max_taps: int, n_out: int, clamp_s16: bool = False,
     lanes: Optional[int] = None, lane_offset: int = 0, table_strided=None,
+    n_valid=None, frame_offset: int = 0,
 ):
     """Plain PyTorch version of ``resample_uniform_lanes_general``."""
     _check_x(x)
@@ -348,12 +370,14 @@ def resample_uniform_lanes_general_reference(
     rows, kvals, q, _eps, _tile_rows = precompute_launch(
         table, state, max_taps=max_taps, n_out=n_out, table_strided=table_strided)
     rl = launch_rows(rows, x.shape[0], max_taps)
-    return mac_reference(x, rl, kvals, q, lanes, lane_offset, clamp_s16), rows
+    out = mac_reference(x, rl, kvals, q, lanes, lane_offset, clamp_s16)
+    return mask_frames(out, n_valid, frame_offset), rows
 
 
 def resample_uniform_lanes_general(
     table, x, state, *, max_taps: int, n_out: int, clamp_s16: bool = False,
     lanes: Optional[int] = None, lane_offset: int = 0, table_strided=None,
+    n_valid=None, frame_offset: int = 0,
 ):
     """Any-ratio uniform-lane resample (the general class: increment >= 2^17
     with a nonzero fraction). Same contract and return as the tiled entry.
@@ -367,13 +391,15 @@ def resample_uniform_lanes_general(
     if _takes_reference(x, "general"):
         return resample_uniform_lanes_general_reference(
             table, x, state, max_taps=max_taps, n_out=n_out, clamp_s16=clamp_s16,
-            lanes=lanes, lane_offset=lane_offset, table_strided=table_strided)
+            lanes=lanes, lane_offset=lane_offset, table_strided=table_strided,
+            n_valid=n_valid, frame_offset=frame_offset)
     lanes = _lane_range(x, lanes, lane_offset)
     frames, win_rows = stage_plan(max_taps, GENERAL_MIN_INCREMENT)
     out, rows = _build.tiled_mac(
         x, table, table_strided, state.position_integer, state.position_fractional,
         state.cfg, max_taps=max_taps, n_out=n_out, lanes=lanes, lane_offset=lane_offset,
-        frames_per_stage=frames, win_rows=win_rows, clamp_s16=clamp_s16)
+        frames_per_stage=frames, win_rows=win_rows, clamp_s16=clamp_s16,
+        **_valid_args(n_valid, frame_offset))
     ROUTES[("general", "cuda")] += 1
     return out, rows
 
@@ -424,7 +450,7 @@ def strided_stage_plan(d: int, max_taps: int) -> tuple:
 
 def resample_strided_reference(
     table, x, state, *, max_taps: int, n_out: int, d: int, clamp_s16: bool = False,
-    lanes: Optional[int] = None, lane_offset: int = 0,
+    lanes: Optional[int] = None, lane_offset: int = 0, n_valid=None, frame_offset: int = 0,
 ):
     """Plain PyTorch version of ``resample_strided_phases``, the port of the
     JAX package's XLA path ``resample_integer_stride``: one row take per tap
@@ -436,12 +462,13 @@ def resample_strided_reference(
     rl = launch_rows(rows, x.shape[0], max_taps)
     out = mac_reference(x, rl, k0.expand(n_out, -1), q0.expand(n_out), lanes, lane_offset,
                         clamp_s16)
-    return out, rows
+    return mask_frames(out, n_valid, frame_offset), rows
 
 
 def resample_strided_phases(
     table, x, state, *, max_taps: int, n_out: int, d: int, group: int = 8,
     clamp_s16: bool = False, lanes: Optional[int] = None, lane_offset: int = 0,
+    n_valid=None, frame_offset: int = 0,
 ):
     """Exact-integer-stride resample (increment fraction 0, d = increment >> 16
     >= 2, e.g. 96k->48k). ``group`` is accepted for the JAX signature and has
@@ -459,13 +486,14 @@ def resample_strided_phases(
     if _takes_reference(x, "strided"):
         return resample_strided_reference(
             table, x, state, max_taps=max_taps, n_out=n_out, d=d, clamp_s16=clamp_s16,
-            lanes=lanes, lane_offset=lane_offset)
+            lanes=lanes, lane_offset=lane_offset, n_valid=n_valid, frame_offset=frame_offset)
     lanes = _lane_range(x, lanes, lane_offset)
     frames, win_rows = strided_stage_plan(d, max_taps)
     out, rows = _build.strided_mac(
         x, table, state.position_integer, state.position_fractional, state.cfg,
         max_taps=max_taps, n_out=n_out, d=d, lanes=lanes, lane_offset=lane_offset,
-        frames_per_tile=frames, win_rows=win_rows, clamp_s16=clamp_s16)
+        frames_per_tile=frames, win_rows=win_rows, clamp_s16=clamp_s16,
+        **_valid_args(n_valid, frame_offset))
     ROUTES[("strided", "cuda")] += 1
     return out, rows
 
@@ -473,13 +501,15 @@ def resample_strided_phases(
 def resample_strided_phases_wide(
     table, x, state, *, max_taps: int, n_out: int, d: int, group: int = 8,
     clamp_s16: bool = False, lanes: Optional[int] = None, lane_offset: int = 0,
+    n_valid=None, frame_offset: int = 0,
 ):
     """The JAX package's large-buffer strided entry. Its TPU kernel exists
     for the v5e's VMEM budget; here ``strided_mac_kernel`` serves every
     buffer size, so this is ``resample_strided_phases``."""
     return resample_strided_phases(
         table, x, state, max_taps=max_taps, n_out=n_out, d=d, group=group,
-        clamp_s16=clamp_s16, lanes=lanes, lane_offset=lane_offset)
+        clamp_s16=clamp_s16, lanes=lanes, lane_offset=lane_offset, n_valid=n_valid,
+        frame_offset=frame_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -498,7 +528,7 @@ def wide_launch_frames(max_taps: int) -> int:
 def resample_wide_taps_reference(
     table, x, state, *, max_taps: int, n_out: int, d: int, clamp_s16: bool = False,
     lanes: Optional[int] = None, lane_offset: int = 0, table_strided=None,
-    pipeline: Optional[bool] = None,
+    pipeline: Optional[bool] = None, n_valid=None, frame_offset: int = 0,
 ):
     """Plain PyTorch version of ``resample_wide_taps``: ``mac_reference`` on
     the launch precompute's rows, taps and reciprocals, gathered
@@ -510,13 +540,13 @@ def resample_wide_taps_reference(
     rl = launch_rows(rows, x.shape[0], max_taps)
     out = mac_reference(x, rl, kvals, q, lanes, lane_offset, clamp_s16,
                         tap_block=WIDE_REFERENCE_TAP_BLOCK)
-    return out, rows
+    return mask_frames(out, n_valid, frame_offset), rows
 
 
 def resample_wide_taps(
     table, x, state, *, max_taps: int, n_out: int, d: int, clamp_s16: bool = False,
     lanes: Optional[int] = None, lane_offset: int = 0, table_strided=None,
-    pipeline: Optional[bool] = None,
+    pipeline: Optional[bool] = None, n_valid=None, frame_offset: int = 0,
 ):
     """Any-ratio resample for wide tap windows: the dispatchers send every
     width past 1024 (up to 6016 at radius 3007) and general-class widths
@@ -532,12 +562,13 @@ def resample_wide_taps(
     if _takes_reference(x, "wide"):
         return resample_wide_taps_reference(
             table, x, state, max_taps=max_taps, n_out=n_out, d=d, clamp_s16=clamp_s16,
-            lanes=lanes, lane_offset=lane_offset, table_strided=table_strided)
+            lanes=lanes, lane_offset=lane_offset, table_strided=table_strided,
+            n_valid=n_valid, frame_offset=frame_offset)
     lanes = _lane_range(x, lanes, lane_offset)
     out, rows = _build.wide_mac(
         x, table, table_strided, state.position_integer, state.position_fractional, state.cfg,
         max_taps=max_taps, n_out=n_out, d=d, lanes=lanes, lane_offset=lane_offset,
-        clamp_s16=clamp_s16)
+        clamp_s16=clamp_s16, **_valid_args(n_valid, frame_offset))
     ROUTES[("wide", "cuda")] += 1
     return out, rows
 
@@ -605,6 +636,40 @@ def multi_resample(table, xs: tuple, states: tuple, plans: tuple,
             raise ValueError(f"unknown launch kind {kind!r}")
         outs.append(out)
     return tuple(outs)
+
+
+def entry_launch_args(kind: str, table, x, state, *, d: int, cand, max_taps: int, n_out: int,
+                      table_strided=None, partial=None) -> tuple:
+    """(C entry, its arguments by name without the outputs') of the launch
+    that the ``kind`` entry ("tiled", "general", "strided" or "wide") makes
+    on a card over all of x's lanes, checked as the entry checks it, for a
+    caller that repeats the launch with other pointers (the whole-stream
+    scan). ``partial`` is the wide launch's scratch
+    (_build.wide_scratch_ints)."""
+    _check_x(x)
+    if n_out % FRAMES_PER_TILE:
+        raise ValueError(f"n_out must be a multiple of 8, got {n_out}")
+    common = dict(max_taps=max_taps, n_out=n_out, lanes=x.shape[1], lane_offset=0)
+    p0, f0, cfg = state.position_integer, state.position_fractional, state.cfg
+    if kind in ("tiled", "general"):
+        if kind == "tiled" and (d not in (0, 1) or not 1 <= cand <= 8):
+            raise ValueError(f"tiled launches need d in (0, 1) and cand in [1, 8], got "
+                             f"{d}, {cand}")
+        frames, win_rows = stage_plan(max_taps, tiled_increment_bound(d, cand)
+                                      if kind == "tiled" else GENERAL_MIN_INCREMENT)
+        return "crt_tiled_mac", _build.tiled_launch_args(
+            x, table, table_strided, p0, f0, cfg, frames_per_stage=frames, win_rows=win_rows,
+            **common)
+    if kind == "strided":
+        if d < 2:
+            raise ValueError(f"strided launches need d >= 2, got {d}")
+        frames, win_rows = strided_stage_plan(d, max_taps)
+        return "crt_strided_mac", _build.strided_launch_args(
+            x, table, p0, f0, cfg, d=d, frames_per_tile=frames, win_rows=win_rows, **common)
+    if kind == "wide":
+        return "crt_wide_mac", _build.wide_launch_args(
+            x, table, table_strided, p0, f0, cfg, partial, d=d, **common)
+    raise ValueError(f"no kernel launch of kind {kind!r}")
 
 
 # ---------------------------------------------------------------------------

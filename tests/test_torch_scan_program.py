@@ -1,0 +1,606 @@
+"""The port's whole-stream scan as one device program vs the JAX package.
+
+On a card ``resample_scan_fused`` is a ``ScanProgram``: per step one launch of
+scan_stage_kernel (stage + bookkeeping) and the engine's launches, which
+mask the frames past ``produced`` in their stores. On the CPU, with inputs
+made from a numpy seed, this file holds against the JAX package's
+``resample_scan_fused`` (Pallas in interpret mode, as tests/test_scan.py runs
+it), with exact equality of outputs, produced, state and backlog:
+
+* ``resample_scan_fused_reference`` (the plain version, a loop of torch ops);
+* a step-by-step composition of ``scan_stage_reference`` and the engines'
+  plain versions with ``n_valid`` -- what the kernels compute, piece by piece;
+* ``ScanProgram`` itself with its C entries stood in by functions that read
+  and write the same pointers, so the argument lists it builds (every
+  per-step pointer) are exercised without a card.
+
+The bookkeeping alone (an int64 form, as the kernel computes it) is held
+against the port's int32 functions on seeded random states. The ``cuda``
+tests run the kernels against the plain versions on a card.
+"""
+
+import ctypes
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from clownresampler_tpu.configure import configure as jconfigure
+from clownresampler_tpu.lowlevel import make_device_state as jmake_state
+from clownresampler_tpu.lowlevel import resample_scan as jresample_scan
+from clownresampler_tpu.lowlevel import resample_scan_fused as jresample_scan_fused
+from clownresampler_tpu.models import lanczos_kernel_table as jtable
+from clownresampler_tpu_torch import fixedpoint as fx
+from clownresampler_tpu_torch import lowlevel
+from clownresampler_tpu_torch.configure import configure
+from clownresampler_tpu_torch.lowlevel import (
+    DeviceState,
+    ScanProgram,
+    make_device_state,
+    resample_scan_fused,
+    resample_scan_fused_reference,
+    resample_scan_tiled,
+    scan_stage,
+    scan_stage_reference,
+)
+from clownresampler_tpu_torch.models import DEFAULT_MODEL, table_tensor
+from clownresampler_tpu_torch.ops import _build
+from clownresampler_tpu_torch.ops import resample as rs
+from clownresampler_tpu_torch.ops.convolve import ConfigScalars
+
+ENGINES = {"tiled": (48000, 44100), "strided": (96000, 48000), "general": (44100, 8000),
+           "wide": (44100, 1000)}
+
+
+def _case(rates, *, lanes=128, n_in=256, k=2, seed=81, dtype=np.int16, f0=0, flush=True,
+          n_out=None, device="cpu"):
+    """K random chunks (and a zero chunk, the flush), the geometry, and both
+    packages' initial states."""
+    cfg = configure(*rates, max(rates))
+    inc = fx.calculate_ratio(*rates)
+    r = cfg.integer_stretched_kernel_radius
+    data = np.random.default_rng(seed).integers(-32768, 32768, size=(k, n_in, lanes))
+    if flush:
+        data = np.concatenate([data, np.zeros((1, n_in, lanes), data.dtype)])
+    taps = fx.round_up(2 * r, 8)
+    dev = torch.device(device)
+    return dict(
+        rates=rates, chunks=data.astype(dtype), inc=inc, r=r, taps=taps, cfg=cfg,
+        n_out=n_out or fx.round_up(((n_in + 2 * r) << 16) // inc + 16, 128),
+        state=make_device_state(0, f0, cfg, inc, dev),
+        jstate=jmake_state(0, f0, jconfigure(*rates, max(rates)), inc),
+        table=table_tensor(DEFAULT_MODEL.table(), dev),
+        tstr=table_tensor(DEFAULT_MODEL.strided_table(cfg.kernel_step_size, taps), dev),
+        device=dev)
+
+
+def _plain(result):
+    out, prod, st, back = result
+    return (out.cpu().numpy(), prod.cpu().numpy(), int(st.position_integer),
+            int(st.position_fractional), bool(back))
+
+
+def _scan_args(c):
+    return dict(max_taps=c["taps"], n_out=c["n_out"], radius=c["r"], increment=c["inc"],
+                table_strided=c["tstr"])
+
+
+def _reference(c):
+    return _plain(resample_scan_fused_reference(
+        c["table"], torch.from_numpy(c["chunks"]).to(c["device"]), c["state"], **_scan_args(c)))
+
+
+def _jax(c, fused=True):
+    """The JAX package's fused scan on the CPU (Pallas in interpret mode), or
+    its oracle scan."""
+    args = (jnp.asarray(jtable()), jnp.asarray(c["chunks"]), c["jstate"])
+    kw = dict(max_taps=c["taps"], n_out=c["n_out"], radius=c["r"])
+    if fused:
+        out, prod, st, back = jresample_scan_fused(*args, increment=c["inc"], interpret=True, **kw)
+    else:
+        out, prod, st, back = jresample_scan(*args, **kw)
+    return (np.asarray(out), np.asarray(prod), int(st.position_integer),
+            int(st.position_fractional), bool(back))
+
+
+ENGINE_REFERENCES = {
+    "tiled": lambda table, x, st, d, cand, tstr, **kw: rs.resample_uniform_lanes_tiled_reference(
+        table, x, st, d=d, cand=cand, table_strided=tstr, **kw),
+    "general": lambda table, x, st, d, cand, tstr, **kw:
+        rs.resample_uniform_lanes_general_reference(table, x, st, table_strided=tstr, **kw),
+    "strided": lambda table, x, st, d, cand, tstr, **kw: rs.resample_strided_reference(
+        table, x, st, d=d, **kw),
+    "wide": lambda table, x, st, d, cand, tstr, **kw: rs.resample_wide_taps_reference(
+        table, x, st, d=d, table_strided=tstr, **kw),
+}
+
+
+def _composed(c, stage=scan_stage_reference):
+    """The scan as the device program runs it, in plain versions: per step
+    ``stage`` into one of two buffers whose tail rows stay zero, then the
+    engine's plain version per launch offset with ``n_valid``."""
+    kind, d, cand, step = lowlevel._scan_engine(c["inc"], c["taps"], c["n_out"])
+    chunks = torch.from_numpy(c["chunks"]).to(c["device"])
+    k, n_in, lanes = chunks.shape
+    r, n_out, cfg = c["r"], c["n_out"], c["state"].cfg
+    buffers = torch.zeros((2, 2 * r + n_in + c["taps"] + 8, lanes), dtype=torch.int32,
+                          device=c["device"])
+    state = torch.stack([c["state"].position_integer + r, c["state"].position_fractional])
+    outs, produced, over = [], [], []
+    for s in range(k):
+        cur, prev = buffers[s % 2], buffers[(s + 1) % 2]
+        rows, prod, ov, launch_states, state = stage(
+            prev, chunks[s], state, cfg, radius=r, n_out=n_out, launch_step=step)
+        cur[: 2 * r + n_in] = rows
+        assert not cur[2 * r + n_in :].any()
+        outs.append(torch.cat([
+            ENGINE_REFERENCES[kind](
+                c["table"], cur, DeviceState(launch_states[i, 0], launch_states[i, 1], cfg),
+                d, cand, c["tstr"], max_taps=c["taps"], n_out=min(step, n_out - o),
+                n_valid=prod, frame_offset=o)[0]
+            for i, o in enumerate(range(0, n_out, step))]))
+        produced.append(prod)
+        over.append(ov)
+    return _plain((torch.stack(outs), torch.stack(produced),
+                   DeviceState(state[0] - r, state[1], cfg), torch.stack(over).any()))
+
+
+def _assert_same(got, want, what):
+    np.testing.assert_array_equal(got[0], want[0], err_msg=f"{what}: outputs")
+    np.testing.assert_array_equal(got[1], want[1], err_msg=f"{what}: produced")
+    assert got[1].dtype == want[1].dtype and got[0].dtype == want[0].dtype, what
+    assert got[2:] == want[2:], what
+
+
+# ---------------------------------------------------------------------------
+# Against the JAX package's fused scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32], ids=["int16", "int32"])
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_torch_scan_program_plain_versions_match_jax_fused(engine, dtype):
+    """Every engine, int16 and int32 chunks, two chunks and the zero flush."""
+    c = _case(ENGINES[engine], dtype=dtype, f0=0x1234)
+    assert lowlevel._scan_engine(c["inc"], c["taps"], c["n_out"])[0] == engine
+    want = _jax(c)
+    assert not want[4]
+    _assert_same(_reference(c), want, f"{engine} reference")
+    _assert_same(_composed(c), want, f"{engine} composed")
+
+
+@pytest.mark.parametrize("engine", ["tiled", "general"])
+def test_torch_scan_program_single_chunk_matches_jax_fused(engine):
+    """K = 1: the first step's zero halo and nothing else."""
+    c = _case(ENGINES[engine], k=1, flush=False, seed=82)
+    want = _jax(c)
+    _assert_same(_reference(c), want, "reference")
+    _assert_same(_composed(c), want, "composed")
+
+
+@pytest.mark.parametrize("engine", ["tiled", "strided", "general"])
+def test_torch_scan_program_six_lanes_match_jax(engine):
+    """Lanes that are no multiple of 4 (the stage kernel's element-wise
+    path): 6 lanes against the JAX package's oracle scan, which its fused
+    scan is held to (its Pallas engines take lanes in multiples of 128)."""
+    c = _case(ENGINES[engine], lanes=6, n_in=128, seed=83)
+    want = _jax(c, fused=False)
+    _assert_same(_reference(c), want, "reference")
+    _assert_same(_composed(c), want, "composed")
+
+
+def test_torch_scan_program_backlog_matches_jax_fused():
+    """8k -> 44.1k makes ~5.5 frames per input frame: at half the proper
+    n_out every scan reports the backlog, and produced stops at n_out."""
+    full = _case((8000, 44100), n_in=128, seed=84)
+    c = _case((8000, 44100), n_in=128, seed=84, n_out=fx.round_up(full["n_out"] // 2, 128))
+    want = _jax(c)
+    assert want[4] and want[1].max() == c["n_out"]
+    _assert_same(_reference(c), want, "reference")
+    _assert_same(_composed(c), want, "composed")
+
+
+@pytest.mark.parametrize("engine,n_in", [("general", 16), ("wide", 128), ("strided", 8)])
+def test_torch_scan_program_chunks_shorter_than_the_halo_match_jax_fused(engine, n_in):
+    """n_in < 2*radius: the halo spans more than the previous chunk, so it
+    reaches into the previous halo (rows [n_in, n_in + 2r) of the previous
+    buffer), exactly as in the JAX scan."""
+    c = _case(ENGINES[engine], n_in=n_in, k=4, seed=85, f0=0x8421)
+    assert n_in < 2 * c["r"]
+    want = _jax(c)
+    _assert_same(_reference(c), want, "reference")
+    _assert_same(_composed(c), want, "composed")
+
+
+# ---------------------------------------------------------------------------
+# The bookkeeping alone: int64, as the kernel computes it
+# ---------------------------------------------------------------------------
+
+def _bookkeeping_int64(p, f, inc, n_in, n_out, step):
+    """scan_kernels.cu scan_bookkeeping in exact integers: (produced, over,
+    launch states, next state)."""
+    num = ((n_in - p) << 16) - f
+    natural = (num + inc - 1) // max(inc, 1) if num > 0 else 0
+    produced = min(natural, n_out)
+    launch_states = []
+    for o in range(0, n_out, step):
+        t = f + o * inc
+        launch_states.append([p + (t >> 16), t & 0xFFFF])
+    t = f + produced * inc
+    p_after = p + (t >> 16)
+    return (produced, int(natural > n_out), launch_states,
+            [p_after - min(p_after, n_in), t & 0xFFFF])
+
+
+RATIOS = [(48000, 44100), (44100, 48000), (8000, 44100), (96000, 48000), (44100, 8000),
+          (44100, 1000), (192000, 44100), (44100, 262)]
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_torch_scan_stage_reference_bookkeeping_equals_int64_form(seed):
+    """100 random states a seed over the domain the scan admits (n_in < 2^14,
+    n_out <= 2^14, fractions below 2^16, real and random increments): the
+    port's int32 functions equal the int64 form bit for bit."""
+    rng = np.random.default_rng(900 + seed)
+    for trial in range(100):
+        n_in = int(rng.integers(1, 1 << 14))
+        n_out = 8 * int(rng.integers(1, (1 << 14) // 8 + 1))
+        step = n_out if trial % 3 else 8 * int(rng.integers(1, n_out // 8 + 1))
+        inc = (fx.calculate_ratio(*RATIOS[trial % len(RATIOS)]) if trial % 2
+               else int(rng.integers(1, 1 << 28)))
+        p = int(rng.integers(0, 2 * n_in + 40)) if trial % 5 else int(rng.integers(0, 40))
+        f = int(rng.integers(0, 1 << 16))
+        cfg = ConfigScalars.from_fields((0, 0, 0, 0, inc & 0x7FFFFFFF, *fx.split_increment(inc)),
+                                        "cpu")
+        _, produced, over, launch_states, nxt = scan_stage_reference(
+            torch.zeros((n_in + 2, 1), dtype=torch.int32),
+            torch.zeros((n_in, 1), dtype=torch.int16),
+            torch.tensor([p, f], dtype=torch.int32), cfg, radius=1, n_out=n_out,
+            launch_step=step)
+        want = _bookkeeping_int64(p, f, inc, n_in, n_out, step)
+        got = (int(produced), int(over), launch_states.tolist(), nxt.tolist())
+        assert got == want, (p, f, inc, n_in, n_out, step)
+        assert all(t.dtype == torch.int32 for t in (produced, over, launch_states, nxt))
+
+
+def test_torch_scan_stage_reference_rows_and_route():
+    """The staged rows are [rows [n_in, n_in + 2r) of the previous buffer |
+    chunk widened]; on the CPU ``scan_stage`` is the plain version, counted
+    as such, and writes into ``out`` when given."""
+    rng = np.random.default_rng(7)
+    r, n_in, lanes = 5, 6, 3
+    prev = torch.from_numpy(rng.integers(-9, 9, size=(2 * r + n_in + 4, lanes)).astype(np.int32))
+    chunk = torch.from_numpy(rng.integers(-32768, 32768, size=(n_in, lanes)).astype(np.int16))
+    cfg = make_device_state(0, 0, configure(44100, 8000, 44100),
+                            fx.calculate_ratio(44100, 8000), "cpu").cfg
+    state = torch.tensor([r, 77], dtype=torch.int32)
+    rs.ROUTES.clear()
+    out = torch.full_like(prev, -1)
+    got = scan_stage(prev, chunk, state, cfg, radius=r, n_out=8, out=out)
+    want = scan_stage_reference(prev, chunk, state, cfg, radius=r, n_out=8)
+    assert rs.ROUTES == {("scan_stage", "reference"): 1}
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    assert torch.equal(got[0][: 2 * r], prev[n_in : n_in + 2 * r])
+    assert torch.equal(got[0][2 * r :], chunk.to(torch.int32))
+    assert torch.equal(out[: 2 * r + n_in], got[0]) and (out[2 * r + n_in :] == -1).all()
+
+
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_torch_n_valid_masks_the_plain_versions(engine):
+    """``n_valid`` zeroes exactly the frames n with n + frame_offset >=
+    n_valid, in int32 and clamped int16, through the entry on the CPU."""
+    c = _case(ENGINES[engine], lanes=8, n_in=2048 if engine == "wide" else 256, k=1,
+              flush=False)
+    kind, d, cand, _ = lowlevel._scan_engine(c["inc"], c["taps"], 64)
+    x = torch.cat([torch.zeros((2 * c["r"], 8), dtype=torch.int32),
+                   torch.from_numpy(c["chunks"][0].astype(np.int32)),
+                   torch.zeros((c["taps"] + 8, 8), dtype=torch.int32)])
+    st = DeviceState(c["r"], 5, c["state"].cfg)
+    entry = {"tiled": lambda **kw: rs.resample_uniform_lanes_tiled(
+                 c["table"], x, st, d=d, cand=cand, **kw),
+             "general": lambda **kw: rs.resample_uniform_lanes_general(c["table"], x, st, **kw),
+             "strided": lambda **kw: rs.resample_strided_phases(c["table"], x, st, d=d, **kw),
+             "wide": lambda **kw: rs.resample_wide_taps(c["table"], x, st, d=d, **kw)}[kind]
+    for clamp in (False, True):
+        full, rows = entry(max_taps=c["taps"], n_out=32, clamp_s16=clamp)
+        assert full[20:].any()
+        for n_valid, offset, keep in ((20, 0, 20), (20, 8, 12), (100, 0, 32), (3, 8, 0)):
+            got, got_rows = entry(max_taps=c["taps"], n_out=32, clamp_s16=clamp,
+                                  n_valid=torch.tensor(n_valid, dtype=torch.int32),
+                                  frame_offset=offset)
+            assert got.dtype == full.dtype and torch.equal(got_rows, rows)
+            assert torch.equal(got[:keep], full[:keep]) and not got[keep:].any()
+
+
+# ---------------------------------------------------------------------------
+# ScanProgram with its C entries stood in
+# ---------------------------------------------------------------------------
+
+def _view(ptr, shape, dtype=np.int32):
+    """The memory at ``ptr`` as a writable numpy array."""
+    nbytes = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+    return np.frombuffer((ctypes.c_char * nbytes).from_address(ptr), dtype=dtype).reshape(shape)
+
+
+def _tensor(ptr, shape, dtype=np.int32):
+    return torch.from_numpy(_view(ptr, shape, dtype))
+
+
+def _stage_stand_in(calls):
+    """crt_scan_stage over the same pointers: the copy in numpy, the
+    bookkeeping in exact integers."""
+    def entry(*args):
+        a = dict(zip(_build.ENTRY_ARGS["crt_scan_stage"], args))
+        calls.append(("crt_scan_stage", a))
+        n_in, halo, lanes = a["n_in"], a["halo_rows"], a["L"]
+        cur = _view(a["cur"], (halo + n_in, lanes))
+        cur[:halo] = _view(a["prev"], (halo + n_in, lanes))[n_in:]
+        cur[halo:] = _view(a["chunk"], (n_in, lanes), np.int16 if a["chunk_s16"] else np.int32)
+        p, f = (int(v) for v in _view(a["state_in"], (2,)))
+        inc = (int(_view(a["inc_hi"], ())) << 16) + int(_view(a["inc_lo"], ()))
+        produced, over, launch_states, nxt = _bookkeeping_int64(
+            p, f, inc, n_in, a["n_out"], a["launch_step"])
+        assert len(launch_states) == a["launches"]
+        _view(a["produced"], ())[...] = produced
+        _view(a["over"], ())[...] = over
+        _view(a["launch_states"], (a["launches"], 2))[...] = launch_states
+        _view(a["state_out"], (2,))[...] = nxt
+        return 0
+    return entry
+
+
+def _mac_stand_in(name, calls):
+    """A MAC entry over the same pointers: its plain version with n_valid,
+    written to the output pointer."""
+    def entry(*args):
+        a = dict(zip(_build.ENTRY_ARGS[name], args))
+        calls.append((name, a))
+        assert a["rows_out"] is None and a["clamp_s16"] == 0 and a["lane_offset"] == 0
+        scalar = lambda key: _tensor(a[key], ())
+        cfg = ConfigScalars(
+            stretched_kernel_radius=scalar("radius"),
+            integer_stretched_kernel_radius=scalar("int_radius"),
+            stretched_kernel_radius_delta=scalar("delta"), kernel_step_size=scalar("step"),
+            increment=torch.zeros((), dtype=torch.int32), increment_hi=scalar("inc_hi"),
+            increment_lo=scalar("inc_lo"))
+        st = DeviceState(scalar("p0_ptr"), scalar("f0_ptr"), cfg)
+        x = _tensor(a["x"], (a["S"], a["L"]))
+        table = _tensor(a["table"], (a["table_size"],))
+        kw = dict(max_taps=a["T"], n_out=a["N"], n_valid=scalar("n_valid"),
+                  frame_offset=a["frame_offset"])
+        if a.get("tstr"):
+            kw["table_strided"] = _tensor(a["tstr"], (a["tstr_rows"], a["T"]))
+        if name == "crt_strided_mac":
+            out, _ = rs.resample_strided_reference(table, x, st, d=a["d"], **kw)
+        elif name == "crt_wide_mac":
+            assert a["partial"] and a["tap_sums"] > a["partial"]
+            out, _ = rs.resample_wide_taps_reference(table, x, st, d=0, **kw)
+        else:
+            out, _ = rs.resample_uniform_lanes_general_reference(table, x, st, **kw)
+        _tensor(a["out"], (a["N"], a["lanes"])).copy_(out)
+        return 0
+    return entry
+
+
+def _program(c, monkeypatch, chunks=None):
+    """(result of a ScanProgram over the case on CPU tensors with the C
+    entries stood in, the calls it made)."""
+    calls = []
+    entries = {"crt_scan_stage": _stage_stand_in(calls),
+               **{name: _mac_stand_in(name, calls)
+                  for name in ("crt_tiled_mac", "crt_strided_mac", "crt_wide_mac")}}
+    monkeypatch.setattr(_build, "entry_function", entries.__getitem__)
+    monkeypatch.setattr(_build, "_check_cuda", lambda x: None)
+    monkeypatch.setattr(_build, "_stream", lambda x: 0)
+    if chunks is None:
+        chunks = torch.from_numpy(c["chunks"])
+    program = ScanProgram(c["table"], chunks, c["state"], **_scan_args(c))
+    rs.ROUTES.clear()
+    program.run()
+    program.routes = dict(rs.ROUTES)
+    with pytest.raises(RuntimeError, match="runs once"):
+        program.run()
+    return _plain(program.result()), calls, program
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.int32], ids=["int16", "int32"])
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_torch_scan_program_argument_flow(monkeypatch, engine, dtype):
+    """The program's launches, stood in, reproduce the plain version; it
+    makes one stage call and one engine call a step and counts them."""
+    c = _case(ENGINES[engine], lanes=12, n_in=96, k=3, seed=86, dtype=dtype, f0=0x4321)
+    got, calls, program = _program(c, monkeypatch)
+    _assert_same(got, _reference(c), engine)
+    k = c["chunks"].shape[0]
+    entry = {"tiled": "crt_tiled_mac", "general": "crt_tiled_mac",
+             "strided": "crt_strided_mac", "wide": "crt_wide_mac"}[engine]
+    assert [name for name, _ in calls] == ["crt_scan_stage", entry] * k
+    assert program.routes == {("scan_stage", "cuda"): k, (engine, "cuda"): k}
+    assert {a["chunk_s16"] for name, a in calls if name == "crt_scan_stage"} == {
+        int(dtype == np.int16)}
+    assert {a["vec"] for _, a in calls} == {1}
+
+
+def test_torch_scan_program_several_wide_launches_a_step(monkeypatch):
+    """The wide engine cuts n_out into launches of wide_launch_frames: with
+    that at 48 frames a 128-frame step is three launches at offsets 0, 48,
+    96, each with its launch state and its share of the output."""
+    monkeypatch.setattr(lowlevel, "wide_launch_frames", lambda taps: 48)
+    c = _case(ENGINES["wide"], lanes=8, n_in=4096, k=2, seed=87)
+    want = _reference(c)
+    _assert_same(_composed(c), want, "composed")
+    got, calls, program = _program(c, monkeypatch)
+    _assert_same(got, want, "program")
+    assert program.launches == 3 and len(calls) == 3 * 4
+    assert [a["frame_offset"] for name, a in calls[1:4]] == [0, 48, 96]
+    assert [a["N"] for name, a in calls[1:4]] == [48, 48, 32]
+    assert program.routes == {("scan_stage", "cuda"): 3, ("wide", "cuda"): 9}
+    assert want[1].max() > 48        # some step's frames reach past the first launch
+
+
+def test_torch_scan_program_odd_lanes_short_chunks_single_step(monkeypatch):
+    """Six lanes (no 16-byte path), chunks shorter than the halo, a
+    non-contiguous chunk stack, and K = 1."""
+    c = _case(ENGINES["general"], lanes=6, n_in=16, k=5, seed=88)
+    got, calls, _ = _program(c, monkeypatch)
+    _assert_same(got, _reference(c), "short chunks")
+    assert {a["vec"] for _, a in calls} == {0}
+    wide = torch.from_numpy(np.repeat(c["chunks"], 2, axis=2))[:, :, ::2]
+    assert not wide.is_contiguous()
+    _assert_same(_program(c, monkeypatch, chunks=wide)[0], got, "non-contiguous")
+    one = _case(ENGINES["tiled"], lanes=4, n_in=64, k=1, flush=False, seed=89)
+    got, calls, _ = _program(one, monkeypatch)
+    _assert_same(got, _reference(one), "K = 1")
+    assert len(calls) == 2
+
+
+def test_torch_scan_program_backlog_and_checks(monkeypatch):
+    """An undersized n_out raises the backlog flag from the device's
+    ``over`` array; the set-up refuses what the plain version refuses."""
+    full = _case((8000, 44100), lanes=4, n_in=64, seed=90)
+    c = dict(full, n_out=fx.round_up(full["n_out"] // 2, 8))
+    got, _, _ = _program(c, monkeypatch)
+    assert got[4]
+    _assert_same(got, _reference(c), "backlog")
+    for bad, match in ((dict(c, n_out=60), "multiple of 8"),
+                       (dict(c, taps=2008), "at most 1024 taps")):
+        with pytest.raises(ValueError, match=match):
+            ScanProgram(c["table"], torch.from_numpy(c["chunks"]), c["state"], **_scan_args(bad))
+    with pytest.raises(ValueError, match="K >= 1"):
+        ScanProgram(c["table"], torch.from_numpy(c["chunks"][0]), c["state"], **_scan_args(c))
+
+
+def test_torch_scan_fused_on_the_cpu_is_the_plain_version():
+    """``resample_scan_fused`` and ``resample_scan_tiled`` keep their
+    signatures and, on CPU tensors, run the plain version."""
+    c = _case(ENGINES["tiled"], lanes=8, n_in=64, seed=91)
+    chunks = torch.from_numpy(c["chunks"])
+    rs.ROUTES.clear()
+    got = _plain(resample_scan_fused(c["table"], chunks, c["state"], **_scan_args(c)))
+    assert set(rs.ROUTES) == {("tiled", "reference")}
+    _assert_same(got, _reference(c), "fused")
+    plan = rs.plan_uniform(c["inc"], c["n_out"])
+    alias = resample_scan_tiled(c["table"], chunks, c["state"], max_taps=c["taps"],
+                                n_out=c["n_out"], radius=c["r"], d=plan["d"], cand=plan["cand"])
+    _assert_same(_plain(alias), got, "alias")
+
+
+def test_torch_scan_stage_launcher_refuses_what_the_kernel_cannot_take():
+    """The stage launcher never falls back: CPU tensors are refused before
+    any build; with the device check stood aside, so are a chunk of another
+    type, one buffer given twice and a buffer too short."""
+    cfg = make_device_state(0, 0, configure(48000, 44100, 48000),
+                            fx.calculate_ratio(48000, 44100), "cpu").cfg
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32)
+    prev, cur, chunk = i32(40, 4), i32(40, 4), torch.zeros((16, 4), dtype=torch.int16)
+    small = (i32(2), cfg, i32(1), i32(1), i32(1, 2), i32(2))
+    kw = dict(halo_rows=10, n_out=64, launch_step=64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _build.scan_stage(prev, cur, chunk, *small, **kw)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(_build, "_check_cuda", lambda x: None)
+        mp.setattr(_build, "_stream", lambda x: 0)
+        assert _build.scan_stage_args(prev, cur, chunk, *small, **kw)["launches"] == 1
+        with pytest.raises(ValueError, match="int16 or int32"):
+            _build.scan_stage_args(prev, cur, chunk.to(torch.int64), *small, **kw)
+        with pytest.raises(ValueError, match="bad scan stage"):
+            _build.scan_stage_args(prev, prev, chunk, *small, **kw)
+        with pytest.raises(ValueError, match="bad scan stage"):
+            _build.scan_stage_args(prev[:20], cur[:20], chunk, *small, **kw)
+
+
+# ---------------------------------------------------------------------------
+# On a card: the kernels against the plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int16, np.int32], ids=["int16", "int32"])
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_torch_cuda_scan_program_matches_reference(cuda_device, engine, dtype):
+    c = _case(ENGINES[engine], lanes=300, n_in=512, k=3, seed=92, dtype=dtype, f0=0x777,
+              device=cuda_device)
+    chunks = torch.from_numpy(c["chunks"]).to(cuda_device)
+    rs.ROUTES.clear()
+    got = _plain(resample_scan_fused(c["table"], chunks, c["state"], **_scan_args(c)))
+    assert rs.ROUTES == {("scan_stage", "cuda"): 4, (engine, "cuda"): 4}
+    _assert_same(got, _reference(c), engine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,n_in", [(6, 16), (2, 300), (128, 8)])
+def test_torch_cuda_scan_program_odd_shapes_match_reference(cuda_device, lanes, n_in):
+    c = _case(ENGINES["general"], lanes=lanes, n_in=n_in, k=5, seed=93, device=cuda_device)
+    chunks = torch.from_numpy(c["chunks"]).to(cuda_device)
+    got = _plain(resample_scan_fused(c["table"], chunks, c["state"], **_scan_args(c)))
+    _assert_same(got, _reference(c), (lanes, n_in))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int32], ids=["int16", "int32"])
+@pytest.mark.parametrize("lanes", [6, 512])
+def test_torch_cuda_scan_stage_matches_reference(cuda_device, lanes, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(94)
+    cfg = make_device_state(0, 0, configure(44100, 1000, 44100),
+                            fx.calculate_ratio(44100, 1000), cuda_device).cfg
+    r, n_in = 136, 200
+    prev = torch.randint(-32768, 32768, (2 * r + n_in + 280, lanes), generator=gen,
+                         dtype=torch.int32, device=cuda_device)
+    chunk = torch.randint(-32768, 32768, (n_in, lanes), generator=gen, dtype=torch.int32,
+                          device=cuda_device).to(dtype)
+    state = torch.tensor([r + 3, 0x8421], dtype=torch.int32, device=cuda_device)
+    out = torch.full_like(prev, -1)
+    got = scan_stage(prev, chunk, state, cfg, radius=r, n_out=64, launch_step=24, out=out)
+    want = scan_stage_reference(prev, chunk, state, cfg, radius=r, n_out=64, launch_step=24)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert (out[2 * r + n_in :] == -1).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_torch_cuda_n_valid_matches_plain(cuda_device, engine):
+    c = _case(ENGINES[engine], lanes=300, n_in=2048 if engine == "wide" else 256, k=1,
+              flush=False, device=cuda_device)
+    kind, d, cand, _ = lowlevel._scan_engine(c["inc"], c["taps"], 64)
+    x = torch.cat([torch.from_numpy(c["chunks"][0].astype(np.int32)).to(cuda_device),
+                   torch.zeros((c["taps"] + 8, 300), dtype=torch.int32, device=cuda_device)])
+    st = make_device_state(c["r"], 5, c["cfg"], c["inc"], cuda_device)
+    entry, plain = {
+        "tiled": (rs.resample_uniform_lanes_tiled, rs.resample_uniform_lanes_tiled_reference),
+        "general": (rs.resample_uniform_lanes_general,
+                    rs.resample_uniform_lanes_general_reference),
+        "strided": (rs.resample_strided_phases, rs.resample_strided_reference),
+        "wide": (rs.resample_wide_taps, rs.resample_wide_taps_reference)}[kind]
+    extra = dict(d=d, cand=cand) if kind == "tiled" else (
+        {} if kind == "general" else dict(d=d))
+    for clamp in (False, True):
+        for n_valid, offset in ((20, 0), (20, 8), (100, 0), (3, 8)):
+            kw = dict(max_taps=c["taps"], n_out=32, clamp_s16=clamp, frame_offset=offset,
+                      n_valid=torch.tensor([n_valid], dtype=torch.int32, device=cuda_device),
+                      **extra)
+            got, want = entry(c["table"], x, st, **kw), plain(c["table"], x, st, **kw)
+            assert got[0].dtype == want[0].dtype and torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_torch_cuda_launch_keeps_current_device(cuda_device):
+    """A launch on a tensor of another card than the current one makes that
+    card current for the launch only (one card: the launch leaves the
+    current device as it was)."""
+    other = torch.device("cuda", torch.cuda.device_count() - 1)
+    c = _case(ENGINES["tiled"], lanes=8, n_in=64, seed=95, device=other)
+    chunks = torch.from_numpy(c["chunks"]).to(other)
+    with torch.cuda.device(0):
+        before = torch.cuda.current_device()
+        got = _plain(resample_scan_fused(c["table"], chunks, c["state"], **_scan_args(c)))
+        assert torch.cuda.current_device() == before == 0
+    _assert_same(got, _reference(c), "other device")
