@@ -9,13 +9,17 @@
 # (chip_smoke.FARM, chip_smoke.STRIDED_FARM), each run a fresh process and
 # the order alternating (parent, change, change, parent, ...), and
 # FARM_CHECK_PAIRS (default 0) more that first run chip_smoke.check_kernels
-# in the process, as chip_smoke.py does before its farms. Every farm call is
+# in the process, as chip_smoke.py does before its farms. Each farm runs
+# twice in its process: the caller keeps every output, then drops each as a
+# consumer does. Every farm call is
 # split into staging, the launch's host issue, the launch on the device's
 # clock (CUDA events from the end of staging) and the device-to-host copy;
 # one JSON line a farm run into chiprun_out/farm_ab.jsonl, and the medians
 # printed at the end. Before the farms: the four runs' scan and entry times
 # side by side, and the host's time to issue config 7's scan in each tree
-# (chiprun_out/scan_ab.jsonl).
+# (chiprun_out/scan_ab.jsonl). Last, chip_scripts/farm_probe.py here (the
+# pinned copy rates, the farm kernels and the ways a result reaches the
+# caller; chiprun_out/farm_probe.log).
 parent=${1:?usage: compare.sh PARENT_DIR [FARM_PAIRS [FARM_CHECK_PAIRS]]}
 farm_pairs=${2:-0}
 farm_check_pairs=${3:-0}
@@ -36,6 +40,7 @@ t0=$SECONDS
 JAX_PLATFORMS=cpu python3 -m pytest tests/test_torch_resample_ops.py tests/test_torch_strided_wide.py \
   tests/test_torch_scan.py tests/test_torch_tiled_kernel.py tests/test_torch_strided_wide_kernel.py \
   tests/test_torch_general_kernel.py tests/test_torch_scan_program.py \
+  tests/test_torch_farm_program.py \
   -q -m cuda -p no:cacheprovider \
   > chiprun_out/cuda_tests.log 2>&1
 echo "cuda tests rc=$? seconds=$(( SECONDS - t0 ))"
@@ -154,14 +159,32 @@ U._launch = timed("launch_issue_ms", U._launch, events=True)
 U._to_host = timed("to_host_ms", U._to_host)
 U.process, U.flush = opened(U.process), opened(U.flush)
 for name, spec in (("headline", cs.FARM), ("strided", cs.STRIDED_FARM)):
-    calls.clear()
-    r = cs.run_uniform_farm(spec, np.random.default_rng(cs.SEED))
-    torch.cuda.synchronize()
-    for c in calls:
-        ev = c.pop("events", None)
-        c["launch_device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
-    print(json.dumps(dict(tree=tree, pre=pre, farm=name, msamples_per_s=r["msamples_per_s"],
-                          calls=calls[:-1])), flush=True)
+    rng = np.random.default_rng(cs.SEED)
+    chunks = [rng.integers(-32768, 32768, size=(spec["streams"], spec["chunk"], spec["channels"]),
+                           dtype=np.int16) for _ in range(spec["chunks"])]
+    for mode in ("keep", "drop"):
+        calls.clear()
+        farm = U(spec["streams"], spec["channels"], *spec["rates"], chunk_frames=spec["chunk"],
+                 device="cuda")
+        kept, sizes, checksum = [], [], 0
+        for chunk in chunks:
+            torch.cuda.synchronize()
+            out = farm.process(chunk)
+            sizes.append(out.size)
+            checksum += int(out[-1, -1, -1]) + int(out[0, 0, 0])
+            if mode == "keep":
+                kept.append(out)
+            del out
+        farm.flush()
+        torch.cuda.synchronize()
+        for c in calls:
+            ev = c.pop("events", None)
+            c["launch_device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
+        steady_s = sum(c["call_ms"] for c in calls[1:-1]) / 1e3
+        print(json.dumps(dict(tree=tree, pre=pre, farm=name, mode=mode, checksum=checksum,
+                              msamples_per_s=sum(sizes[1:]) / steady_s / 1e6,
+                              calls=calls[:-1])), flush=True)
+        del kept, farm
 PY
   ) >> chiprun_out/farm_ab.jsonl
 }
@@ -181,17 +204,25 @@ import statistics as st
 
 runs = [json.loads(ln) for ln in open("chiprun_out/farm_ab.jsonl")]
 keys = ("call_ms", "stage_ms", "launch_issue_ms", "launch_device_ms", "to_host_ms")
-for farm in ("headline", "strided"):
+for farm, mode in ((f, m) for f in ("headline", "strided") for m in ("keep", "drop")):
     for pre in ("none", "checks"):
         for tree in ("parent", "change"):
-            rs = [r for r in runs if (r["farm"], r["pre"], r["tree"]) == (farm, pre, tree)]
+            rs = [r for r in runs
+                  if (r["farm"], r["mode"], r["pre"], r["tree"]) == (farm, mode, pre, tree)]
             if not rs:
                 continue
+            if len({r["checksum"] for r in runs if (r["farm"], r["mode"]) == (farm, mode)}) != 1:
+                print(farm, mode, "CHECKSUMS DIFFER between runs")
             steady = [c for r in rs for c in r["calls"][1:]]
             med = {k: round(st.median(c[k] for c in steady), 3) for k in keys}
-            print(farm, pre, tree, "Msamples/s", [round(r["msamples_per_s"], 1) for r in rs],
+            print(farm, mode, pre, tree, "Msamples/s",
+                  [round(r["msamples_per_s"], 1) for r in rs],
                   "median", round(st.median(r["msamples_per_s"] for r in rs), 1),
                   "steady-call medians (ms)", med,
                   "slowest call", max(steady, key=lambda c: c["call_ms"]))
 PY
 fi
+python3 chip_scripts/farm_probe.py > chiprun_out/farm_probe.log 2>&1
+echo "farm probe rc=$?"
+grep -E '"probe": "(copy_rates|farm_kernels|host_pass_into_pinned_input|result_delivery)"' \
+  chiprun_out/farm_probe.log | cut -c1-1500

@@ -25,11 +25,15 @@ the gather oracle, the plain scan (every lane) and the oracle scan, CPU
 replays and a golden md5, and every
 stream of every sharded path against its unsharded counterpart; times the
 kernels beside their bounds, the farms (sharded beside unsharded, each call
-split into staging, launch and copy out), the batched resample_batch beside
-a per-stream loop, the output de-interleave three ways, and the scan (ms a
-chunk, the host's time to issue a step, scan_stage_kernel beside its bound);
-shows by torch.profiler that each engine's step loop runs no aten op,
-allocates nothing and puts exactly its kernels on the card; counts
+split into staging, launch and copy out, the caller dropping each output),
+the pinned copy rates and the ways a result may reach the caller, the
+batched resample_batch beside a per-stream loop, the output de-interleave
+three ways, and the scan (ms a chunk, the host's time to issue a step,
+scan_stage_kernel beside its bound); shows by torch.profiler that each
+engine's step loop runs no aten op, allocates nothing and puts exactly its
+kernels on the card, and that a steady farm call (unsharded, sharded, mixed)
+runs no aten op and puts on the card one upload, one farm_stage_kernel, the
+engine's kernels, one farm_unstage_kernel and one download a program; counts
 the device launches of one tiled, general, strided and wide entry call (one,
 one, one and two: each entry computes its own launch geometry), and prints
 one line per phase. It runs in about a minute of command time on an H100.
@@ -248,6 +252,52 @@ SCAN_STAGE_CASES = (
     ("44.1k->8k state past the chunk (nothing produced)", (44100, 8000), 512, 1024,
      torch.int16, dict(p=1030, f=1)),
 )
+# farm_stage_kernel against its plain version, one launch a case: (label,
+# streams, channels, capacity rows, chunk frames n, keep, consumed, options).
+# Rows [0, keep) of the destination come from rows [consumed, consumed +
+# keep) of the other buffer, rows [keep, keep + n) are the chunk, the rest
+# zero; both buffers start full of other values. Options: in_place (one
+# buffer, nothing consumed); shard (streams [shard*B, (shard+1)*B) of a
+# chunk of SHARD_DP*B streams, as a mesh shard uploads them, on a side CUDA
+# stream).
+FARM_SHAPES = tuple((b, c) for b in (1, 6, 64) for c in (1, 2, 3, 16))
+FARM_STAGE_CASES = (
+    ("headline 1024 x 2, 8916 frames, slide of 8912 parked", 1024, 2, 8932, 8916, 12, 8912, {}),
+    ("headline first call, in place", 1024, 2, 8932, 8916, 4, 0, dict(in_place=True)),
+    ("headline short chunk of 100 in place", 1024, 2, 8932, 100, 700, 0, dict(in_place=True)),
+    ("headline flush: no frames, slide parked", 1024, 2, 8932, 0, 16, 8908, {}),
+    ("headline chunk to the capacity's end", 1024, 2, 8932, 8916, 16, 8900, {}),
+    ("strided farm 1024 x 2, 16384 frames", 1024, 2, 16416, 16384, 16, 16380, {}),
+    ("mixed group 256 x 2, 8192 frames, radius-17 reserve", 256, 2, 8266, 8192, 40, 8188, {}),
+    ("wide farm 256 x 2, 44100 frames", 256, 2, 48116, 44100, 2010, 44098, {}),
+    ("shard 1 of 4 on a side stream, 256 x 2", 256, 2, 8932, 8916, 12, 8912, dict(shard=1)),
+    ("2048 mono streams", 2048, 1, 1200, 1000, 9, 1100, {}),
+    ("7 streams x 6 channels", 7, 6, 300, 200, 37, 55, {}),
+    ("3 streams x 200 channels", 3, 200, 300, 200, 37, 55, {}),
+    *((f"{b} x {c}", b, c, 300, 200, 37, 55, {}) for b, c in FARM_SHAPES),
+    *((f"{b} x {c} in place, 1 frame", b, c, 300, 1, 0, 0, dict(in_place=True))
+      for b, c in ((1, 1), (6, 3), (64, 16))),
+)
+# farm_unstage_kernel against its plain version: (label, streams, channels,
+# n_out, dtype, options). The source has 3 rows past n_out (a last launch's
+# padding). Options: streams (lo, hi): a stream range; shard: that range on
+# a side CUDA stream; pinned: into pinned host memory instead of the card's.
+FARM_UNSTAGE_CASES = (
+    ("headline 1024 x 2 x 8192 int32", 1024, 2, 8192, torch.int32, {}),
+    ("headline 8191 frames int32", 1024, 2, 8191, torch.int32, {}),
+    ("headline 8193 frames int16", 1024, 2, 8193, torch.int16, {}),
+    ("headline int32 into pinned memory", 1024, 2, 8192, torch.int32, dict(pinned=True)),
+    ("headline int16 into pinned memory", 1024, 2, 8191, torch.int16, dict(pinned=True)),
+    ("shard 1 of 4: streams 256-512 on a side stream", 1024, 2, 8192, torch.int32,
+     dict(streams=(256, 512), shard=1)),
+    ("streams 341-768 int16, 8191 frames", 1024, 2, 8191, torch.int16, dict(streams=(341, 768))),
+    ("wide farm 256 x 2 x 132", 256, 2, 132, torch.int32, {}),
+    ("2048 mono streams int16", 2048, 1, 1001, torch.int16, {}),
+    ("7 streams x 6 channels", 7, 6, 200, torch.int32, dict(streams=(2, 6))),
+    ("3 streams x 200 channels int16", 3, 200, 77, torch.int16, {}),
+    *((f"{b} x {c} {str(t)[6:]}", b, c, 37, t, {}) for b, c in FARM_SHAPES
+      for t in (torch.int32, torch.int16)),
+)
 # General-class ratios at taps 184, 248, 272, 312, 352 and 1016, and 2008:
 # the general entry against the wide entry across their crossover.
 CROSSOVER_RATES = ((44100, 1500), (44100, 1100), (44100, 1000), (44100, 850), (44100, 760),
@@ -306,6 +356,13 @@ KERNELS = {  # name -> (ROUTES kind, source, TPU kernels it replaces)
     # No Pallas kernel: the stage and bookkeeping XLA compiles into the jitted scan.
     "scan_stage_kernel": ("scan_stage", CSRC + "scan_kernels.cu",
                           "clownresampler_tpu/lowlevel.py:378, clownresampler_tpu/lowlevel.py:381"),
+    # No Pallas kernels either: the farm's jitted staging programs and the
+    # host's de-interleave of the launched lanes.
+    "farm_stage_kernel": ("farm_stage", CSRC + "farm_kernels.cu",
+                          "clownresampler_tpu/farm.py:274, clownresampler_tpu/farm.py:288, "
+                          "clownresampler_tpu/farm.py:298"),
+    "farm_unstage_kernel": ("farm_unstage", CSRC + "farm_kernels.cu",
+                            "clownresampler_tpu/farm.py:517"),
 }
 # The kernels the sharded paths launch (they run no scan).
 SHARDED_KERNELS = tuple(name for name in KERNELS if name != "scan_stage_kernel")
@@ -537,6 +594,56 @@ def run_scan_stage_case(case, gen) -> int:
     return err
 
 
+def run_farm_stage_case(case, gen) -> int:
+    """One FARM_STAGE_CASES launch of farm_stage_kernel against
+    farm_stage_reference on the same inputs: the whole destination buffer,
+    exact, and the source untouched. Returns the largest difference (0)."""
+    from clownresampler_tpu_torch.farm import farm_stage, farm_stage_reference
+
+    label, b, c, capacity, n, keep, consumed, opts = case
+    dev = torch.device(DEVICE)
+    rand = lambda *shape: torch.randint(-32768, 32768, shape, generator=gen, dtype=torch.int32,
+                                        device=dev)
+    src = rand(capacity, b * c)
+    dst = src if opts.get("in_place") else rand(capacity, b * c)
+    if "shard" in opts:
+        chunk = rand(SHARD_DP * b, n, c).to(torch.int16)[opts["shard"] * b :][:b]
+    else:
+        chunk = rand(b, n, c).to(torch.int16)
+    want_src = src.clone()
+    want = want_src if opts.get("in_place") else dst.clone()
+    farm_stage_reference(want_src, want, chunk, keep=keep, consumed=consumed)
+    with shard_stream((None,) * 4 + (opts,)):
+        farm_stage(src, dst, chunk, keep=keep, consumed=consumed)
+    if not (torch.equal(dst, want) and torch.equal(src, want_src)):
+        raise AssertionError(f"farm_stage_kernel != plain version at {label}")
+    return int((dst.long() - want.long()).abs().max())
+
+
+def run_farm_unstage_case(case, gen) -> int:
+    """One FARM_UNSTAGE_CASES launch of farm_unstage_kernel against
+    farm_unstage_reference, exact; what lies past the destination's
+    (streams, n_out, channels) elements stays untouched."""
+    from clownresampler_tpu_torch.farm import farm_unstage, farm_unstage_reference
+
+    label, b, c, n_out, dtype, opts = case
+    dev = torch.device(DEVICE)
+    lanes = torch.randint(-32768, 32768, (n_out + 3, b * c), generator=gen, dtype=torch.int32,
+                          device=dev).to(dtype)
+    lo, hi = opts.get("streams", (0, b))
+    want = farm_unstage_reference(lanes, n_out, c, lo, hi - lo)
+    out = torch.full((want.numel() + 8,), -7, dtype=dtype, device=dev)
+    if opts.get("pinned"):
+        out = out.cpu().pin_memory()
+    with shard_stream((None,) * 4 + (opts,)):
+        got = farm_unstage(lanes, n_out, c, lo, hi - lo, out=out)
+    torch.cuda.synchronize()
+    if not (got.dtype == dtype and got.shape == want.shape
+            and torch.equal(got.to(dev), want) and (out[want.numel():] == -7).all()):
+        raise AssertionError(f"farm_unstage_kernel != plain version at {label}")
+    return int((got.to(dev).long() - want.long()).abs().max())
+
+
 def _compare(results, kernel, name, got, want, rows=None, rows_ref=None):
     err = (got.long() - want.long()).abs().max().item()
     if err or got.dtype != want.dtype or got.shape != want.shape or (
@@ -559,6 +666,10 @@ def check_kernels(gen) -> dict:
         _compare(results, "wide_mac_kernel", case[0], *run_wide_case(case, gen))
     for case in SCAN_STAGE_CASES:
         results["scan_stage_kernel"].append((case[0], run_scan_stage_case(case, gen)))
+    for case in FARM_STAGE_CASES:
+        results["farm_stage_kernel"].append((case[0], run_farm_stage_case(case, gen)))
+    for case in FARM_UNSTAGE_CASES:
+        results["farm_unstage_kernel"].append((case[0], run_farm_unstage_case(case, gen)))
     torch.cuda.synchronize()
     return results
 
@@ -820,10 +931,14 @@ SPLIT = ("stage_ms", "launch_issue_ms", "to_host_ms")
 
 
 def drive_farm(farm, chunks, feed=lambda farm, chunk: farm.process(chunk),
-               split: bool = False) -> dict:
+               split: bool = False, expect=None) -> dict:
     """Feed every chunk then flush; each call is timed on the host clock (it
     ends in a device-to-host copy, so the device work is done) and the first
-    is left out as warm-up. Returns outputs and per-call times. With
+    is left out as warm-up. Returns outputs and per-call times. Every
+    output is kept to the end (a result a later call overwrote would fail
+    the checks that follow) unless ``expect`` gives the outputs another run
+    kept: each output is then held against it outside the clock and dropped,
+    as a caller that consumes its results does. With
     ``split`` the farm's staging, launch issue and copy out (``_stage``,
     ``_launch``, ``_to_host``) are timed on the host clock inside each call
     (the copy out waits for the launch, so it holds the device time)."""
@@ -840,25 +955,30 @@ def drive_farm(farm, chunks, feed=lambda farm, chunk: farm.process(chunk),
         farm._stage = timed(SPLIT[0], farm._stage)
         farm._launch = timed(SPLIT[1], farm._launch)
         farm._to_host = timed(SPLIT[2], farm._to_host)
-    outs, times = [], []
-    for chunk in chunks:
+    outs, times, sizes = [], [], []
+    for k, chunk in enumerate([*chunks, None]):
         torch.cuda.synchronize()
         calls.append({})
         t0 = time.perf_counter()
-        outs.append(feed(farm, chunk))
-        times.append(time.perf_counter() - t0)
-    calls.append({})
-    outs.append(farm.flush())
-    res = dict(outs=outs, times=times)
+        out = farm.flush() if chunk is None else feed(farm, chunk)
+        if chunk is not None:
+            times.append(time.perf_counter() - t0)
+            sizes.append(out.size if isinstance(out, np.ndarray) else sum(o.size for o in out))
+        if expect is None:
+            outs.append(out)
+        elif not np.array_equal(out, expect[k]):
+            raise AssertionError(f"call {k} of a timed farm != the main path's farm")
+        del out
+    res = dict(outs=outs, times=times, sizes=sizes)
     if split:
         res["steady_split_ms"] = {k: statistics.median(c[k] for c in calls[1 : len(chunks)])
                                   for k in SPLIT}
     return res
 
 
-def _rate(res: dict, samples_per_call: list) -> dict:
+def _rate(res: dict) -> dict:
     steady_s = sum(res["times"][1:])
-    return dict(msamples_per_s=sum(samples_per_call[1:]) / steady_s / 1e6,
+    return dict(msamples_per_s=sum(res["sizes"][1:]) / steady_s / 1e6,
                 ms_per_process=1e3 * steady_s / (len(res["times"]) - 1),
                 ms_per_call=[1e3 * t for t in res["times"]])
 
@@ -872,10 +992,10 @@ def shard_mesh(dp: int = SHARD_DP, sp: int = 1):
     return make_mesh(dp=dp, sp=sp, devices=[f"cuda:{i % count}" for i in range(dp * sp)])
 
 
-def run_uniform_farm(spec: dict, rng, chunks=None, mesh=None) -> dict:
+def run_uniform_farm(spec: dict, rng, chunks=None, mesh=None, expect=None) -> dict:
     """``chunks`` (by default spec["chunks"] random ones from ``rng``) through
     a UniformStreamFarm on the card or, with ``mesh``, a ShardedStreamFarm on
-    it."""
+    it; ``expect`` as in drive_farm."""
     import clownresampler_tpu_torch as crt
     from clownresampler_tpu_torch.parallel import ShardedStreamFarm
 
@@ -889,9 +1009,9 @@ def run_uniform_farm(spec: dict, rng, chunks=None, mesh=None) -> dict:
     else:
         farm = ShardedStreamFarm(mesh, spec["streams"], spec["channels"], *spec["rates"],
                                  chunk_frames=spec["chunk"])
-    res = drive_farm(farm, chunks, split=True)
+    res = drive_farm(farm, chunks, split=True, expect=expect)
     res.update(chunks=chunks, frames=[o.shape[1] for o in res["outs"][:-1]])
-    res.update(_rate(res, [o.size for o in res["outs"][:-1]]))
+    res.update(_rate(res))
     return res
 
 
@@ -936,7 +1056,7 @@ def run_mixed_farm(rng, chunks=None, mesh=None) -> dict:
     feed.calls = 0
     res = drive_farm(farm, chunks, feed)
     res.update(specs=specs, chunks=chunks, groups=len(farm._groups))
-    res.update(_rate(res, [sum(o.size for o in outs) for outs in res["outs"][:-1]]))
+    res.update(_rate(res))
     return res
 
 
@@ -1562,7 +1682,9 @@ def host_ms(fn, reps: int = 3) -> float:
 
 def time_sharded(rng, farm: dict, batch: dict) -> dict:
     """The headline farm unsharded, sharded, sharded, unsharded on the same
-    chunks in fresh farms (Msamples/s, ms a steady call and its split);
+    chunks in fresh farms, each output held against the main path's and
+    dropped (Msamples/s, ms a steady call and its split; the main path's
+    farms keep every output, so each of their calls pins a new buffer);
     resample_batch batched, looped and sharded at BATCH; and one headline
     emit's de-interleave to a fresh host array three ways."""
     from clownresampler_tpu_torch import parallel
@@ -1573,7 +1695,7 @@ def time_sharded(rng, farm: dict, batch: dict) -> dict:
     turns = []
     for name, m in (("unsharded", None), ("sharded", mesh), ("sharded", mesh),
                     ("unsharded", None)):
-        r = run_uniform_farm(FARM, rng, chunks=farm["chunks"], mesh=m)
+        r = run_uniform_farm(FARM, rng, chunks=farm["chunks"], mesh=m, expect=farm["outs"])
         turns.append(dict(farm=name, msamples_per_s=r["msamples_per_s"],
                           ms_per_process=r["ms_per_process"],
                           steady_split_ms=r["steady_split_ms"], ms_per_call=r["ms_per_call"]))
@@ -1619,6 +1741,296 @@ def time_sharded(rng, farm: dict, batch: dict) -> dict:
         unstage[name] = host_ms(fn, reps=5)
     return dict(farm_turns=turns, resample_batch=dict(shape=BATCH, **batch_ms),
                 deinterleave=unstage)
+
+
+def _entry_ms(entry: str, args: dict, reps: int = 20) -> float:
+    """Mean device ms of the C entry ``entry`` called ``reps`` times back to
+    back with checked arguments (as a farm calls it), by CUDA events, after
+    an untimed pass of as many."""
+    from clownresampler_tpu_torch.ops import _build
+
+    fn, ordered = _build.entry_function(entry), _build.ordered_args(entry, args)
+
+    def issue():
+        for _ in range(reps):
+            _build.raise_on_launch(fn(*ordered), entry)
+
+    issue()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    issue()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_farm_kernels(gen, peaks: dict) -> dict:
+    """farm_stage_kernel and farm_unstage_kernel at the headline farm's
+    steady call (FARM_STAGE_CASES[0]; 8192 frames out), each the C entry as
+    the farm calls it, beside its plain version and its bound -- the bytes it
+    must move (stage: the chunk and the kept rows read, every row from 0 to
+    the capacity written; unstage: the emit read and written) over the HBM
+    rate. The unstage also written straight into pinned host memory, beside
+    the kernel into the card's memory followed by the download; its library
+    call is ``copy_`` of the permuted view into a preallocated tensor; the
+    stage has none (no one call widens, transposes, keeps rows and zeroes
+    the tail), the ``copy_`` of its widen-transpose part alone is a note."""
+    from clownresampler_tpu_torch.farm import farm_stage_reference, farm_unstage_reference
+    from clownresampler_tpu_torch.ops import _build
+
+    dev = torch.device(DEVICE)
+    _, b, c, capacity, n, keep, consumed, _ = FARM_STAGE_CASES[0]
+    lanes = b * c
+    rand = lambda *shape: torch.randint(-32768, 32768, shape, generator=gen, dtype=torch.int32,
+                                        device=dev)
+    src, dst, chunk = rand(capacity, lanes), rand(capacity, lanes), rand(b, n, c).to(torch.int16)
+    args = _build.farm_stage_args(src, dst, chunk, streams=b, channels=c, n_in=n, keep=keep,
+                                  consumed=consumed)
+    ms = _entry_ms("crt_farm_stage", args)
+    want = torch.empty_like(dst)
+    farm_stage_reference(src, want, chunk, keep=keep, consumed=consumed)
+    if not torch.equal(dst, want):
+        raise AssertionError("the timed farm_stage_kernel launches != the plain version")
+
+    def plain_stage():
+        farm_stage_reference(src, want, chunk, keep=keep, consumed=consumed)
+        return want[keep : keep + 8]
+
+    def widen_transpose():
+        want[keep : keep + n].view(n, b, c).copy_(chunk.permute(1, 0, 2))
+        return want[keep : keep + 8]
+
+    nbytes = chunk.nbytes + 4 * keep * lanes + 4 * capacity * lanes
+    bound = 1e3 * nbytes / peaks["hbm_bytes_per_s"]
+    out = {"farm_stage_kernel": dict(
+        ms=ms, plain_ms=cuda_ms(plain_stage), bound_ms=bound, bound_by="bytes", bytes=nbytes,
+        bound_share=bound / ms, achieved_bytes_per_s=nbytes / (ms / 1e3), library_ms=None,
+        widen_transpose_copy_ms=cuda_ms(widen_transpose),
+        shape=f"chunk ({b}, {n}, {c}) int16, buffers ({capacity}, {lanes}) int32, keep {keep}, "
+              f"consumed {consumed}")}
+    del src, dst, want, chunk
+
+    n_out = HEADLINE["n_out"]
+    emit = rand(n_out, lanes)
+    device_dst = torch.empty(b * n_out * c, dtype=torch.int32, device=dev)
+    pinned = torch.empty(b * n_out * c, dtype=torch.int32, pin_memory=True)
+    uargs = lambda dst_ptr: _build.farm_unstage_args(emit, dst_ptr, n_out=n_out, channels=c,
+                                                     stream_lo=0, streams=b)
+    ms = _entry_ms("crt_farm_unstage", uargs(device_dst.data_ptr()))
+    want = farm_unstage_reference(emit, n_out, c)
+    if not torch.equal(device_dst.view(b, n_out, c), want):
+        raise AssertionError("the timed farm_unstage_kernel launches != the plain version")
+    to_pinned_ms = _entry_ms("crt_farm_unstage", uargs(pinned.data_ptr()), reps=5)
+    if not torch.equal(pinned.view(b, n_out, c), want.cpu()):
+        raise AssertionError("farm_unstage_kernel into pinned memory != the plain version")
+    copy = dict(dst=pinned.data_ptr(), src=device_dst.data_ptr(), nbytes=device_dst.nbytes,
+                device=0, stream=torch.cuda.current_stream().cuda_stream)
+    download_ms = _entry_ms("crt_farm_copy", copy, reps=5)
+    library = lambda: device_dst.view(b, n_out, c).copy_(emit.view(n_out, b, c).permute(1, 0, 2))
+    nbytes = 2 * emit.nbytes
+    bound = 1e3 * nbytes / peaks["hbm_bytes_per_s"]
+    out["farm_unstage_kernel"] = dict(
+        ms=ms, plain_ms=cuda_ms(lambda: farm_unstage_reference(emit, n_out, c)),
+        bound_ms=bound, bound_by="bytes", bytes=nbytes, bound_share=bound / ms,
+        achieved_bytes_per_s=nbytes / (ms / 1e3), library_ms=cuda_ms(library),
+        into_pinned_memory_ms=to_pinned_ms, download_ms=download_ms,
+        kernel_then_download_ms=ms + download_ms,
+        shape=f"emit ({n_out}, {lanes}) int32 -> ({b}, {n_out}, {c})")
+    return out
+
+
+def copy_rates() -> dict:
+    """The card's pinned copy rates both ways, at the headline call's sizes
+    (one chunk up, one emit down, and the emit clamped to int16), as the
+    farm issues them (cudaMemcpyAsync, CUDA events over 5 copies after 5
+    untimed), and the call's bound from them."""
+    f = FARM
+    up = f["streams"] * f["chunk"] * f["channels"] * 2
+    down = f["streams"] * HEADLINE["n_out"] * f["channels"] * 4
+    host = torch.empty(max(up, down), dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(max(up, down), dtype=torch.uint8, device=DEVICE)
+    stream = torch.cuda.current_stream().cuda_stream
+    res = {}
+    for name, nbytes, to_card in (("upload", up, True), ("download", down, False),
+                                  ("download_s16", down // 2, False)):
+        dst, src = (card, host) if to_card else (host, card)
+        ms = _entry_ms("crt_farm_copy", dict(dst=dst.data_ptr(), src=src.data_ptr(),
+                                             nbytes=nbytes, device=0, stream=stream), reps=5)
+        res[name] = dict(bytes=nbytes, ms=ms, gbytes_per_s=nbytes / ms / 1e6)
+    res["call_bound_ms"] = res["upload"]["ms"] + res["download"]["ms"]
+    res["call_bound_s16_ms"] = res["upload"]["ms"] + res["download_s16"]["ms"]
+    return res
+
+
+def time_result_delivery() -> dict:
+    """The ways a headline emit (1024 x 8192 x 2 int32, de-interleaved on the
+    card) may reach a caller who owns the array, host ms a call (median of 5
+    after one warm-up, each ended by the copy's completion): a pinned
+    buffer that comes back when the caller drops it (the download is the
+    last copy: the farm's way); a pinned scratch and a host copy into a
+    fresh array (its first touch: what a caller that holds every pooled
+    buffer gets) or into a recycled one (warm pages); and a newly pinned
+    buffer a call."""
+    b, c, n_out = FARM["streams"], FARM["channels"], HEADLINE["n_out"]
+    numel = b * n_out * c
+    card = torch.randint(-(1 << 20), 1 << 20, (numel,), dtype=torch.int32, device=DEVICE)
+    want = card.cpu().numpy()
+    scratch = torch.empty(numel, dtype=torch.int32, pin_memory=True)
+    recycled = np.empty(numel, np.int32)
+    recycled[:] = 0
+    kept = []
+
+    def pooled_tensor():
+        scratch.copy_(card, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        return scratch
+
+    def pooled():
+        return pooled_tensor().numpy()
+
+    def fresh():
+        result = np.empty(numel, np.int32)
+        torch.from_numpy(result).copy_(pooled_tensor())
+        return result
+
+    def into_recycled():
+        torch.from_numpy(recycled).copy_(pooled_tensor())
+        return recycled
+
+    def newly_pinned():
+        kept.append(torch.empty(numel, dtype=torch.int32, pin_memory=True))
+        kept[-1].copy_(card, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        return kept[-1].numpy()
+
+    res = dict(shape=[b, n_out, c], bytes=4 * numel)
+    for name, fn in (("pinned_buffer_reused_ms", pooled),
+                     ("pinned_scratch_then_fresh_array_ms", fresh),
+                     ("pinned_scratch_then_recycled_array_ms", into_recycled),
+                     ("newly_pinned_buffer_a_call_ms", newly_pinned)):
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"result delivery {name} disagrees")
+            del got
+        res[name] = statistics.median(times[1:])
+        res[name[:-3] + "_first_ms"] = times[0]
+    return res
+
+
+# ROUTES kind -> the kernels one launch of it puts on the card.
+ROUTE_KERNELS = {"farm_stage": ("farm_stage_kernel",), "farm_unstage": ("farm_unstage_kernel",),
+                 **ENTRY_KERNELS}
+
+
+# The torch ops of a steady farm call: the threaded host copy of the chunk
+# into the pinned input buffer (from_numpy, copy_).
+FARM_HOST_PASS_OPS = {"aten::copy_", "aten::lift_fresh"}
+
+
+def profile_farm_call(label: str, call, programs: int, uploads_first: bool = True,
+                      attempts: int = 3) -> dict:
+    """One steady farm call (``call()``, after the farm has run a few) under
+    torch.profiler. It fails unless the card ran, for each of the farm's
+    ``programs`` FarmPrograms, one upload, one farm_stage_kernel, one
+    farm_unstage_kernel and one download, the kernels of the launches that
+    ROUTES counted during the call, and nothing else; and unless the call's
+    only ``aten::`` ops are the host's pass of the chunk into the pinned
+    input (FARM_HOST_PASS_OPS), all begun before the first upload did: none
+    between the upload and the end of the last download. A mixed farm stages
+    group after group (``uploads_first`` False), so there a group's host pass
+    follows the upload of the group before, and the window opens at the last
+    upload. A count that is off is taken again (the
+    profiler now and then loses a record), up to ``attempts`` times. Returns
+    the activities, their device ms and the call's profiled wall ms."""
+    from clownresampler_tpu_torch.ops.resample import ROUTES
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        before = dict(ROUTES)
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda.synchronize()  # the tracer is up before the first launch
+            t0 = time.perf_counter()
+            call()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+        want = {"Memcpy HtoD": programs, "Memcpy DtoH": programs}
+        for (kind, impl), count in ROUTES.items():
+            launched = count - before.get((kind, impl), 0)
+            for kernel in ROUTE_KERNELS[kind] if launched and impl == "cuda" else ():
+                want[kernel] = want.get(kernel, 0) + launched
+        if (want.get("farm_stage_kernel"), want.get("farm_unstage_kernel")) != (programs,) * 2:
+            raise AssertionError(f"{label}: ROUTES counted {want} for {programs} programs")
+        counts, device_us, aten, copies = {}, {}, [], []
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                name = next((k for k in want if k in evt.name), evt.name)
+                counts[name] = counts.get(name, 0) + 1
+                device_us[name] = device_us.get(name, 0) + evt.time_range.elapsed_us()
+                if name.startswith("Memcpy"):
+                    copies.append(evt.time_range)
+            elif evt.name.startswith("aten::"):
+                aten.append((evt.name, evt.time_range.start))
+        strangers = [k for k in counts if k not in want]
+        if strangers:
+            raise AssertionError(f"{label}: a steady farm call put {strangers} on the card")
+        if counts == want:
+            break
+        if attempt == attempts:
+            raise AssertionError(f"{label}: device activities {counts} in each of {attempts} "
+                                 f"profiles, wanted {want}")
+    uploads = sorted(c.start for c in copies)[:programs]
+    first, last = uploads[0 if uploads_first else -1], max(c.end for c in copies)
+    between = sorted({name for name, at in aten if first <= at <= last})
+    others = sorted({name for name, _ in aten} - FARM_HOST_PASS_OPS)
+    if between or others:
+        raise AssertionError(f"{label}: aten ops between the upload and the download: "
+                             f"{between}; aten ops other than the host pass: {others}")
+    total_us = sum(device_us.values())
+    return dict(farm=label, aten_ops_before_the_upload=sorted({name for name, _ in aten}),
+                aten_ops_between_upload_and_download=0, profiles_taken=attempt,
+                device_activities=counts, device_ms={k: v / 1e3 for k, v in device_us.items()},
+                device_ms_total=total_us / 1e3, profiled_wall_ms=wall_ms,
+                profiled_device_busy_share=total_us / 1e3 / wall_ms)
+
+
+def profile_farms(rng, farm: dict) -> list:
+    """Steady calls under torch.profiler (profile_farm_call): the headline
+    farm unsharded and on shard_mesh(), and the config-5 mixed farm (four
+    groups: three tiled -- 8 kHz -> 48 kHz in four launches a call --, one
+    strided), each after three unprofiled calls."""
+    import clownresampler_tpu_torch as crt
+    from clownresampler_tpu_torch.parallel import ShardedStreamFarm
+
+    f, m = FARM, MIXED
+    chunks = farm["chunks"]
+    res = []
+    for label, fm, programs in (
+            ("headline", crt.UniformStreamFarm(f["streams"], f["channels"], *f["rates"],
+                                               chunk_frames=f["chunk"], device=DEVICE), 1),
+            ("headline sharded", ShardedStreamFarm(shard_mesh(), f["streams"], f["channels"],
+                                                   *f["rates"], chunk_frames=f["chunk"]),
+             SHARD_DP)):
+        for chunk in chunks[:3]:
+            fm.process(chunk)
+        res.append(profile_farm_call(label, lambda: fm.process(chunks[3]), programs))
+        del fm
+    specs = [rates for rates in m["groups"] for _ in range(m["per_group"])]
+    mixed = crt.MixedStreamFarm(specs, m["channels"], chunk_frames=m["chunk"],
+                                max_radius=m["max_radius"], device=DEVICE)
+    mchunks = [list(rng.integers(-32768, 32768, size=(len(specs), m["chunk"], m["channels"]),
+                                 dtype=np.int16)) for _ in range(2)]
+    for k in range(3):
+        mixed.process(mchunks[k % 2])
+    res.append(profile_farm_call("mixed (config 5)", lambda: mixed.process(mchunks[1]),
+                                 len(m["groups"]), uploads_first=False))
+    return res
 
 
 def run_cli() -> dict:
@@ -1764,12 +2176,26 @@ def main() -> int:
 
     timing = time_kernels(gen)
     phase("timing", nvidia_smi=smi, **timing)
-    phase("sharded_timing", nvidia_smi=smi, **time_sharded(rng, farm, batch))
-    del farm, batch
+    farm_kernels = time_farm_kernels(gen, timing["peaks"])
+    timing["kernels"].update(farm_kernels)
+    phase("farm_kernels", nvidia_smi=smi, **farm_kernels)
+    phase("copy_rates", nvidia_smi=smi, **copy_rates())
+    phase("result_delivery", nvidia_smi=smi, **time_result_delivery())
+    sharded_timing = time_sharded(rng, farm, batch)
+    phase("sharded_timing", nvidia_smi=smi, **sharded_timing)
+    farm = dict(chunks=farm["chunks"])
+    del batch
     scan_timing = time_scan(gen, timing["peaks"])
     phase("scan_timing", nvidia_smi=smi, **scan_timing)
     phase("entry_launches", nvidia_smi=smi, **count_entry_launches(gen))
     timing["kernels"]["scan_stage_kernel"] = scan_timing["scan_stage_kernel"]
+    # A steady farm call under the profiler, beside the unprofiled calls' time.
+    profiles = profile_farms(rng, farm)
+    steady_ms = statistics.median(t["ms_per_process"] for t in sharded_timing["farm_turns"]
+                                  if t["farm"] == "unsharded")
+    phase("farm_profiles", nvidia_smi=smi, calls=profiles,
+          headline_steady_call_ms=steady_ms,
+          headline_device_idle_share=1 - profiles[0]["device_ms_total"] / steady_ms)
 
     kernels = []
     for name, (kind, source, replaces) in KERNELS.items():
@@ -1781,10 +2207,12 @@ def main() -> int:
             ms=timing["kernels"][name]["ms"], plain_ms=timing["kernels"][name]["plain_ms"],
             bound_ms=timing["kernels"][name]["bound_ms"],
             bound_by=timing["kernels"][name]["bound_by"],
-            # No single PyTorch call computes these launches: each tap term is
-            # truncated on its own; the stage is a cat of a slice and a widened
-            # chunk beside integer bookkeeping (PERF.md).
-            library_ms=None))
+            # No single PyTorch call computes the MAC launches (each tap term is
+            # truncated on its own) or the stages (a cat of a slice and a
+            # widened chunk beside integer bookkeeping; a widen, a transpose,
+            # kept rows and a zero tail); the unstage has ``copy_`` of the
+            # permuted view (PERF.md).
+            library_ms=timing["kernels"][name].get("library_ms")))
         if kernels[-1]["launches"] < 1 or (
                 name in SHARDED_KERNELS and kernels[-1]["sharded_launches"] < 1):
             raise AssertionError(f"{name} was not launched on the main or the sharded paths")

@@ -10,8 +10,17 @@ increment/stretching change.
 
 ``UniformStreamFarm`` drives B same-ratio streams (one shared phase state).
 ``MixedStreamFarm`` groups a fleet of mixed ratios into one uniform farm per
-(input, output, low-pass) rate triple and runs every group's launches of a
-chunk in one ``multi_resample`` call.
+(input, output, low-pass) rate triple and issues every group's launches of a
+chunk together.
+
+On a CUDA card a farm call is one device program (``FarmProgram``): one
+upload of the chunk from a pinned buffer, one launch of farm_stage_kernel
+(the parked slide, the chunk widened and transposed, the zero tail), the
+ratio class's launches written in place into one output, one launch of
+farm_unstage_kernel (the de-interleave) and one download into the pinned
+buffer that the caller receives, all issued as prebound C calls with no
+torch op in between. On the CPU the same bookkeeping runs the kernels' plain
+versions (``farm_stage_reference``, ``farm_unstage_reference``).
 
 Bit-exactness: each stream's output is identical to running the reference
 (and LowLevelResampler) on that stream alone.
@@ -19,6 +28,9 @@ Bit-exactness: each stream's output is identical to running the reference
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -29,8 +41,14 @@ from clownresampler_tpu_torch.configure import Configuration, configure
 from clownresampler_tpu_torch.device import DEFAULT_DEVICE, Device, resolve_device
 from clownresampler_tpu_torch.lowlevel import DeviceState, launch_kind
 from clownresampler_tpu_torch.models import DEFAULT_MODEL, KernelModel, table_tensor
+from clownresampler_tpu_torch.ops import _build
 from clownresampler_tpu_torch.ops.convolve import ConfigScalars
-from clownresampler_tpu_torch.ops.resample import multi_resample, wide_launch_frames
+from clownresampler_tpu_torch.ops.resample import (
+    ROUTES,
+    entry_launch_args,
+    multi_resample,
+    wide_launch_frames,
+)
 from clownresampler_tpu_torch.utils import native
 
 # Max output frames per launch: device positions come from
@@ -60,6 +78,306 @@ class DeviceTables:
         return tstr
 
 
+# Pinned result buffers of a farm, out with callers or waiting for reuse: a
+# caller that drops an output before or while it takes the next needs one or
+# two, and each one costs a page-locking allocation (16-25 ms for the 67 MB
+# of 1024 stereo streams x 8192 frames on the H100's host, PERF.md).
+RESULT_POOL_BUFFERS = 2
+
+
+def _on_card(device: torch.device) -> bool:
+    """True where a farm runs its kernels (a CUDA card), False on the CPU,
+    where it runs their plain versions."""
+    return device.type == "cuda"
+
+
+def _pinned_empty(numel: int, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(numel, dtype=dtype, pin_memory=True)
+
+
+def _same_buffer(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.data_ptr() == b.data_ptr()
+
+
+def farm_stage_reference(src, dst, chunk, *, keep: int, consumed: int) -> None:
+    """Plain PyTorch version of ``farm_stage``: a farm call's staging.
+
+    ``src`` and ``dst`` are the farm's two lane-major (capacity, B*C) int32
+    buffers, ``chunk`` the call's stream-major (B, n, C) int16 input (n may
+    be 0). Rows [0, keep) of dst become rows [consumed, consumed + keep) of
+    src (the slide the call before left parked), rows [keep, keep + n) the
+    chunk widened to int32 and transposed (lane b*C + c), every later row
+    zero. With src and dst the same buffer the kept rows stay where they are
+    (``consumed`` must be 0)."""
+    b, n, c = chunk.shape
+    if not _same_buffer(src, dst):
+        dst[:keep] = src[consumed : consumed + keep]
+    elif consumed:
+        raise ValueError(f"an in-place stage keeps its rows where they are, got {consumed} "
+                         f"consumed")
+    dst[keep : keep + n] = chunk.to(torch.int32).permute(1, 0, 2).reshape(n, b * c)
+    dst[keep + n :] = 0
+
+
+def farm_stage(src, dst, chunk, *, keep: int, consumed: int) -> None:
+    """A farm call's staging, arguments as ``farm_stage_reference``: on a
+    CUDA card one launch of farm_stage_kernel (ops/csrc/farm_kernels.cu), on
+    the CPU the plain version."""
+    if dst.device.type == "cpu":
+        return farm_stage_reference(src, dst, chunk, keep=keep, consumed=consumed)
+    if dst.device.type != "cuda":
+        raise ValueError(f"no farm_stage route for device {dst.device}")
+    b, n, c = chunk.shape
+    _build.farm_stage(src, dst, chunk, streams=b, channels=c, n_in=n, keep=keep,
+                      consumed=consumed)
+    ROUTES[("farm_stage", "cuda")] += 1
+
+
+def farm_unstage_reference(lanes_out, n_out: int, channels: int, stream_lo: int = 0,
+                           streams: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of ``farm_unstage``: streams [stream_lo,
+    stream_lo + streams) (by default all from stream_lo on) of the first
+    ``n_out`` frames of the launches' lane-major (rows, B*C) output,
+    de-interleaved to a contiguous stream-major (streams, n_out, channels)
+    tensor of the same dtype."""
+    if streams is None:
+        streams = lanes_out.shape[1] // channels - stream_lo
+    block = lanes_out[:n_out, stream_lo * channels : (stream_lo + streams) * channels]
+    return block.reshape(n_out, streams, channels).permute(1, 0, 2).contiguous()
+
+
+def farm_unstage(lanes_out, n_out: int, channels: int, stream_lo: int = 0,
+                 streams: Optional[int] = None, out=None) -> torch.Tensor:
+    """A farm call's de-interleave, arguments and return as
+    ``farm_unstage_reference``: on a CUDA card one launch of
+    farm_unstage_kernel (ops/csrc/farm_kernels.cu), which writes into ``out``
+    when given (a contiguous tensor of lanes_out's dtype on its card or in
+    pinned host memory; else a new tensor on the card); on the CPU the plain
+    version."""
+    if streams is None:
+        streams = lanes_out.shape[1] // channels - stream_lo
+    if lanes_out.device.type == "cpu":
+        res = farm_unstage_reference(lanes_out, n_out, channels, stream_lo, streams)
+        if out is not None:
+            out.view(-1)[: res.numel()] = res.view(-1)
+        return res
+    if lanes_out.device.type != "cuda":
+        raise ValueError(f"no farm_unstage route for device {lanes_out.device}")
+    if out is None:
+        out = torch.empty((streams, n_out, channels), dtype=lanes_out.dtype,
+                          device=lanes_out.device)
+    _build.farm_unstage(lanes_out, out, n_out=n_out, channels=channels, stream_lo=stream_lo,
+                        streams=streams)
+    ROUTES[("farm_unstage", "cuda")] += 1
+    return out.view(-1)[: streams * n_out * channels].view(streams, n_out, channels)
+
+
+class ResultPool:
+    """The pinned host buffers a farm's results come in.
+
+    ``lease`` hands out a numpy array over a pinned buffer, so that the
+    download from the card is the last copy of a call; the caller owns the
+    array, and no later call writes to it. When the array and every view of
+    it are gone the buffer comes back (``weakref.finalize``) and the next
+    call reuses it, its pages warm. At most RESULT_POOL_BUFFERS buffers are
+    out or waiting at a time, so a caller that keeps every output does not
+    pin the host's memory: past that count ``lease`` lends the pool's scratch
+    buffer instead, which the farm copies into a fresh array."""
+
+    def __init__(self):
+        self._free: list = []
+        self._out = 0                 # buffers the callers hold
+        self._scratch = None
+
+    @staticmethod
+    def _room(nbytes: int) -> int:
+        """Emits differ by a frame or two from call to call: leave room."""
+        return nbytes + nbytes // 16 + 4096
+
+    def lease(self, shape: tuple, dtype) -> tuple:
+        """(array of ``shape`` and ``dtype`` over pinned memory, its address,
+        whether the caller may keep it: if not it is the scratch buffer,
+        which the next call overwrites)."""
+        nbytes = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
+        if not nbytes:
+            return np.zeros(shape, dtype), 0, True
+        fits = [k for k, buf in enumerate(self._free) if buf.numel() >= nbytes]
+        if fits:
+            buf = self._free.pop(fits[0])
+        elif self._out + len(self._free) < RESULT_POOL_BUFFERS or self._free:
+            del self._free[:1]        # a buffer too small for this farm's emits now
+            buf = _pinned_empty(self._room(nbytes), torch.uint8)
+        else:
+            if self._scratch is None or self._scratch.numel() < nbytes:
+                self._scratch = _pinned_empty(self._room(nbytes), torch.uint8)
+            array = self._scratch.numpy()[:nbytes].view(dtype).reshape(shape)
+            return array, self._scratch.data_ptr(), False
+        owner = (ctypes.c_char * nbytes).from_address(buf.data_ptr())
+        weakref.finalize(owner, self._give_back, buf)
+        self._out += 1
+        return np.frombuffer(owner, dtype).reshape(shape), buf.data_ptr(), True
+
+    def _give_back(self, buf: torch.Tensor) -> None:
+        self._out -= 1
+        self._free.append(buf)
+
+
+class FarmProgram:
+    """One device's share of a farm as a device program: the lanes of some
+    of the farm's streams, staged, launched and de-interleaved there.
+
+    It keeps two (capacity, lanes) int32 staging buffers. ``stage`` appends
+    a chunk to the current one in place or, when the emit before left a
+    slide parked (``slide``: the rows it consumed), writes the kept rows, the
+    chunk and the zero tail into the other one, which becomes current: one
+    pass, no copy of the buffer onto itself. ``rows`` is the staged data with
+    a parked slide applied, for everything that reads between calls.
+
+    On a card every step is a C call whose arguments were checked once: the
+    upload (cudaMemcpyAsync from the farm's pinned input), farm_stage_kernel,
+    the ratio class's launches into one preallocated (frames, lanes) output at
+    their row offsets -- issued in order, the last one's padding rows (every
+    other launch is whole 8-frame tiles) past the emit's frames and never
+    unstaged --, farm_unstage_kernel and the download. Nothing else touches
+    the device between the upload and ``wait``. On the CPU the plain versions
+    run."""
+
+    def __init__(self, tables: DeviceTables, streams: int, channels: int, capacity: int,
+                 chunk_frames: int, clamp_s16: bool):
+        self.tables, self.device = tables, tables.device
+        self.streams, self.channels, self.lanes = streams, channels, streams * channels
+        self.out_dtype = torch.int16 if clamp_s16 else torch.int32
+        self.buffers = [torch.zeros((capacity, self.lanes), dtype=torch.int32, device=self.device)
+                        for _ in range(2)]
+        self.current = 0
+        self.slide = 0
+        self.on_card = _on_card(self.device)
+        self.plans: dict = {}         # launch plans -> prebound launches (cleared by adjust)
+        self.lanes_out = None         # the launches' (frames, lanes) output, grown to need
+        self.unstaged = None          # farm_unstage_kernel's destination on the card, as large
+        if self.on_card:
+            self.chunk = torch.empty(max(self.lanes * chunk_frames, 1), dtype=torch.int16,
+                                     device=self.device)
+            self._stage_args = _build.farm_stage_args(
+                self.buffers[0], self.buffers[1], self.chunk, streams=streams,
+                channels=channels, n_in=0, keep=0, consumed=0)
+            self._calls = {entry: _build.entry_function(entry)
+                           for entry in ("crt_farm_stage", "crt_farm_unstage", "crt_farm_copy",
+                                         "crt_farm_sync")}
+
+    def rows(self) -> torch.Tensor:
+        """The staged rows from row 0 on, a parked slide applied (a view)."""
+        return self.buffers[self.current][self.slide :]
+
+    def load(self, rows: torch.Tensor) -> None:
+        """Make ``rows`` (fill, lanes) the staged rows, nothing parked."""
+        buf = self.buffers[self.current]
+        buf[: rows.shape[0]] = rows.to(self.device)
+        buf[rows.shape[0] :] = 0
+        self.slide = 0
+
+    def _call(self, entry: str, args: dict) -> None:
+        err = self._calls[entry](*_build.ordered_args(entry, args))
+        if err:
+            _build.raise_on_launch(err, entry)
+
+    def _stream(self) -> int:
+        return _build._stream(self.buffers[0])
+
+    def stage(self, chunk, n: int, fill: int) -> None:
+        """Stage ``n`` frames at row ``fill`` with the parked slide, and zero
+        the rows after them. ``chunk`` is this program's streams' (streams,
+        n, channels) int16 block: on a card its address in pinned host
+        memory, uploaded here; on the CPU a tensor."""
+        src = self.buffers[self.current]
+        if self.slide:
+            self.current ^= 1
+        dst = self.buffers[self.current]
+        if self.on_card:
+            stream = self._stream()
+            if n:
+                self._call("crt_farm_copy", dict(
+                    dst=self.chunk.data_ptr(), src=chunk, nbytes=2 * n * self.lanes,
+                    device=self.device.index, stream=stream))
+            self._call("crt_farm_stage", dict(
+                self._stage_args, src=src.data_ptr(), dst=dst.data_ptr(), n_in=n, keep=fill,
+                consumed=self.slide, stream=stream))
+            ROUTES[("farm_stage", "cuda")] += 1
+        else:
+            farm_stage_reference(src, dst, chunk, keep=fill, consumed=self.slide)
+        self.slide = 0
+
+    def _plan(self, specs: tuple) -> list:
+        """The prebound launches of ``specs`` (UniformStreamFarm._launch_specs):
+        [(C entry, its function, its arguments by name)], checked once; a call
+        replaces x, p0, f0 and the stream."""
+        _, states, plans, tstrs, tiles = specs
+        key = tuple(plans)
+        launches = self.plans.get(key)
+        if launches is not None:
+            return launches
+        rows = sum(tiles[:-1]) + plans[-1][4]
+        if self.lanes_out is None or self.lanes_out.shape[0] < rows:
+            self.plans.clear()
+            self.lanes_out = torch.empty((rows, self.lanes), dtype=self.out_dtype,
+                                         device=self.device)
+            self.unstaged = torch.empty_like(self.lanes_out)
+        launches, done = [], 0
+        row_bytes = self.lanes * self.lanes_out.element_size()
+        for state, (kind, d, cand, taps, n_pad, clamp), tstr, tile in zip(
+                states, plans, tstrs, tiles):
+            scratch = None
+            if kind == "wide":
+                scratch = torch.empty(_build.wide_scratch_ints(taps, n_pad, self.lanes),
+                                      dtype=torch.int32, device=self.device)
+            entry, args = entry_launch_args(
+                kind, self.tables.table, self.buffers[0], state, d=d, cand=cand, max_taps=taps,
+                n_out=n_pad, table_strided=tstr, partial=scratch)
+            args.update(out=self.lanes_out.data_ptr() + done * row_bytes, rows_out=None,
+                        clamp_s16=int(clamp), n_valid=None, frame_offset=0)
+            # What the launch reads by pointer stays referenced beside it.
+            launches.append((entry, _build.entry_function(entry), args, kind,
+                             (scratch, tstr, state.cfg)))
+            done += tile
+        self.plans[key] = launches
+        return launches
+
+    def launch(self, specs: tuple) -> torch.Tensor:
+        """Issue the launches of ``specs`` over the current buffer into
+        ``lanes_out``, which it returns (on a card; the farm launches on the
+        CPU)."""
+        launches = self._plan(specs)
+        x, stream = self.buffers[self.current].data_ptr(), self._stream()
+        for (entry, fn, args, kind, _), state in zip(launches, specs[1]):
+            err = fn(*_build.ordered_args(entry, dict(
+                args, x=x, p0_val=state.position_integer, f0_val=state.position_fractional,
+                stream=stream)))
+            if err:
+                _build.raise_on_launch(err, entry)
+            ROUTES[(kind, "cuda")] += 1
+        return self.lanes_out
+
+    def unstage(self, n_out: int, host: int) -> None:
+        """De-interleave the first ``n_out`` frames of ``lanes_out`` to
+        (streams, n_out, channels) and download them to the pinned address
+        ``host`` (on a card)."""
+        numel = self.streams * n_out * self.channels
+        args = _build.farm_unstage_args(self.lanes_out, self.unstaged.data_ptr(), n_out=n_out,
+                                        channels=self.channels, stream_lo=0,
+                                        streams=self.streams)
+        self._call("crt_farm_unstage", args)
+        ROUTES[("farm_unstage", "cuda")] += 1
+        self._call("crt_farm_copy", dict(
+            dst=host, src=args["dst"], nbytes=numel * self.unstaged.element_size(),
+            device=args["device"], stream=args["stream"]))
+
+    def wait(self) -> None:
+        """Block until the card has done everything this program issued on
+        the current stream (nothing to wait for on the CPU)."""
+        if self.on_card:
+            self._call("crt_farm_sync", dict(device=self.device.index, stream=self._stream()))
+
+
 class UniformStreamFarm:
     """B same-ratio streams, chunked, bit-exact.
 
@@ -67,16 +385,19 @@ class UniformStreamFarm:
     finish with :meth:`flush`. Outputs are wide int32 frames per stream (int16
     with ``clamp_s16``), exactly the reference's per-stream results for the
     concatenated input. The launches run on ``device``; the staging buffer
-    lives there too (``device_staging``, the default on CUDA) or in host
-    memory, staged by the native engine and uploaded per launch.
+    lives there too (``device_staging``, the default on CUDA), kept by a
+    ``FarmProgram``, or in host memory, staged by the native engine and
+    uploaded per launch. Each returned array is the caller's: no later call
+    writes to it.
 
-    What touches the staging buffer or a device goes through a few methods
-    (``_alloc``, ``_write_rows``, ``_slide``, ``_zero_rows``, ``_shard_input``,
-    ``_launch``, ``_to_host``, ``_staged_rows``, ``_load_rows``,
-    ``_take_stream``), which parallel.ShardedStreamFarm overrides to keep
-    one buffer per shard of a mesh (``_launch_shard`` is one shard's
-    launches); the phase bookkeeping and the launch
-    routing (``_launch_specs``) are shared.
+    A call has three seams: ``_stage`` (the chunk into the pinned input
+    buffer, its upload and the stage launch), ``_launch`` (the ratio class's
+    launches) and ``_to_host`` (the de-interleave and the download). The
+    programs (``_programs``: (shard, first stream, end stream, FarmProgram),
+    here one for all streams) are set up by ``_alloc`` and issued under
+    ``_as_shard``; parallel.ShardedStreamFarm overrides those two and
+    ``_take_stream`` to keep one program per shard of a mesh. The phase
+    bookkeeping and the launch routing (``_launch_specs``) are shared.
     """
 
     def __init__(
@@ -140,19 +461,44 @@ class UniformStreamFarm:
 
     def _alloc(self, device: Device, device_staging: Optional[bool]) -> None:
         """The device, its constants (``_consts``: device -> DeviceTables)
-        and the zeroed staging buffer."""
+        and the zeroed staging: one FarmProgram, or a host array."""
         self.device = resolve_device(device)
         tables = DeviceTables(self.model, self.device)
         self._consts = {tables.device: tables}
         if device_staging is None:
             device_staging = self.device.type == "cuda"
         self._device_staging = device_staging
+        self._programs = []
         if device_staging:
-            self._staging = torch.zeros((self._capacity, self._lanes), dtype=torch.int32,
-                                        device=self.device)
+            self._programs = [(0, 0, self.n_streams, self._new_program(tables, self.n_streams))]
         else:
-            self._staging = np.zeros((self._capacity, self._lanes), np.int32)
-        self._pinned = None            # host copy buffer for CUDA output (_to_host)
+            self._host_staging = np.zeros((self._capacity, self._lanes), np.int32)
+        self._alloc_host()
+
+    def _new_program(self, tables: DeviceTables, streams: int) -> FarmProgram:
+        return FarmProgram(tables, streams, self.channels, self._capacity, self.chunk_frames,
+                           self.clamp_s16)
+
+    def _alloc_host(self) -> None:
+        """The host ends of a call: on a card the pinned input buffer of the
+        largest chunk and the pool the results come from."""
+        self._pinned = None            # host copy buffer of the host-staged CUDA output
+        self._on_card = bool(self._programs) and self._programs[0][3].on_card
+        if self._on_card:
+            self._input = _pinned_empty(max(self._lanes * self.chunk_frames, 1), torch.int16)
+            self._input_array = self._input.numpy()
+            self._results = ResultPool()
+
+    @contextlib.contextmanager
+    def _as_shard(self, shard: int):
+        """Issue the body as the work of ``shard`` (here: as it stands)."""
+        yield
+
+    @property
+    def _staging(self):
+        """The staged rows from row 0 on: the host array, or the program's
+        current buffer with a parked slide applied (a view)."""
+        return self._programs[0][3].rows() if self._device_staging else self._host_staging
 
     # ------------------------------------------------------------------
     def _set_config(self, cfg: Configuration, increment: int) -> None:
@@ -160,6 +506,8 @@ class UniformStreamFarm:
         self.increment = increment
         for tables in self._consts.values():
             tables.configure(cfg, increment)
+        for *_, program in self._programs:
+            program.plans.clear()      # they point at the old scalars
 
     def adjust(self, input_rate: int, output_rate: int, low_pass_rate: Optional[int] = None) -> bool:
         """Mid-stream ratio change (pitch bend); position carries over.
@@ -179,11 +527,17 @@ class UniformStreamFarm:
         num = ((total_frames - self.position_integer) << 16) - self.position_fractional
         return 0 if num <= 0 else -(-num // self.increment)
 
+    def _program(self, shard: int) -> FarmProgram:
+        return next(program for i, _, _, program in self._programs if i == shard)
+
     def _shard_input(self, shard: int) -> torch.Tensor:
-        """The lane-major input of the launches of ``shard`` (here the one
-        staging buffer, uploaded when it is staged in host memory)."""
-        return (self._staging if self._device_staging
-                else torch.from_numpy(self._staging).to(self.device))
+        """The lane-major input of the launches of ``shard``: its program's
+        current buffer (staged, so nothing is parked), or the host staging
+        uploaded."""
+        if self._device_staging:
+            program = self._program(shard)
+            return program.buffers[program.current]
+        return torch.from_numpy(self._host_staging).to(self.device)
 
     def _launch_specs(self, n_out: int, shard: int = 0) -> tuple:
         """(xs, states, plans, tstrs, tiles): the ``multi_resample`` launches
@@ -234,28 +588,64 @@ class UniformStreamFarm:
         return torch.cat([o[:tile] for o, tile in zip(outs, tiles)])
 
     def _launch_shard(self, n_out: int, shard: int = 0) -> torch.Tensor:
-        """Frames [0, n_out) of every lane of ``shard``, (n_out, its lanes)
-        on its device."""
-        xs, states, plans, tstrs, tiles = self._launch_specs(n_out, shard)
+        """Frames [0, n_out) of every lane of ``shard`` on its device, the
+        first n_out rows of what it returns: on a card its program's output,
+        written in place by the prebound launches."""
+        specs = self._launch_specs(n_out, shard)
+        if self._on_card:
+            return self._program(shard).launch(specs)
+        xs, states, plans, tstrs, tiles = specs
         outs = multi_resample(self._consts[xs[0].device].table, xs, tuple(states), tuple(plans),
                               tstrs=tstrs)
         return self._join(outs, tiles)
 
-    def _launch(self, n_out: int):
-        """Frames [0, n_out) of every lane, as ``_to_host`` takes them: here
-        (n_out, lanes) on the device."""
-        return self._launch_shard(n_out)
+    def _launch(self, n_out: int) -> list:
+        """Frames [0, n_out) of every lane, as ``_to_host`` takes them: each
+        shard's launched lanes on its device, in ``_programs``' order (one
+        entry for a farm staged in host memory)."""
+        if not self._device_staging:
+            return [self._launch_shard(n_out)]
+        outs = []
+        for shard, _, _, _ in self._programs:
+            with self._as_shard(shard):
+                outs.append(self._launch_shard(n_out, shard))
+        return outs
 
-    def _to_host(self, lanes_out: torch.Tensor, n_out: int) -> np.ndarray:
-        """A fresh host array holding the launched lanes de-interleaved to
-        (B, n_out, C).
+    def _to_host(self, lanes_out: list, n_out: int) -> np.ndarray:
+        """A host array the caller owns, holding the launched lanes
+        de-interleaved to (B, n_out, C), shard i's streams in result[lo:hi].
 
-        From a CUDA card the copy goes through a pinned buffer the farm
-        keeps (grown to the largest emit): a pageable device-to-host copy of
-        the headline emit took ~30 ms, the pinned one ~1.5 ms, and the copy
-        into fresh host memory is then a threaded host copy (PERF.md)."""
-        out = lanes_out.view(n_out, self.n_streams, self.channels).permute(1, 0, 2)
-        result = np.empty(tuple(out.shape), np.int16 if self.clamp_s16 else np.int32)
+        On a card each program de-interleaves on the device
+        (farm_unstage_kernel) and downloads its block straight into a pinned
+        buffer leased from the farm's ``ResultPool``, on its shard's stream;
+        the host then waits for the shards in order. No host copy follows and
+        no fresh page is touched once the pool is warm, unless the caller
+        holds every buffer of the pool: then the download goes through the
+        pool's scratch buffer and a threaded host copy into a fresh array."""
+        shape = (self.n_streams, n_out, self.channels)
+        dtype = np.int16 if self.clamp_s16 else np.int32
+        if self._on_card:
+            result, address, owned = self._results.lease(shape, dtype)
+            stream_bytes = n_out * self.channels * result.itemsize
+            for shard, lo, _, program in self._programs:
+                with self._as_shard(shard):
+                    program.unstage(n_out, address + lo * stream_bytes)
+            for shard, _, _, program in self._programs:
+                with self._as_shard(shard):
+                    program.wait()
+            if not owned:             # the caller holds every pooled buffer
+                scratch, result = result, np.empty(shape, dtype)
+                torch.from_numpy(result).copy_(torch.from_numpy(scratch))
+            return result
+        result = np.empty(shape, dtype)
+        if self._device_staging:
+            for (_, lo, hi, _), lanes in zip(self._programs, lanes_out):
+                torch.from_numpy(result[lo:hi]).copy_(
+                    farm_unstage_reference(lanes, n_out, self.channels))
+            return result
+        # Staged in host memory: a permuted copy, from a card through a pinned
+        # buffer the farm keeps (grown to the largest emit).
+        out = lanes_out[0].view(n_out, self.n_streams, self.channels).permute(1, 0, 2)
         if self.device.type == "cuda":
             if self._pinned is None or self._pinned.numel() < out.numel():
                 self._pinned = torch.empty(out.numel(), dtype=out.dtype, pin_memory=True)
@@ -294,56 +684,92 @@ class UniformStreamFarm:
         return result
 
     def _slide(self, keep: int, consumed: int) -> None:
-        """staging[r] = staging[r + consumed] for r < keep; zeros from there."""
-        if self._device_staging:
-            self._staging[:keep] = self._staging[consumed : consumed + keep].clone()
-            self._staging[keep:] = 0
-        else:
-            native.shift_rows(self._staging, keep, consumed)
+        """staging[r] = staging[r + consumed] for r < keep; zeros from there.
+        A program parks it: the next stage launch does it."""
+        for *_, program in self._programs:
+            program.slide = consumed
+        if not self._device_staging:
+            native.shift_rows(self._host_staging, keep, consumed)
 
     def _write_rows(self, chunk: np.ndarray) -> None:
-        """Stage the (B, n, C) int16 chunk lane-major at rows [fill, fill + n)."""
+        """Stage the (B, n, C) chunk lane-major at rows [fill, fill + n),
+        converted as ``np.ascontiguousarray(chunk, dtype=np.int16)`` converts
+        it. On a card that is one host pass into the pinned input buffer
+        (once the card has taken the chunk before; the only torch op of a
+        steady call), then each program's upload of its streams' block and
+        its stage launch."""
         b, n, c = chunk.shape
-        if self._device_staging:
-            rows = torch.from_numpy(chunk).to(self.device).to(torch.int32)
-            self._staging[self._fill : self._fill + n] = rows.permute(1, 0, 2).reshape(n, b * c)
+        if not self._device_staging:
+            native.stage_chunk(np.ascontiguousarray(chunk, dtype=np.int16), self._host_staging,
+                               self._fill)
+        elif self._on_card:
+            for shard, _, _, program in self._programs:
+                with self._as_shard(shard):
+                    program.wait()
+            block = self._input_array[: b * n * c].reshape(b, n, c)
+            if chunk.dtype == np.int16 and chunk.flags.c_contiguous and chunk.flags.writeable:
+                # PyTorch's copy is threaded: 1.2 ms against numpy's 6.8 ms for
+                # the 36.5 MB of 1024 stereo streams x 8916 frames (PERF.md).
+                torch.from_numpy(block).copy_(torch.from_numpy(chunk))
+            else:
+                np.copyto(block, chunk, casting="unsafe")
+            for shard, lo, _, program in self._programs:
+                with self._as_shard(shard):
+                    program.stage(self._input.data_ptr() + 2 * lo * n * c, n, self._fill)
         else:
-            native.stage_chunk(chunk, self._staging, self._fill)
+            block = torch.from_numpy(np.ascontiguousarray(chunk, dtype=np.int16))
+            for _, lo, hi, program in self._programs:
+                program.stage(block[lo:hi], n, self._fill)
 
     def _zero_rows(self, start: int, n: int) -> None:
-        if self._device_staging:
-            self._staging[start : start + n] = 0
-        else:
-            native.zero_rows(self._staging, start, n)
+        """Rows [start, start + n) zero (flush's silence). A program's stage
+        of no frames does it: with the parked slide, it zeroes every row from
+        ``start`` on."""
+        if not self._device_staging:
+            native.zero_rows(self._host_staging, start, n)
+            return
+        for shard, lo, hi, program in self._programs:
+            with self._as_shard(shard):
+                program.stage(None if self._on_card else torch.empty(
+                    (hi - lo, 0, self.channels), dtype=torch.int16), 0, start)
 
     def _staged_rows(self) -> np.ndarray:
-        """Rows [0, fill) of the staging buffer as a host (fill, lanes) int32
-        array (what a snapshot keeps)."""
-        rows = self._staging[: self._fill]
-        return rows.cpu().numpy() if isinstance(rows, torch.Tensor) else rows.copy()
+        """Rows [0, fill) of the staging as a host (fill, lanes) int32 array,
+        any parked slide applied (what a snapshot keeps)."""
+        if not self._device_staging:
+            return self._host_staging[: self._fill].copy()
+        parts = []
+        for shard, _, _, program in self._programs:
+            with self._as_shard(shard):
+                parts.append(program.rows()[: self._fill].cpu().numpy())
+        return np.concatenate(parts, axis=1)
 
     def _load_rows(self, rows: np.ndarray) -> None:
-        """Restore rows [0, len(rows)) of the staging buffer from a host
-        (fill, lanes) int32 array and set the fill."""
-        fill = rows.shape[0]
-        if self._device_staging:
-            self._staging[:fill] = torch.from_numpy(rows).to(self.device)
-        else:
-            self._staging[:fill] = rows
+        """Restore rows [0, len(rows)) of the staging from a host (fill,
+        lanes) int32 array, zero the rest and set the fill."""
+        fill, c = rows.shape[0], self.channels
+        if not self._device_staging:
+            self._host_staging[:fill] = rows
+            self._host_staging[fill:] = 0
+        for shard, lo, hi, program in self._programs:
+            with self._as_shard(shard):
+                program.load(torch.from_numpy(np.ascontiguousarray(rows[:, lo * c : hi * c])))
         self._fill = fill
 
     def _take_stream(self, source: "UniformStreamFarm", j: int) -> None:
         """Copy the staged lanes of stream ``j`` of ``source`` (a farm of the
-        same staging geometry and placement) into this one-stream farm."""
+        same staging geometry and placement) into this new one-stream farm,
+        with the source's parked slide applied: this farm has none parked."""
         lo = j * self.channels
-        self._staging[:, :] = source._staging[:, lo : lo + self.channels]
+        lanes = source._staging[:, lo : lo + self.channels]
+        self._staging[: lanes.shape[0]] = lanes
 
     def _stage(self, chunk: np.ndarray) -> int:
         """Stage one (B, n, C) int16 chunk; returns the consumable frame count
         (the last `radius_bound` data rows stay held back until more data or
         flush arrives -- the high-level buffer's early `input_buffer_end`,
         clownresampler.h:1154)."""
-        chunk = np.ascontiguousarray(chunk, dtype=np.int16)
+        chunk = np.asarray(chunk)
         b, n, c = chunk.shape
         if b != self.n_streams or c != self.channels or n > self.chunk_frames:
             raise ValueError(f"chunk of shape {chunk.shape} does not match the farm "
@@ -376,8 +802,8 @@ class MixedStreamFarm:
 
     Streams share nothing, so a mixed fleet decomposes exactly into one
     UniformStreamFarm per distinct (input, output, low-pass) rate triple,
-    and every group's launches for a chunk run in one ``multi_resample``
-    call, each with its own class's kernel (the repo's config 5: 48k->44.1k,
+    and every group's launches for a chunk are issued together between the
+    groups' staging and their copies out, each with its own class's kernel (the repo's config 5: 48k->44.1k,
     44.1k->48k and 8k->48k on the tiled kernel, 96k->48k on the strided
     kernel).
 
@@ -469,25 +895,10 @@ class MixedStreamFarm:
 
     def _launch_groups(self, farms: list) -> list:
         """Each of ``farms`` (farm, n_out)'s launched lanes, as its
-        ``_launch`` would return them: every group's launches of the chunk
-        in one ``multi_resample`` call."""
-        if not farms:
-            return []
-        xs, states, plans, tstrs, tilings = [], [], [], [], []
-        for farm, n_out in farms:
-            gx, gst, gpl, gts, tiles = farm._launch_specs(n_out)
-            xs += gx
-            states += gst
-            plans += gpl
-            tstrs += gts
-            tilings.append(tiles)
-        outs = multi_resample(farms[0][0]._consts[xs[0].device].table, tuple(xs),
-                              tuple(states), tuple(plans), tstrs=tuple(tstrs))
-        joined, cursor = [], 0
-        for (farm, _), tiles in zip(farms, tilings):
-            joined.append(farm._join(outs[cursor : cursor + len(tiles)], tiles))
-            cursor += len(tiles)
-        return joined
+        ``_launch`` returns them: every group's launches of the chunk, one
+        group after the other (on a card prebound C calls, nothing between
+        them)."""
+        return [farm._launch(n_out) for farm, n_out in farms]
 
     def process(self, chunks: list) -> list:
         """chunks[i]: (n, channels) int16 for stream i (the same n for every

@@ -14,7 +14,9 @@ synchronise. Each C entry's arguments have names (ENTRY_ARGS): a launcher
 checks its tensors and builds the arguments by name (``*_launch_args``), so a
 caller that repeats a launch (the whole-stream scan) checks once and then
 calls the entry (``entry_function``) with ``ordered_args`` of the same
-arguments, a few pointers replaced, with no torch op in between.
+arguments, a few pointers replaced, with no torch op in between. A farm call
+issues its copies and its wait the same way (``crt_farm_copy``,
+``crt_farm_sync``).
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ MAX_SHARED_BYTES = 227 * 1024
 POINTER_ARGS = frozenset((
     "x", "p0_ptr", "f0_ptr", "inc_hi", "inc_lo", "radius", "delta", "int_radius", "step",
     "table", "tstr", "partial", "tap_sums", "out", "rows_out", "n_valid", "stream",
-    "prev", "cur", "chunk", "state_in", "produced", "over", "launch_states", "state_out"))
+    "prev", "cur", "chunk", "state_in", "produced", "over", "launch_states", "state_out",
+    "src", "dst"))
+LONG_ARGS = frozenset(("nbytes",))   # pass as long long
 _LAUNCH_INPUT = ("x", "S", "L", "lane_offset", "lanes", "p0_ptr", "p0_val", "f0_ptr", "f0_val",
                  "inc_hi", "inc_lo", "radius", "delta", "int_radius", "step",
                  "table", "table_size")
@@ -61,6 +65,12 @@ ENTRY_ARGS = {
     "crt_scan_stage": ("prev", "cur", "chunk", "chunk_s16", "n_in", "halo_rows", "L", "vec",
                        "state_in", "inc_hi", "inc_lo", "n_out", "launches", "launch_step",
                        "produced", "over", "launch_states", "state_out", "device", "stream"),
+    "crt_farm_stage": ("src", "dst", "chunk", "streams", "n_in", "channels", "keep", "consumed",
+                       "capacity", "tile_streams", "tile_frames", "vec", "device", "stream"),
+    "crt_farm_unstage": ("src", "dst", "L", "n_out", "stream_lo", "streams", "channels",
+                         "out_s16", "words", "tile_streams", "tile_frames", "device", "stream"),
+    "crt_farm_copy": ("dst", "src", "nbytes", "device", "stream"),
+    "crt_farm_sync": ("device", "stream"),
 }
 # library -> (source file, its C entries).
 LIBRARIES = {
@@ -68,12 +78,18 @@ LIBRARIES = {
     "strided": ("strided_kernels.cu", ("crt_strided_mac",)),
     "wide": ("wide_kernels.cu", ("crt_wide_mac",)),
     "scan": ("scan_kernels.cu", ("crt_scan_stage",)),
+    "farm": ("farm_kernels.cu", ("crt_farm_stage", "crt_farm_unstage", "crt_farm_copy",
+                                 "crt_farm_sync")),
 }
-# C entry -> (its library, the kernel it launches, for error messages).
+# C entry -> (its library, what it launches, for error messages).
 ENTRIES = {"crt_tiled_mac": ("resample", "tiled_mac_kernel"),
            "crt_strided_mac": ("strided", "strided_mac_kernel"),
            "crt_wide_mac": ("wide", "wide_mac_kernel"),
-           "crt_scan_stage": ("scan", "scan_stage_kernel")}
+           "crt_scan_stage": ("scan", "scan_stage_kernel"),
+           "crt_farm_stage": ("farm", "farm_stage_kernel"),
+           "crt_farm_unstage": ("farm", "farm_unstage_kernel"),
+           "crt_farm_copy": ("farm", "cudaMemcpyAsync"),
+           "crt_farm_sync": ("farm", "cudaStreamSynchronize")}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -134,7 +150,8 @@ def library(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(so)
                 for entry in entries:
                     fn = getattr(lib, entry)
-                    fn.argtypes = [ctypes.c_void_p if arg in POINTER_ARGS else ctypes.c_int
+                    fn.argtypes = [ctypes.c_void_p if arg in POINTER_ARGS
+                                   else ctypes.c_longlong if arg in LONG_ARGS else ctypes.c_int
                                    for arg in ENTRY_ARGS[entry]]
                     fn.restype = ctypes.c_int
                 BUILD_LOG["paths"][lib_name] = so
@@ -184,7 +201,7 @@ def raise_on_launch(err: int, entry: str) -> None:
     """Raise if the C entry ``entry`` returned a CUDA error."""
     if err != 0:
         msg = library("resample").crt_error_string(err).decode()
-        raise RuntimeError(f"{ENTRIES[entry][1]} launch failed: {msg}")
+        raise RuntimeError(f"{ENTRIES[entry][1]} failed: {msg}")
 
 
 def _launch(entry: str, args: dict) -> None:
@@ -490,3 +507,117 @@ def scan_stage(prev, cur, chunk, state_in, cfg, produced, over, launch_states, s
     _launch("crt_scan_stage", scan_stage_args(
         prev, cur, chunk, state_in, cfg, produced, over, launch_states, state_out,
         halo_rows=halo_rows, n_out=n_out, launch_step=launch_step))
+
+
+# Samples of a farm tile's row (about 128 lanes) and its frames; the most
+# channels a farm kernel takes (a tile then holds two streams of one frame).
+FARM_TILE_LANES = 128
+FARM_TILE_FRAMES = 32
+FARM_MAX_CHANNELS = 4096
+
+
+def farm_tile(granule: int) -> tuple:
+    """(streams, frames) of one shared-memory tile of the farm kernels, for
+    ``granule`` samples (or words) a stream and frame: an even count of
+    streams of about FARM_TILE_LANES lanes, FARM_TILE_FRAMES frames unless
+    the granule is so wide that two streams pass 2 x FARM_TILE_LANES."""
+    streams = max(2, FARM_TILE_LANES // granule // 2 * 2)
+    width = streams * granule
+    frames = (FARM_TILE_FRAMES if width <= 2 * FARM_TILE_LANES
+              else max(1, 2 * FARM_TILE_LANES * FARM_TILE_FRAMES // width))
+    return streams, frames
+
+
+def _check_channels(channels: int) -> None:
+    if not 0 < channels <= FARM_MAX_CHANNELS:
+        raise ValueError(f"the farm kernels take 1 to {FARM_MAX_CHANNELS} channels, "
+                         f"got {channels}")
+
+
+def farm_stage_args(src, dst, chunk, *, streams: int, channels: int, n_in: int, keep: int,
+                    consumed: int) -> dict:
+    """Check one farm_stage_kernel launch and return crt_farm_stage's
+    arguments by name. ``src`` and ``dst`` are the farm's (capacity, streams *
+    channels) int32 buffers -- one buffer given twice appends in place and
+    needs ``consumed`` 0 --, ``chunk`` an int16 tensor of at least streams *
+    n_in * channels elements whose start is the (streams, n_in, channels)
+    chunk; everything contiguous on dst's device."""
+    _check_channels(channels)
+    lanes = streams * channels
+    _check_tensors(dst, lanes, 0, src=(src, 2))
+    capacity = dst.shape[0]
+    in_place = src.data_ptr() == dst.data_ptr()
+    if (src.shape != dst.shape or dst.shape[1] != lanes or n_in < 0 or keep < 0 or consumed < 0
+            or keep + n_in > capacity or consumed + keep > capacity
+            or (in_place and consumed)):
+        raise ValueError(f"bad farm stage: buffers {tuple(src.shape)} and {tuple(dst.shape)}, "
+                         f"{streams} streams x {channels} channels, {n_in} frames at row "
+                         f"{keep}, {consumed} rows consumed"
+                         f"{' in place' if in_place else ''}")
+    if (chunk.device != dst.device or chunk.dtype != torch.int16 or not chunk.is_contiguous()
+            or chunk.numel() < lanes * n_in):
+        raise ValueError(f"chunk must be contiguous int16 on {dst.device} with at least "
+                         f"{lanes * n_in} elements, got {chunk.dtype} {tuple(chunk.shape)}")
+    tile_streams, tile_frames = farm_tile(channels)
+    vec = int(channels % 2 == 0 and lanes % 4 == 0 and chunk.data_ptr() % 4 == 0
+              and src.data_ptr() % 16 == 0 and dst.data_ptr() % 16 == 0)
+    return dict(src=src.data_ptr(), dst=dst.data_ptr(), chunk=chunk.data_ptr(), streams=streams,
+                n_in=n_in, channels=channels, keep=keep, consumed=consumed, capacity=capacity,
+                tile_streams=tile_streams, tile_frames=tile_frames, vec=vec,
+                device=dst.device.index, stream=_stream(dst))
+
+
+def farm_stage(src, dst, chunk, *, streams: int, channels: int, n_in: int, keep: int,
+               consumed: int) -> None:
+    """Launch farm_stage_kernel once: rows [0, keep) of ``dst`` = rows
+    [consumed, consumed + keep) of ``src`` (left where they are when src is
+    dst), rows [keep, keep + n_in) = the (streams, n_in, channels) int16
+    ``chunk`` widened to int32 and transposed to lane-major, every later row
+    zero."""
+    _launch("crt_farm_stage", farm_stage_args(src, dst, chunk, streams=streams,
+                                              channels=channels, n_in=n_in, keep=keep,
+                                              consumed=consumed))
+
+
+def farm_unstage_args(src, dst_ptr: int, *, n_out: int, channels: int, stream_lo: int,
+                      streams: int) -> dict:
+    """Check one farm_unstage_kernel launch and return crt_farm_unstage's
+    arguments by name. ``src`` is a contiguous (rows >= n_out, L) int32 or
+    int16 CUDA tensor of lane-major frames; streams [stream_lo, stream_lo +
+    streams) of it go stream-major, (streams, n_out, channels), to the
+    address ``dst_ptr``: device memory of src's card or pinned host memory,
+    which the caller keeps alive and large enough."""
+    _check_channels(channels)
+    _check_cuda(src)
+    if src.dim() != 2 or src.dtype not in (torch.int16, torch.int32) or not src.is_contiguous():
+        raise ValueError(f"src must be a contiguous (n_out, L) int32 or int16 tensor, got "
+                         f"{src.dtype} {tuple(src.shape)}")
+    lanes = src.shape[1]
+    if not (0 < n_out <= src.shape[0] and streams > 0 and stream_lo >= 0
+            and (stream_lo + streams) * channels <= lanes):
+        raise ValueError(f"bad farm unstage: streams [{stream_lo}, {stream_lo + streams}) x "
+                         f"{channels} channels x {n_out} frames of {tuple(src.shape)}")
+    s16 = src.dtype == torch.int16
+    words = int(not s16 or (channels % 2 == 0 and lanes % 2 == 0 and src.data_ptr() % 4 == 0
+                            and dst_ptr % 4 == 0))
+    tile_streams, tile_frames = farm_tile(channels // 2 if s16 and words else channels)
+    return dict(src=src.data_ptr(), dst=dst_ptr, L=lanes, n_out=n_out, stream_lo=stream_lo,
+                streams=streams, channels=channels, out_s16=int(s16), words=words,
+                tile_streams=tile_streams, tile_frames=tile_frames, device=src.device.index,
+                stream=_stream(src))
+
+
+def farm_unstage(src, dst, *, n_out: int, channels: int, stream_lo: int, streams: int) -> None:
+    """Launch farm_unstage_kernel once: streams [stream_lo, stream_lo +
+    streams) of the lane-major (n_out, L) ``src`` into the contiguous tensor
+    ``dst`` (src's dtype, on src's card or in pinned host memory) as
+    (streams, n_out, channels)."""
+    if (dst.dtype != src.dtype or not dst.is_contiguous()
+            or dst.numel() < streams * n_out * channels
+            or not (dst.device == src.device or (dst.device.type == "cpu" and dst.is_pinned()))):
+        raise ValueError(f"dst must be contiguous {src.dtype} on {src.device} or pinned, with "
+                         f"at least {streams * n_out * channels} elements, got {dst.dtype} "
+                         f"{tuple(dst.shape)} on {dst.device}")
+    _launch("crt_farm_unstage", farm_unstage_args(src, dst.data_ptr(), n_out=n_out,
+                                                  channels=channels, stream_lo=stream_lo,
+                                                  streams=streams))

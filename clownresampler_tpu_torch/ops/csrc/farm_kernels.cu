@@ -1,0 +1,314 @@
+// Hand-written Hopper (sm_90a) kernels for the two ends of a transcode farm call.
+//
+// Neither has a Pallas counterpart: they replace device code that XLA compiles
+// around the Pallas kernels in the JAX package's farm.
+//
+// farm_stage_kernel is a call's whole staging in one launch
+// (clownresampler_tpu/farm.py:273-304, `_dev_stage`, `_dev_shift` and
+// `_dev_zero_rows`): from the farm's two lane-major (capacity, L) int32
+// staging buffers and a stream-major (B, n, C) int16 chunk on the device,
+//  - rows [0, keep) of the destination get rows [consumed, consumed + keep)
+//    of the source: the slide the call before left parked. With nothing
+//    parked the source is the destination (consumed == 0) and the rows stay
+//    where they are;
+//  - rows [keep, keep + n) get the chunk widened to int32 and transposed to
+//    lane-major: row keep + t, lane b*C + c is chunk[b][t][c];
+//  - every row from keep + n to the capacity is zero.
+// The kept rows and the zero tail are flat (whole rows are contiguous). The
+// transpose is a real one: for a fixed stream the chunk is contiguous along
+// (t, c), a staged row along (b, c). A block carries a tile of TB streams x
+// TT frames through shared memory as int16: it reads each stream's run of
+// TT*C samples (coalesced along the run) and writes each frame's TB*C lanes
+// (coalesced along the row, a 16-byte store of 4 lanes a thread). When C is
+// odd, L is no multiple of 4 or a pointer is unaligned, the same tile moves
+// element by element (2-byte loads, 4-byte stores).
+//
+// farm_unstage_kernel is the other end (clownresampler_tpu/farm.py:517-529,
+// the host's de-interleave of the launched lanes): from the launches'
+// lane-major (n_out, L) output, int32 or clamped int16, it writes streams
+// [stream_lo, stream_lo + streams) stream-major, (streams, n_out, C)
+// contiguous at dst. It moves 4-byte words (one int32 sample, or two int16
+// samples when C is even; single int16 samples when C is odd) through a
+// shared-memory tile of TT frames x TB streams: rows read coalesced along
+// the lanes, each stream's run of TT*C samples written coalesced. A stream's
+// block starts wherever n_out*C puts it, so the stores stay one word wide.
+//
+// What bounds them on the H100: bytes. At 1024 stereo streams, 48 kHz ->
+// 44.1 kHz (8916-frame chunks, 8192 frames out) the stage reads 36.5 MB and
+// writes 73.0 MB (plus under 1 MB of kept rows and tail), about 0.033 ms at
+// 3.35 TB/s; the unstage reads and writes 67.1 MB each, 0.040 ms.
+//
+// crt_farm_copy and crt_farm_sync are cudaMemcpyAsync and
+// cudaStreamSynchronize on the caller's stream, so that a farm call's upload,
+// download and wait are issued like its launches.
+//
+// Built by ops/_build.py with nvcc into a shared library with a plain C
+// interface, like the MAC kernels' sources; the Python side checks devices,
+// dtypes, shapes and alignment before it passes pointers.
+
+#include <algorithm>
+
+#include "mac_common.cuh"
+
+namespace {
+
+constexpr int FARM_THREADS = 256;
+constexpr int FARM_WARPS = FARM_THREADS / 32;
+
+struct StageParams {
+    const int* src;                   // the buffer that holds the rows to keep
+    int* dst;                         // the buffer to stage into (may be src)
+    const int16_t* chunk;             // (B, n, C)
+    int streams, n_in, channels;      // B, n, C
+    int keep, consumed, capacity;     // rows
+    int tile_streams, tile_frames;    // TB, TT
+    int row_stride;                   // int16 elements of one stream's row of the tile (even)
+};
+
+// Flat part: the kept rows and the zero tail, VEC ints at a time.
+template <int VEC>
+__device__ __forceinline__ void stage_flat(const StageParams& P, long long L) {
+    const long long stride = static_cast<long long>(gridDim.x) * FARM_THREADS;
+    const long long first = static_cast<long long>(blockIdx.x) * FARM_THREADS + threadIdx.x;
+    const long long kept = P.src == P.dst ? 0 : P.keep * L / VEC;
+    const long long tail0 = (static_cast<long long>(P.keep) + P.n_in) * L / VEC;
+    const long long tail = P.capacity * L / VEC - tail0;
+    if (VEC == 4) {
+        const int4* s = reinterpret_cast<const int4*>(P.src + P.consumed * L);
+        int4* d = reinterpret_cast<int4*>(P.dst);
+        for (long long i = first; i < kept; i += stride) d[i] = __ldg(s + i);
+        for (long long i = first; i < tail; i += stride) d[tail0 + i] = make_int4(0, 0, 0, 0);
+    } else {
+        const int* s = P.src + P.consumed * L;
+        for (long long i = first; i < kept; i += stride) P.dst[i] = s[i];
+        for (long long i = first; i < tail; i += stride) P.dst[tail0 + i] = 0;
+    }
+}
+
+// VEC: C is even, L a multiple of 4, TB*C a multiple of 4 and the chunk and
+// dst pointers 4- and 16-byte aligned.
+template <bool VEC>
+__global__ void __launch_bounds__(FARM_THREADS)
+farm_stage_kernel(const StageParams P) {
+    extern __shared__ __align__(16) unsigned char farm_tile[];
+    int16_t* tile = reinterpret_cast<int16_t*>(farm_tile);
+    const int C = P.channels, n = P.n_in;
+    const long long L = static_cast<long long>(P.streams) * C;
+    stage_flat<VEC ? 4 : 1>(P, L);
+
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int TB = P.tile_streams, TT = P.tile_frames;
+    const int frame_tiles = (n + TT - 1) / TT;
+    const long long tiles = static_cast<long long>((P.streams + TB - 1) / TB) * frame_tiles;
+    for (long long tile_id = blockIdx.x; tile_id < tiles; tile_id += gridDim.x) {
+        const int b0 = static_cast<int>(tile_id / frame_tiles) * TB;
+        const int t0 = static_cast<int>(tile_id % frame_tiles) * TT;
+        const int sv = min(TB, P.streams - b0), tv = min(TT, n - t0);
+        const int run = tv * C;                       // samples of one stream's run
+        // Load: warp w takes streams w, w + 8, ...; a lane walks the run.
+        for (int i = warp; i < sv; i += FARM_WARPS) {
+            const int16_t* src = P.chunk + (static_cast<long long>(b0 + i) * n + t0) * C;
+            int16_t* row = tile + i * P.row_stride;
+            if (VEC) {
+                const int* src2 = reinterpret_cast<const int*>(src);
+                int* row2 = reinterpret_cast<int*>(row);
+                for (int j = lane; j < run / 2; j += 32) row2[j] = __ldcs(src2 + j);
+            } else {
+                for (int j = lane; j < run; j += 32) row[j] = __ldcs(src + j);
+            }
+        }
+        __syncthreads();
+        // Store: warp w takes frames w, w + 8, ...; a lane keeps its lanes of
+        // the row (their stream and channel worked out once a tile).
+        int* out = P.dst + (static_cast<long long>(P.keep) + t0) * L +
+                   static_cast<long long>(b0) * C;
+        const int width = sv * C;
+        if (VEC) {
+            for (int q = lane; 4 * q < width; q += 32) {
+                int at[4];
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                    const int l = 4 * q + k;
+                    at[k] = (l / C) * P.row_stride + l % C;
+                }
+                for (int t = warp; t < tv; t += FARM_WARPS) {
+                    const int16_t* fr = tile + t * C;
+                    __stcs(reinterpret_cast<int4*>(out + t * L) + q,
+                           make_int4(fr[at[0]], fr[at[1]], fr[at[2]], fr[at[3]]));
+                }
+            }
+        } else {
+            for (int l = lane; l < width; l += 32) {
+                const int at = (l / C) * P.row_stride + l % C;
+                for (int t = warp; t < tv; t += FARM_WARPS) out[t * L + l] = tile[t * C + at];
+            }
+        }
+        __syncthreads();
+    }
+}
+
+struct UnstageParams {
+    const void* src;                  // (n_out, L) samples
+    void* dst;                        // (streams, n_out, C) samples
+    int n_out;
+    long long src_row_words;          // words of one src row (L samples)
+    int word0;                        // first word of stream_lo in a src row
+    int streams, granule;             // streams to write, words of one (stream, frame): G
+    int tile_streams, tile_frames;    // TB, TT
+    int row_stride;                   // words of one frame's row of the tile (odd)
+};
+
+template <typename WordT>
+__global__ void __launch_bounds__(FARM_THREADS)
+farm_unstage_kernel(const UnstageParams P) {
+    extern __shared__ __align__(16) unsigned char farm_tile[];
+    WordT* tile = reinterpret_cast<WordT*>(farm_tile);
+    const WordT* src = static_cast<const WordT*>(P.src);
+    WordT* dst = static_cast<WordT*>(P.dst);
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int G = P.granule, TB = P.tile_streams, TT = P.tile_frames;
+    const int frame_tiles = (P.n_out + TT - 1) / TT;
+    const long long tiles = static_cast<long long>((P.streams + TB - 1) / TB) * frame_tiles;
+    // A lane's first word of a stream's run, as (frame, word of the granule),
+    // and its step of 32 words in the same form: no division in the loops.
+    const int t_first = lane / G, g_first = lane % G, t_step = 32 / G, g_step = 32 % G;
+    for (long long tile_id = blockIdx.x; tile_id < tiles; tile_id += gridDim.x) {
+        const int b0 = static_cast<int>(tile_id / frame_tiles) * TB;
+        const int t0 = static_cast<int>(tile_id % frame_tiles) * TT;
+        const int sv = min(TB, P.streams - b0), tv = min(TT, P.n_out - t0);
+        const int width = sv * G;
+        // Load: warp w takes frames w, w + 8, ...; a lane walks the row.
+        for (int t = warp; t < tv; t += FARM_WARPS) {
+            const WordT* row = src + (t0 + t) * P.src_row_words + P.word0 +
+                               static_cast<long long>(b0) * G;
+            WordT* to = tile + t * P.row_stride;
+            for (int j = lane; j < width; j += 32) to[j] = __ldcs(row + j);
+        }
+        __syncthreads();
+        // Store: warp w takes streams w, w + 8, ...; a lane walks the run.
+        for (int i = warp; i < sv; i += FARM_WARPS) {
+            WordT* run = dst + (static_cast<long long>(b0 + i) * P.n_out + t0) * G;
+            const WordT* from = tile + i * G;
+            int t = t_first, g = g_first;
+            for (int j = lane; j < tv * G; j += 32) {
+                run[j] = from[t * P.row_stride + g];
+                t += t_step;
+                g += g_step;
+                if (g >= G) {
+                    g -= G;
+                    ++t;
+                }
+            }
+        }
+        __syncthreads();
+    }
+}
+
+// As many blocks as fit on the card at once (persistent_grid), at most
+// `wanted`.
+template <typename Kernel>
+int farm_grid(PersistentGrid& cache, Kernel kernel, int smem, int device, long long wanted,
+              int* grid) {
+    int blocks = 0;
+    const int err = persistent_grid(cache, kernel, FARM_THREADS, smem, device, &blocks);
+    if (err != 0) return err;
+    *grid = static_cast<int>(std::max<long long>(1, std::min<long long>(wanted, blocks)));
+    return 0;
+}
+
+template <bool VEC>
+int launch_farm_stage(const StageParams& P, int smem, int device, cudaStream_t stream) {
+    static PersistentGrid cache;
+    const long long L = static_cast<long long>(P.streams) * P.channels;
+    const long long tiles = static_cast<long long>((P.streams + P.tile_streams - 1) /
+                                                   P.tile_streams) *
+                            ((P.n_in + P.tile_frames - 1) / P.tile_frames);
+    const long long flat = ((P.src == P.dst ? 0 : P.keep) +
+                            (P.capacity - P.keep - P.n_in)) * L / (VEC ? 4 : 1);
+    int grid = 0;
+    const int err = farm_grid(cache, farm_stage_kernel<VEC>, smem, device,
+                              std::max(tiles, (flat + FARM_THREADS - 1) / FARM_THREADS), &grid);
+    if (err != 0) return err;
+    farm_stage_kernel<VEC><<<grid, FARM_THREADS, smem, stream>>>(P);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename WordT>
+int launch_farm_unstage(const UnstageParams& P, int smem, int device, cudaStream_t stream) {
+    static PersistentGrid cache;
+    const long long tiles = static_cast<long long>((P.streams + P.tile_streams - 1) /
+                                                   P.tile_streams) *
+                            ((P.n_out + P.tile_frames - 1) / P.tile_frames);
+    int grid = 0;
+    const int err = farm_grid(cache, farm_unstage_kernel<WordT>, smem, device, tiles, &grid);
+    if (err != 0) return err;
+    farm_unstage_kernel<WordT><<<grid, FARM_THREADS, smem, stream>>>(P);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// One farm call's staging. src and dst are the farm's (capacity, streams *
+// channels) int32 buffers (dst written; src read unless it is dst), chunk the
+// call's (streams, n_in, channels) int16 input on the device (unread when
+// n_in is 0). Tiles hold tile_streams x tile_frames samples. Returns a
+// cudaError_t.
+int crt_farm_stage(const int* src, int* dst, const void* chunk, int streams, int n_in,
+                   int channels, int keep, int consumed, int capacity, int tile_streams,
+                   int tile_frames, int vec, int device, void* stream) {
+    const DeviceGuard guard(device);
+    if (guard.err != 0) return guard.err;
+    // An even row stride whose half is odd: rows 4 bytes aligned, and the
+    // store phase's reads of consecutive streams on different banks.
+    const int row_stride = 2 * ((tile_frames * channels + 1) / 2 | 1);
+    const StageParams P{src, dst, static_cast<const int16_t*>(chunk), streams, n_in, channels,
+                        keep, consumed, capacity, tile_streams, tile_frames, row_stride};
+    const int smem = tile_streams * row_stride * static_cast<int>(sizeof(int16_t));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return vec ? launch_farm_stage<true>(P, smem, device, s)
+               : launch_farm_stage<false>(P, smem, device, s);
+}
+
+// One farm call's de-interleave: streams [stream_lo, stream_lo + streams) of
+// the lane-major (n_out, L) src, int16 when out_s16 else int32, to (streams,
+// n_out, channels) at dst. words: move 4-byte words (always for int32; for
+// int16 when channels, L and stream_lo * channels are even and the pointers
+// 4-byte aligned), else single int16 samples. Returns a cudaError_t.
+int crt_farm_unstage(const void* src, void* dst, int L, int n_out, int stream_lo, int streams,
+                     int channels, int out_s16, int words, int tile_streams, int tile_frames,
+                     int device, void* stream) {
+    const DeviceGuard guard(device);
+    if (guard.err != 0) return guard.err;
+    const bool pairs = out_s16 && words;              // a word is two int16 samples
+    const int granule = pairs ? channels / 2 : channels;
+    const int row_stride = tile_streams * granule | 1;
+    const UnstageParams P{src, dst, n_out, pairs ? L / 2 : L,
+                          pairs ? stream_lo * channels / 2 : stream_lo * channels, streams,
+                          granule, tile_streams, tile_frames, row_stride};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (out_s16 && !words) {
+        return launch_farm_unstage<int16_t>(P, tile_frames * row_stride * 2, device, s);
+    }
+    return launch_farm_unstage<int32_t>(P, tile_frames * row_stride * 4, device, s);
+}
+
+// cudaMemcpyAsync of nbytes from src to dst (either may be pinned host
+// memory) on the stream. Returns a cudaError_t.
+int crt_farm_copy(void* dst, const void* src, long long nbytes, int device, void* stream) {
+    const DeviceGuard guard(device);
+    if (guard.err != 0) return guard.err;
+    return static_cast<int>(cudaMemcpyAsync(dst, src, static_cast<size_t>(nbytes),
+                                            cudaMemcpyDefault,
+                                            static_cast<cudaStream_t>(stream)));
+}
+
+// Block the host until the stream has done all it holds. Returns a cudaError_t.
+int crt_farm_sync(int device, void* stream) {
+    const DeviceGuard guard(device);
+    if (guard.err != 0) return guard.err;
+    return static_cast<int>(cudaStreamSynchronize(static_cast<cudaStream_t>(stream)));
+}
+
+}  // extern "C"

@@ -6,16 +6,18 @@ over the ``dp`` axis of a ``parallel.Mesh`` on stream boundaries. Streams
 share nothing (the reference is a scalar, single-stream library; there is no
 cross-stream communication to replicate), so nothing crosses shards:
 
-* each dp shard keeps its own staging buffer, the lanes of its streams, on
-  its device, and every operation on it -- the stage write, the launches,
-  the slide, the copy out -- is issued on that device and, on a card, on the
-  shard's own CUDA stream (``Mesh.shard``), in order;
+* each dp shard keeps its own ``farm.FarmProgram`` -- the staging buffers
+  of its streams' lanes -- on its device, and every step of it -- the upload
+  of the shard's stream range of the pinned input, the stage launch, the
+  launches, the de-interleave, the download -- is issued on that device and,
+  on a card, on the shard's own CUDA stream (``Mesh.shard``), in order;
 * each shard launches the ratio class's kernel (ops/resample.py) on its own
   buffer with the shared phase state and its device's LUT and scalars; the
   routing (``_launch_specs``) is the unsharded farm's, so a sharded farm
   takes the same class and tiles;
 * each shard's output goes to the host by its own copy, straight into its
-  streams' block of the result, so no host concatenation is needed;
+  streams' block of the result, so no host concatenation is needed; the
+  host waits for a shard at a time;
 * all host bookkeeping (positions, halo slide, natural counts) is inherited
   unchanged, so outputs are bit-exact against the unsharded farm and
   transitively against the C reference per stream.
@@ -28,10 +30,8 @@ stream count holds nothing and issues nothing.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
-
-import numpy as np
-import torch
 
 from clownresampler_tpu_torch.device import Device
 from clownresampler_tpu_torch.farm import DeviceTables, MixedStreamFarm, UniformStreamFarm
@@ -64,117 +64,52 @@ class ShardedStreamFarm(UniformStreamFarm):
                          device=mesh.device(0), device_staging=True, clamp_s16=clamp_s16)
 
     def _alloc(self, device: Device, device_staging: Optional[bool]) -> None:
-        """One zeroed staging buffer per non-empty dp shard on its device
-        (``_staging[i]``, None for an empty shard; ``_bounds[i]`` its
-        streams) and one DeviceTables per distinct device."""
+        """One FarmProgram per non-empty dp shard on its device, holding the
+        lanes of its streams (``_programs``; ``_bounds[i]`` is shard i's
+        streams), and one DeviceTables per distinct device."""
         mesh = self.mesh
         self.device = mesh.device(0)
         self._device_staging = True
         self._bounds = split_bounds(self.n_streams, mesh.shape["dp"])
         self._consts = {}
-        self._staging = [None] * len(self._bounds)
-        for i, lo, hi in self._shards():
+        self._programs = []
+        for i, (lo, hi) in enumerate(self._bounds):
+            if hi == lo:
+                continue
             with mesh.shard(i) as dev:
                 if dev not in self._consts:
                     self._consts[dev] = DeviceTables(self.model, dev)
-                self._staging[i] = torch.zeros(
-                    (self._capacity, (hi - lo) * self.channels), dtype=torch.int32, device=dev)
-        self._pinned = None
+                self._programs.append((i, lo, hi, self._new_program(self._consts[dev], hi - lo)))
+        self._alloc_host()
 
-    def _shards(self):
-        """(i, first stream, end stream) of every non-empty dp shard."""
-        return [(i, lo, hi) for i, (lo, hi) in enumerate(self._bounds) if hi > lo]
+    @contextlib.contextmanager
+    def _as_shard(self, shard: int):
+        with self.mesh.shard(shard):
+            yield
 
-    def _shard_input(self, shard: int) -> torch.Tensor:
-        return self._staging[shard]
-
-    def _write_rows(self, chunk: np.ndarray) -> None:
-        n, c = chunk.shape[1:]
-        for i, lo, hi in self._shards():
-            with self.mesh.shard(i) as dev:
-                rows = torch.from_numpy(chunk[lo:hi]).to(dev).to(torch.int32)
-                self._staging[i][self._fill : self._fill + n] = (
-                    rows.permute(1, 0, 2).reshape(n, (hi - lo) * c))
-
-    def _slide(self, keep: int, consumed: int) -> None:
-        for i, _, _ in self._shards():
-            with self.mesh.shard(i):
-                st = self._staging[i]
-                st[:keep] = st[consumed : consumed + keep].clone()
-                st[keep:] = 0
-
-    def _zero_rows(self, start: int, n: int) -> None:
-        for i, _, _ in self._shards():
-            with self.mesh.shard(i):
-                self._staging[i][start : start + n] = 0
-
-    def _launch(self, n_out: int) -> list:
-        """Each dp shard's frames [0, n_out), (n_out, its lanes) on its
-        device (None for an empty shard), every shard's launches
-        (``_launch_shard``) issued as that shard's."""
-        outs = [None] * len(self._bounds)
-        for i, _, _ in self._shards():
-            with self.mesh.shard(i):
-                outs[i] = self._launch_shard(n_out, i)
-        return outs
-
-    def _to_host(self, lanes_out: list, n_out: int) -> np.ndarray:
-        """A fresh host (B, n_out, C) array from the shards' launched lanes,
-        shard i's streams into result[lo:hi]. From a card each shard's copy
-        goes, on the shard's stream and without blocking the host, into its
-        own slice of one pinned buffer the farm keeps (grown to the largest
-        emit); the host then takes the shards in order, waiting for each
-        one's copy only, so a shard's host copy runs while later shards
-        still compute and copy. The pinned buffer is free again when this
-        returns."""
-        c = self.channels
-        result = np.empty((self.n_streams, n_out, c), np.int16 if self.clamp_s16 else np.int32)
-        numel = result.size
-        pending = []
-        for i, lo, hi in self._shards():
-            out = lanes_out[i].view(n_out, hi - lo, c).permute(1, 0, 2)
-            if out.device.type != "cuda":
-                torch.from_numpy(result[lo:hi]).copy_(out)
-                continue
-            if self._pinned is None or self._pinned.numel() < numel:
-                self._pinned = torch.empty(numel, dtype=out.dtype, pin_memory=True)
-            with self.mesh.shard(i):
-                dst = self._pinned[lo * n_out * c : hi * n_out * c].view(out.shape)
-                dst.copy_(out, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-            pending.append((done, dst, lo, hi))
-        for done, dst, lo, hi in pending:
-            done.synchronize()
-            torch.from_numpy(result[lo:hi]).copy_(dst)
-        return result
-
-    def _staged_rows(self) -> np.ndarray:
-        parts = []
-        for i, _, _ in self._shards():
-            with self.mesh.shard(i):
-                parts.append(self._staging[i][: self._fill].cpu().numpy())
-        return np.concatenate(parts, axis=1)
-
-    def _load_rows(self, rows: np.ndarray) -> None:
-        fill, c = rows.shape[0], self.channels
-        for i, lo, hi in self._shards():
-            with self.mesh.shard(i) as dev:
-                block = np.ascontiguousarray(rows[:, lo * c : hi * c])
-                self._staging[i][:fill] = torch.from_numpy(block).to(dev)
-        self._fill = fill
+    @property
+    def _staging(self) -> list:
+        """Each dp shard's staged rows (``FarmProgram.rows``), None for an
+        empty shard."""
+        rows = [None] * len(self._bounds)
+        for i, _, _, program in self._programs:
+            rows[i] = program.rows()
+        return rows
 
     def _take_stream(self, source: "ShardedStreamFarm", j: int) -> None:
         """Copy stream ``j``'s staged lanes from the shard of ``source`` (a
-        sharded farm on the same mesh) that holds it into this one-stream
-        farm's shard, ordered after the source shard's pending work; the
-        source shard's later work is ordered after the copy."""
-        mine = self._shards()[0][0]
-        k, lo = next((i, lo) for i, lo, hi in source._shards() if lo <= j < hi)
+        sharded farm on the same mesh) that holds it into this new
+        one-stream farm's shard, with the source's parked slide applied,
+        ordered after the source shard's pending work; the source shard's
+        later work is ordered after the copy."""
+        mine = self._programs[0][0]
+        k, lo, program = next((i, lo, program) for i, lo, hi, program in source._programs
+                              if lo <= j < hi)
         col = (j - lo) * self.channels
         self.mesh.order((k, 0), (mine, 0))
         with self.mesh.shard(mine) as dev:
-            self._staging[mine][:, :] = source._staging[k][:, col : col + self.channels].to(dev)
+            lanes = program.rows()[:, col : col + self.channels]
+            self._programs[0][3].rows()[: lanes.shape[0]] = lanes.to(dev)
         self.mesh.order((mine, 0), (k, 0))
 
 
@@ -210,13 +145,14 @@ class ShardedMixedStreamFarm(MixedStreamFarm):
         """Each group's per-shard launched lanes (``ShardedStreamFarm._launch``'s
         return), issued shard by shard: every group's launches of dp shard i
         as that shard's, before those of shard i + 1."""
-        outs = [[None] * self.mesh.shape["dp"] for _ in farms]
+        outs = [{} for _ in farms]
         for i in range(self.mesh.shape["dp"]):
             holders = [(g, farm, n_out) for g, (farm, n_out) in enumerate(farms)
-                       if farm._staging[i] is not None]
+                       if any(shard == i for shard, *_ in farm._programs)]
             if not holders:
                 continue
             with self.mesh.shard(i):
                 for g, farm, n_out in holders:
                     outs[g][i] = farm._launch_shard(n_out, i)
-        return outs
+        return [[lanes[shard] for shard, *_ in farm._programs]
+                for (farm, _), lanes in zip(farms, outs)]

@@ -52,7 +52,9 @@ def test_torch_sharded_farm_matches_uniform_farm(in_rate, out_rate, kind):
     got = _run(sh_farm, chunks)
     assert set(rs.ROUTES) == {(kind, "reference")}
     assert rs.ROUTES[(kind, "reference")] % 8 == 0    # every shard launched its own
-    assert [st.shape for st in sh_farm._staging] == [(sh_farm._capacity, 16)] * 8
+    assert [buf.shape for *_, program in sh_farm._programs for buf in program.buffers] == [
+        (sh_farm._capacity, 16)] * 16
+    assert [st.shape[1] for st in sh_farm._staging] == [16] * 8
     np.testing.assert_array_equal(got, want, err_msg=f"{in_rate}->{out_rate}")
 
 
