@@ -10,10 +10,13 @@
 # the order alternating (parent, change, change, parent, ...), and
 # FARM_CHECK_PAIRS (default 0) more that first run chip_smoke.check_kernels
 # in the process, as chip_smoke.py does before its farms. Each farm runs
-# twice in its process: the caller keeps every output, then drops each as a
-# consumer does. Every farm call is
-# split into staging, the launch's host issue, the launch on the device's
-# clock (CUDA events from the end of staging) and the device-to-host copy;
+# three times in its process: the caller keeps every output, then drops each
+# as a consumer does, then drops each with a synchronise after the staging
+# (drop_waited: the wait for the upload and the stage, timed). Every farm
+# call is split into staging (the host's pass into the pinned input and the
+# issue of the upload and the stage launch), the launch's host issue, the launch on the
+# device's clock (CUDA events from the end of staging) and the device-to-host
+# copy;
 # one JSON line a farm run into chiprun_out/farm_ab.jsonl, and the medians
 # printed at the end. Before the farms: the four runs' scan and entry times
 # side by side, and the host's time to issue config 7's scan in each tree
@@ -40,7 +43,7 @@ t0=$SECONDS
 JAX_PLATFORMS=cpu python3 -m pytest tests/test_torch_resample_ops.py tests/test_torch_strided_wide.py \
   tests/test_torch_scan.py tests/test_torch_tiled_kernel.py tests/test_torch_strided_wide_kernel.py \
   tests/test_torch_general_kernel.py tests/test_torch_scan_program.py \
-  tests/test_torch_farm_program.py \
+  tests/test_torch_farm_program.py tests/test_torch_farm_stage_ring.py \
   -q -m cuda -p no:cacheprovider \
   > chiprun_out/cuda_tests.log 2>&1
 echo "cuda tests rc=$? seconds=$(( SECONDS - t0 ))"
@@ -129,17 +132,21 @@ calls = []
 U = fm.UniformStreamFarm
 
 
-def timed(name, fn, events=False):
+def timed(name, fn, events=False, wait=None):
     def wrap(self, *a, **k):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if events else None
         if ev:
             ev[0].record()
         t0 = time.perf_counter()
         out = fn(self, *a, **k)
-        calls[-1][name] = 1e3 * (time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        calls[-1][name] = calls[-1].get(name, 0.0) + 1e3 * (t1 - t0)
         if ev:
             ev[1].record()
             calls[-1]["events"] = ev
+        if wait and wait[0]:
+            torch.cuda.synchronize()
+            calls[-1]["stage_wait_ms"] = 1e3 * (time.perf_counter() - t1)
         return out
     return wrap
 
@@ -154,15 +161,20 @@ def opened(fn):
     return wrap
 
 
-U._stage = timed("stage_ms", U._stage)
+waiting = [False]
+U._stage = timed("stage_ms", U._stage, wait=waiting)
 U._launch = timed("launch_issue_ms", U._launch, events=True)
 U._to_host = timed("to_host_ms", U._to_host)
+# Inside the staging: the upload and the stage launch issued; the rest is the
+# host's pass into the pinned input.
+fm.FarmProgram.stage = timed("stage_issue_ms", fm.FarmProgram.stage)
 U.process, U.flush = opened(U.process), opened(U.flush)
 for name, spec in (("headline", cs.FARM), ("strided", cs.STRIDED_FARM)):
     rng = np.random.default_rng(cs.SEED)
     chunks = [rng.integers(-32768, 32768, size=(spec["streams"], spec["chunk"], spec["channels"]),
                            dtype=np.int16) for _ in range(spec["chunks"])]
-    for mode in ("keep", "drop"):
+    for mode in ("keep", "drop", "drop_waited"):
+        waiting[0] = mode == "drop_waited"
         calls.clear()
         farm = U(spec["streams"], spec["channels"], *spec["rates"], chunk_frames=spec["chunk"],
                  device="cuda")
@@ -180,6 +192,7 @@ for name, spec in (("headline", cs.FARM), ("strided", cs.STRIDED_FARM)):
         for c in calls:
             ev = c.pop("events", None)
             c["launch_device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
+            c["host_pass_ms"] = c.get("stage_ms", 0.0) - c.get("stage_issue_ms", 0.0)
         steady_s = sum(c["call_ms"] for c in calls[1:-1]) / 1e3
         print(json.dumps(dict(tree=tree, pre=pre, farm=name, mode=mode, checksum=checksum,
                               msamples_per_s=sum(sizes[1:]) / steady_s / 1e6,
@@ -203,8 +216,10 @@ import json
 import statistics as st
 
 runs = [json.loads(ln) for ln in open("chiprun_out/farm_ab.jsonl")]
-keys = ("call_ms", "stage_ms", "launch_issue_ms", "launch_device_ms", "to_host_ms")
-for farm, mode in ((f, m) for f in ("headline", "strided") for m in ("keep", "drop")):
+keys = ("call_ms", "stage_ms", "host_pass_ms", "stage_issue_ms", "launch_issue_ms",
+        "launch_device_ms", "to_host_ms")
+modes = ("keep", "drop", "drop_waited")
+for farm, mode in ((f, m) for f in ("headline", "strided") for m in modes):
     for pre in ("none", "checks"):
         for tree in ("parent", "change"):
             rs = [r for r in runs
@@ -214,7 +229,8 @@ for farm, mode in ((f, m) for f in ("headline", "strided") for m in ("keep", "dr
             if len({r["checksum"] for r in runs if (r["farm"], r["mode"]) == (farm, mode)}) != 1:
                 print(farm, mode, "CHECKSUMS DIFFER between runs")
             steady = [c for r in rs for c in r["calls"][1:]]
-            med = {k: round(st.median(c[k] for c in steady), 3) for k in keys}
+            med = {k: round(st.median(c[k] for c in steady), 3)
+                   for k in keys + (("stage_wait_ms",) if mode == "drop_waited" else ())}
             print(farm, mode, pre, tree, "Msamples/s",
                   [round(r["msamples_per_s"], 1) for r in rs],
                   "median", round(st.median(r["msamples_per_s"] for r in rs), 1),

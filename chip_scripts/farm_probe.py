@@ -11,10 +11,15 @@ kernels' times beside their plain versions, bounds and the unstage's library
 call, the unstage written straight into pinned memory beside kernel plus
 download (chip_smoke.time_farm_kernels); the host's pass of a headline chunk
 into the pinned input buffer, by numpy and by torch's threaded copy; the ways
-a result may reach the caller (chip_smoke.time_result_delivery); the headline
-farm's steady call split into staging, launch issue and copy out with the
-caller keeping every output and dropping each, unsharded and sharded; and a
-steady call of each farm kind under torch.profiler (chip_smoke.profile_farms).
+a result may reach the caller (chip_smoke.time_result_delivery); the host's
+pass cut into 1-16 stream ranges, alone and each range followed by its
+upload, the overlap a farm call would get from staging its chunk in pieces;
+each C call of a steady headline call on the host's clock; the headline
+farm's steady call split into staging (the host's pass into the pinned input
+and the issue of the upload and the stage launch), launch issue and copy out
+with the caller keeping every output and dropping each, unsharded and
+sharded, and once with a synchronise after the staging, timed; and a steady
+call of each farm kind under torch.profiler (chip_smoke.profile_farms).
 ``--quick`` stops after the cases.
 """
 import json
@@ -53,7 +58,8 @@ for run, cases in ((cs.run_farm_stage_case, cs.FARM_STAGE_CASES),
         try:
             err = run(case, gen)
             torch.cuda.synchronize()
-            print(f"{run.__name__[4:-5]:13s} {case[0]:55s} err {err} OK", flush=True)
+            err, path = err if isinstance(err, tuple) else (err, "")
+            print(f"{run.__name__[4:-5]:13s} {case[0]:55s} err {err} path {path} OK", flush=True)
         except Exception as e:  # report every case, then fail
             bad.append(case[0])
             print(f"{run.__name__[4:-5]:13s} {case[0]:55s} RAISED {type(e).__name__}: {e}",
@@ -87,12 +93,69 @@ for name, fn in (("numpy_copyto_ms", lambda ch: np.copyto(pinned_array, ch, cast
     passes[name] = statistics.median(times[1:])
 show("host_pass_into_pinned_input", bytes=chunks[0].nbytes, threads=torch.get_num_threads(),
      **passes)
+
+# The host pass in 1-16 equal stream ranges (bounds multiples of 4 streams):
+# the torch copies alone, and each followed by its range's upload
+# (crt_farm_copy, as a farm issues it), the host's ms to the last copy's
+# return and to the last upload's end (a synchronise).
+card_chunk = torch.empty(chunks[0].size, dtype=torch.int16, device="cuda")
+stream = torch.cuda.current_stream().cuda_stream
+upload = _build.entry_function("crt_farm_copy")
+b, n, c = chunks[0].shape
+for count in (1, 2, 4, 8, 16):
+    bounds = [min(b, round(k * b / count / 4) * 4) for k in range(count)] + [b]
+    parts = list(zip(bounds, bounds[1:]))
+    row = dict(pieces=count)
+    for mode in ("copies_alone", "copies_then_uploads"):
+        times, landed = [], []
+        for ch in chunks:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for lo, hi in parts:
+                torch.from_numpy(pinned_array[lo:hi]).copy_(torch.from_numpy(ch[lo:hi]))
+                if mode == "copies_then_uploads":
+                    _build.raise_on_launch(upload(
+                        card_chunk.data_ptr() + 2 * lo * n * c,
+                        pinned.data_ptr() + 2 * lo * n * c, 2 * (hi - lo) * n * c, 0, stream),
+                        "crt_farm_copy")
+            times.append(1e3 * (time.perf_counter() - t1))
+            torch.cuda.synchronize()
+            landed.append(1e3 * (time.perf_counter() - t1))
+        row[mode + "_ms"] = statistics.median(times[1:])
+        row[mode + "_landed_ms"] = statistics.median(landed[1:])
+    show("host_pass_in_pieces", **row)
+del card_chunk
+
+import clownresampler_tpu_torch as crt  # noqa: E402
+
+fm = crt.UniformStreamFarm(f["streams"], f["channels"], *f["rates"], chunk_frames=f["chunk"],
+                           device="cuda")
+for ch in chunks[:3]:
+    fm.process(ch)
+program, spent = fm._programs[0][3], {}
+
+
+def timed_call(entry, args, call=program._call):
+    t1 = time.perf_counter()
+    call(entry, args)
+    spent.setdefault(entry, []).append(1e3 * (time.perf_counter() - t1))
+
+
+program._call = timed_call
+for ch in chunks[3:]:
+    fm.process(ch)
+show("c_calls_of_a_steady_call",
+     calls_a_process={k: len(v) / len(chunks[3:]) for k, v in spent.items()},
+     median_ms={k: statistics.median(v) for k, v in spent.items()},
+     max_ms={k: max(v) for k, v in spent.items()})
+del fm
 show("result_delivery", **cs.time_result_delivery())
 
 # The headline farm: the caller keeps every output, then drops each.
 kept = cs.run_uniform_farm(f, rng, chunks=chunks)
 summary = lambda r: dict(msamples_per_s=r["msamples_per_s"], ms_per_process=r["ms_per_process"],
                          steady_split_ms=r["steady_split_ms"], ms_per_call=r["ms_per_call"])
+
 show("headline_farm_keeping_every_output", **summary(kept))
 for name, mesh in (("unsharded", None), ("sharded", cs.shard_mesh()), ("sharded", cs.shard_mesh()),
                    ("unsharded", None)):
@@ -101,6 +164,8 @@ for name, mesh in (("unsharded", None), ("sharded", cs.shard_mesh()), ("sharded"
 shape = cs.check_uniform_farm(f, kept)
 show("headline_farm_checked", output_shape=shape, sampled=list(f["sampled"]))
 steady = r["ms_per_process"]
+waited = cs.run_uniform_farm(f, rng, chunks=chunks, expect=kept["outs"], wait_staging=True)
+show("headline_farm_staging_waited", **summary(waited))
 del kept
 profiles = cs.profile_farms(rng, dict(chunks=chunks))
 show("farm_profiles", calls=profiles,

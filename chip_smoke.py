@@ -259,7 +259,9 @@ SCAN_STAGE_CASES = (
 # zero; both buffers start full of other values. Options: in_place (one
 # buffer, nothing consumed); shard (streams [shard*B, (shard+1)*B) of a
 # chunk of SHARD_DP*B streams, as a mesh shard uploads them, on a side CUDA
-# stream).
+# stream); chunk_offset: the chunk starts that many int16 elements past an
+# aligned address. Each case's path (_build.farm_stage_path) is recorded, and
+# every path must be taken.
 FARM_SHAPES = tuple((b, c) for b in (1, 6, 64) for c in (1, 2, 3, 16))
 FARM_STAGE_CASES = (
     ("headline 1024 x 2, 8916 frames, slide of 8912 parked", 1024, 2, 8932, 8916, 12, 8912, {}),
@@ -267,6 +269,11 @@ FARM_STAGE_CASES = (
     ("headline short chunk of 100 in place", 1024, 2, 8932, 100, 700, 0, dict(in_place=True)),
     ("headline flush: no frames, slide parked", 1024, 2, 8932, 0, 16, 8908, {}),
     ("headline chunk to the capacity's end", 1024, 2, 8932, 8916, 16, 8900, {}),
+    ("headline 8915 frames: n*C no multiple of 8", 1024, 2, 8932, 8915, 12, 8912, {}),
+    ("headline chunk 4 bytes past alignment", 1024, 2, 8932, 8916, 12, 8912,
+     dict(chunk_offset=2)),
+    ("headline chunk 2 bytes past alignment", 1024, 2, 8932, 8916, 12, 8912,
+     dict(chunk_offset=1)),
     ("strided farm 1024 x 2, 16384 frames", 1024, 2, 16416, 16384, 16, 16380, {}),
     ("mixed group 256 x 2, 8192 frames, radius-17 reserve", 256, 2, 8266, 8192, 40, 8188, {}),
     ("wide farm 256 x 2, 44100 frames", 256, 2, 48116, 44100, 2010, 44098, {}),
@@ -594,11 +601,13 @@ def run_scan_stage_case(case, gen) -> int:
     return err
 
 
-def run_farm_stage_case(case, gen) -> int:
+def run_farm_stage_case(case, gen) -> tuple:
     """One FARM_STAGE_CASES launch of farm_stage_kernel against
     farm_stage_reference on the same inputs: the whole destination buffer,
-    exact, and the source untouched. Returns the largest difference (0)."""
+    exact, and the source untouched. Returns the largest difference (0) and
+    the path the launch took."""
     from clownresampler_tpu_torch.farm import farm_stage, farm_stage_reference
+    from clownresampler_tpu_torch.ops import _build
 
     label, b, c, capacity, n, keep, consumed, opts = case
     dev = torch.device(DEVICE)
@@ -609,15 +618,18 @@ def run_farm_stage_case(case, gen) -> int:
     if "shard" in opts:
         chunk = rand(SHARD_DP * b, n, c).to(torch.int16)[opts["shard"] * b :][:b]
     else:
-        chunk = rand(b, n, c).to(torch.int16)
+        off = opts.get("chunk_offset", 0)
+        chunk = rand(b * n * c + off).to(torch.int16)[off:].view(b, n, c)
     want_src = src.clone()
     want = want_src if opts.get("in_place") else dst.clone()
     farm_stage_reference(want_src, want, chunk, keep=keep, consumed=consumed)
+    path = _build.farm_stage_args(src, dst, chunk, streams=b, channels=c, n_in=n, keep=keep,
+                                  consumed=consumed)["path"]
     with shard_stream((None,) * 4 + (opts,)):
         farm_stage(src, dst, chunk, keep=keep, consumed=consumed)
     if not (torch.equal(dst, want) and torch.equal(src, want_src)):
         raise AssertionError(f"farm_stage_kernel != plain version at {label}")
-    return int((dst.long() - want.long()).abs().max())
+    return int((dst.long() - want.long()).abs().max()), path
 
 
 def run_farm_unstage_case(case, gen) -> int:
@@ -666,8 +678,13 @@ def check_kernels(gen) -> dict:
         _compare(results, "wide_mac_kernel", case[0], *run_wide_case(case, gen))
     for case in SCAN_STAGE_CASES:
         results["scan_stage_kernel"].append((case[0], run_scan_stage_case(case, gen)))
+    paths = set()
     for case in FARM_STAGE_CASES:
-        results["farm_stage_kernel"].append((case[0], run_farm_stage_case(case, gen)))
+        err, path = run_farm_stage_case(case, gen)
+        results["farm_stage_kernel"].append((case[0], err))
+        paths.add(path)
+    if paths != {0, 1, 2}:
+        raise AssertionError(f"FARM_STAGE_CASES took the paths {paths}, not all three")
     for case in FARM_UNSTAGE_CASES:
         results["farm_unstage_kernel"].append((case[0], run_farm_unstage_case(case, gen)))
     torch.cuda.synchronize()
@@ -837,7 +854,8 @@ def count_entry_launches(gen) -> dict:
     """The device activities of one call of the tiled, general, strided and
     wide entries at their timed launches (torch.profiler): exactly their
     kernels (ENTRY_KERNELS), one for tiled, general and strided, two for
-    wide, and their device time."""
+    wide, and their device time. A count that is off is taken again (the
+    profiler now and then loses a record), up to three times."""
     from clownresampler_tpu_torch.ops import resample as rs
 
     c = launch_case(*HEADLINE["rates"], HEADLINE["lanes"], HEADLINE["n_out"], gen)
@@ -859,11 +877,15 @@ def count_entry_launches(gen) -> dict:
     }
     res = {}
     for kind, fn in calls.items():
-        names, device_ms = device_launches(fn)
         want = ENTRY_KERNELS[kind]
-        if len(names) != len(want) or any(sum(k in n for n in names) != 1 for k in want):
-            raise AssertionError(f"one {kind} entry call ran {names} on the card, not {want}")
-        res[kind] = dict(device_activities=names, kernel_ms=device_ms)
+        for attempt in range(1, 4):
+            names, device_ms = device_launches(fn)
+            if len(names) == len(want) and all(sum(k in n for n in names) == 1 for k in want):
+                break
+            if attempt == 3:
+                raise AssertionError(f"one {kind} entry call ran {names} on the card in each of "
+                                     f"3 profiles, not {want}")
+        res[kind] = dict(device_activities=names, kernel_ms=device_ms, profiles_taken=attempt)
     return res
 
 
@@ -928,10 +950,14 @@ def oracle_stream(data: np.ndarray, in_rate: int, out_rate: int) -> np.ndarray:
 
 
 SPLIT = ("stage_ms", "launch_issue_ms", "to_host_ms")
+# Inside the staging: the upload and stage launch issued (FarmProgram.stage),
+# the rest being the host's pass into the pinned input; with ``wait_staging``
+# also the wait, after the staging returns, for the card to have done it.
+STAGE_SPLIT = ("stage_issue_ms", "stage_wait_ms")
 
 
 def drive_farm(farm, chunks, feed=lambda farm, chunk: farm.process(chunk),
-               split: bool = False, expect=None) -> dict:
+               split: bool = False, expect=None, wait_staging: bool = False) -> dict:
     """Feed every chunk then flush; each call is timed on the host clock (it
     ends in a device-to-host copy, so the device work is done) and the first
     is left out as warm-up. Returns outputs and per-call times. Every
@@ -941,20 +967,30 @@ def drive_farm(farm, chunks, feed=lambda farm, chunk: farm.process(chunk),
     as a caller that consumes its results does. With
     ``split`` the farm's staging, launch issue and copy out (``_stage``,
     ``_launch``, ``_to_host``) are timed on the host clock inside each call
-    (the copy out waits for the launch, so it holds the device time)."""
+    (the copy out waits for the launch, so it holds the device time), and
+    inside the staging its programs' issue of the upload and the stage launch
+    (STAGE_SPLIT; with ``wait_staging`` a synchronise after the staging,
+    timed: the call then waits for the staging before it issues the
+    launches)."""
     calls = []
     if split:
-        def timed(name, fn):
+        def timed(name, fn, wait=False):
             def wrap(*args, **kwargs):
                 t0 = time.perf_counter()
                 out = fn(*args, **kwargs)
-                calls[-1][name] = 1e3 * (time.perf_counter() - t0)
+                t1 = time.perf_counter()
+                calls[-1][name] = calls[-1].get(name, 0.0) + 1e3 * (t1 - t0)
+                if wait:
+                    torch.cuda.synchronize()
+                    calls[-1]["stage_wait_ms"] = 1e3 * (time.perf_counter() - t1)
                 return out
             return wrap
 
-        farm._stage = timed(SPLIT[0], farm._stage)
+        farm._stage = timed(SPLIT[0], farm._stage, wait_staging)
         farm._launch = timed(SPLIT[1], farm._launch)
         farm._to_host = timed(SPLIT[2], farm._to_host)
+        for *_, program in farm._programs:
+            program.stage = timed(STAGE_SPLIT[0], program.stage)
     outs, times, sizes = [], [], []
     for k, chunk in enumerate([*chunks, None]):
         torch.cuda.synchronize()
@@ -971,8 +1007,11 @@ def drive_farm(farm, chunks, feed=lambda farm, chunk: farm.process(chunk),
         del out
     res = dict(outs=outs, times=times, sizes=sizes)
     if split:
+        keys = SPLIT + STAGE_SPLIT[: 2 if wait_staging else 1]
         res["steady_split_ms"] = {k: statistics.median(c[k] for c in calls[1 : len(chunks)])
-                                  for k in SPLIT}
+                                  for k in keys}
+        res["steady_split_ms"]["host_pass_ms"] = statistics.median(
+            c["stage_ms"] - c["stage_issue_ms"] for c in calls[1 : len(chunks)])
     return res
 
 
@@ -992,10 +1031,11 @@ def shard_mesh(dp: int = SHARD_DP, sp: int = 1):
     return make_mesh(dp=dp, sp=sp, devices=[f"cuda:{i % count}" for i in range(dp * sp)])
 
 
-def run_uniform_farm(spec: dict, rng, chunks=None, mesh=None, expect=None) -> dict:
+def run_uniform_farm(spec: dict, rng, chunks=None, mesh=None, expect=None,
+                     wait_staging: bool = False) -> dict:
     """``chunks`` (by default spec["chunks"] random ones from ``rng``) through
     a UniformStreamFarm on the card or, with ``mesh``, a ShardedStreamFarm on
-    it; ``expect`` as in drive_farm."""
+    it; ``expect`` and ``wait_staging`` as in drive_farm."""
     import clownresampler_tpu_torch as crt
     from clownresampler_tpu_torch.parallel import ShardedStreamFarm
 
@@ -1009,7 +1049,7 @@ def run_uniform_farm(spec: dict, rng, chunks=None, mesh=None, expect=None) -> di
     else:
         farm = ShardedStreamFarm(mesh, spec["streams"], spec["channels"], *spec["rates"],
                                  chunk_frames=spec["chunk"])
-    res = drive_farm(farm, chunks, split=True, expect=expect)
+    res = drive_farm(farm, chunks, split=True, expect=expect, wait_staging=wait_staging)
     res.update(chunks=chunks, frames=[o.shape[1] for o in res["outs"][:-1]])
     res.update(_rate(res))
     return res
@@ -1765,51 +1805,87 @@ def _entry_ms(entry: str, args: dict, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+# farm_stage_kernel is timed on these FARM_STAGE_CASES: the headline's steady
+# call and its short last chunk (a long zero tail, few tiles).
+STAGE_TIMING = ("headline 1024 x 2, 8916 frames, slide of 8912 parked",
+                "headline short chunk of 100 in place")
+
+
 def time_farm_kernels(gen, peaks: dict) -> dict:
     """farm_stage_kernel and farm_unstage_kernel at the headline farm's
     steady call (FARM_STAGE_CASES[0]; 8192 frames out), each the C entry as
     the farm calls it, beside its plain version and its bound -- the bytes it
     must move (stage: the chunk and the kept rows read, every row from 0 to
-    the capacity written; unstage: the emit read and written) over the HBM
-    rate. The unstage also written straight into pinned host memory, beside
-    the kernel into the card's memory followed by the download; its library
-    call is ``copy_`` of the permuted view into a preallocated tensor; the
-    stage has none (no one call widens, transposes, keeps rows and zeroes
-    the tail), the ``copy_`` of its widen-transpose part alone is a note."""
+    the capacity written but the kept rows of an in-place stage; unstage:
+    the emit read and written) over the HBM rate. The stage on each of
+    STAGE_TIMING's cases, on the ring and on the one-tile-a-block path on the
+    same inputs, each beside its own bound. The unstage also written
+    straight into pinned host memory, beside the kernel into the card's
+    memory followed by the download; its library call is ``copy_`` of the
+    permuted view into a preallocated tensor; the stage has none (no one
+    call widens, transposes, keeps rows and zeroes the tail), the ``copy_``
+    of its widen-transpose part alone is a note."""
     from clownresampler_tpu_torch.farm import farm_stage_reference, farm_unstage_reference
     from clownresampler_tpu_torch.ops import _build
 
     dev = torch.device(DEVICE)
-    _, b, c, capacity, n, keep, consumed, _ = FARM_STAGE_CASES[0]
-    lanes = b * c
     rand = lambda *shape: torch.randint(-32768, 32768, shape, generator=gen, dtype=torch.int32,
                                         device=dev)
-    src, dst, chunk = rand(capacity, lanes), rand(capacity, lanes), rand(b, n, c).to(torch.int16)
-    args = _build.farm_stage_args(src, dst, chunk, streams=b, channels=c, n_in=n, keep=keep,
-                                  consumed=consumed)
-    ms = _entry_ms("crt_farm_stage", args)
-    want = torch.empty_like(dst)
-    farm_stage_reference(src, want, chunk, keep=keep, consumed=consumed)
-    if not torch.equal(dst, want):
-        raise AssertionError("the timed farm_stage_kernel launches != the plain version")
+    timed = {}
+    for label in STAGE_TIMING:
+        _, b, c, capacity, n, keep, consumed, opts = next(
+            case for case in FARM_STAGE_CASES if case[0] == label)
+        lanes, in_place = b * c, opts.get("in_place", False)
+        src, chunk = rand(capacity, lanes), rand(b, n, c).to(torch.int16)
+        dst = src if in_place else rand(capacity, lanes)
+        want_src, before = src.clone(), src.clone()
+        want = want_src if in_place else torch.empty_like(dst)
+        farm_stage_reference(want_src, want, chunk, keep=keep, consumed=consumed)
+        args = _build.farm_stage_args(src, dst, chunk, streams=b, channels=c, n_in=n, keep=keep,
+                                      consumed=consumed)
+        if args["path"] != _build.FARM_STAGE_RING:
+            raise AssertionError(f"{label}: the stage took path {args['path']}, not the ring")
+        tile_streams, tile_frames = _build.farm_tile(c)
+        nbytes = (6 * n + (0 if in_place else 8 * keep) + 4 * (capacity - keep - n)) * lanes
+        bound = 1e3 * nbytes / peaks["hbm_bytes_per_s"]
+        for path, launch in (("ring", args), ("one_tile_a_block", dict(
+                args, path=_build.FARM_STAGE_VEC, tile_streams=tile_streams,
+                tile_frames=tile_frames, stages=0, slot=0))):
+            if in_place:
+                dst.copy_(before)
+            else:
+                dst.fill_(-7)
+            ms = _entry_ms("crt_farm_stage", launch)
+            if not (torch.equal(dst, want) and torch.equal(src, want_src)):
+                raise AssertionError(f"the timed farm_stage_kernel launches ({label}, {path}) "
+                                     f"!= the plain version")
+            timed[f"{label}: {path}"] = dict(ms=ms, bound_ms=bound, bound_share=bound / ms,
+                                             bytes=nbytes)
+        if label == STAGE_TIMING[0]:
+            headline = dict(src=src, want=want, chunk=chunk, keep=keep, consumed=consumed,
+                            shape=f"chunk ({b}, {n}, {c}) int16, buffers ({capacity}, {lanes}) "
+                                  f"int32, keep {keep}, consumed {consumed}")
+        del src, dst, want, want_src, before, chunk
+
+    h = headline
+    _, b, c, _, n, keep, _, _ = FARM_STAGE_CASES[0]
+    lanes = b * c
 
     def plain_stage():
-        farm_stage_reference(src, want, chunk, keep=keep, consumed=consumed)
-        return want[keep : keep + 8]
+        farm_stage_reference(h["src"], h["want"], h["chunk"], keep=keep, consumed=h["consumed"])
+        return h["want"][keep : keep + 8]
 
     def widen_transpose():
-        want[keep : keep + n].view(n, b, c).copy_(chunk.permute(1, 0, 2))
-        return want[keep : keep + 8]
+        h["want"][keep : keep + n].view(n, b, c).copy_(h["chunk"].permute(1, 0, 2))
+        return h["want"][keep : keep + 8]
 
-    nbytes = chunk.nbytes + 4 * keep * lanes + 4 * capacity * lanes
-    bound = 1e3 * nbytes / peaks["hbm_bytes_per_s"]
+    whole = timed[f"{STAGE_TIMING[0]}: ring"]
     out = {"farm_stage_kernel": dict(
-        ms=ms, plain_ms=cuda_ms(plain_stage), bound_ms=bound, bound_by="bytes", bytes=nbytes,
-        bound_share=bound / ms, achieved_bytes_per_s=nbytes / (ms / 1e3), library_ms=None,
-        widen_transpose_copy_ms=cuda_ms(widen_transpose),
-        shape=f"chunk ({b}, {n}, {c}) int16, buffers ({capacity}, {lanes}) int32, keep {keep}, "
-              f"consumed {consumed}")}
-    del src, dst, want, chunk
+        ms=whole["ms"], plain_ms=cuda_ms(plain_stage), bound_ms=whole["bound_ms"],
+        bound_by="bytes", bytes=whole["bytes"], bound_share=whole["bound_share"],
+        achieved_bytes_per_s=whole["bytes"] / (whole["ms"] / 1e3), library_ms=None,
+        widen_transpose_copy_ms=cuda_ms(widen_transpose), cases=timed, shape=h["shape"])}
+    del h, headline
 
     n_out = HEADLINE["n_out"]
     emit = rand(n_out, lanes)

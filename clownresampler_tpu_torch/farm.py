@@ -121,8 +121,9 @@ def farm_stage_reference(src, dst, chunk, *, keep: int, consumed: int) -> None:
 
 def farm_stage(src, dst, chunk, *, keep: int, consumed: int) -> None:
     """A farm call's staging, arguments as ``farm_stage_reference``: on a
-    CUDA card one launch of farm_stage_kernel (ops/csrc/farm_kernels.cu), on
-    the CPU the plain version."""
+    CUDA card one launch of farm_stage_kernel (ops/csrc/farm_kernels.cu, on
+    the path ``_build.farm_stage_path`` picks), on the CPU the plain
+    version."""
     if dst.device.type == "cpu":
         return farm_stage_reference(src, dst, chunk, keep=keep, consumed=consumed)
     if dst.device.type != "cuda":
@@ -261,6 +262,9 @@ class FarmProgram:
             self._stage_args = _build.farm_stage_args(
                 self.buffers[0], self.buffers[1], self.chunk, streams=streams,
                 channels=channels, n_in=0, keep=0, consumed=0)
+            # (frames, src, dst) -> crt_farm_stage's arguments with their path
+            # and tile but the rows: a steady call repeats one key.
+            self._stage_calls: dict = {}
             self._calls = {entry: _build.entry_function(entry)
                            for entry in ("crt_farm_stage", "crt_farm_unstage", "crt_farm_copy",
                                          "crt_farm_sync")}
@@ -299,9 +303,15 @@ class FarmProgram:
                 self._call("crt_farm_copy", dict(
                     dst=self.chunk.data_ptr(), src=chunk, nbytes=2 * n * self.lanes,
                     device=self.device.index, stream=stream))
-            self._call("crt_farm_stage", dict(
-                self._stage_args, src=src.data_ptr(), dst=dst.data_ptr(), n_in=n, keep=fill,
-                consumed=self.slide, stream=stream))
+            key = (n, src.data_ptr(), dst.data_ptr())
+            args = self._stage_calls.get(key)
+            if args is None:
+                if len(self._stage_calls) >= 8:
+                    self._stage_calls.clear()
+                args = self._stage_calls[key] = _build.farm_stage_call_args(
+                    self._stage_args, n_in=n, keep=0, consumed=0, src=key[1], dst=key[2])
+            self._call("crt_farm_stage", dict(args, keep=fill, consumed=self.slide,
+                                              stream=stream))
             ROUTES[("farm_stage", "cuda")] += 1
         else:
             farm_stage_reference(src, dst, chunk, keep=fill, consumed=self.slide)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import operator
 import os
 import shutil
@@ -66,7 +67,8 @@ ENTRY_ARGS = {
                        "state_in", "inc_hi", "inc_lo", "n_out", "launches", "launch_step",
                        "produced", "over", "launch_states", "state_out", "device", "stream"),
     "crt_farm_stage": ("src", "dst", "chunk", "streams", "n_in", "channels", "keep", "consumed",
-                       "capacity", "tile_streams", "tile_frames", "vec", "device", "stream"),
+                       "capacity", "tile_streams", "tile_frames", "path", "stages", "slot",
+                       "device", "stream"),
     "crt_farm_unstage": ("src", "dst", "L", "n_out", "stream_lo", "streams", "channels",
                          "out_s16", "words", "tile_streams", "tile_frames", "device", "stream"),
     "crt_farm_copy": ("dst", "src", "nbytes", "device", "stream"),
@@ -514,13 +516,26 @@ def scan_stage(prev, cur, chunk, state_in, cfg, produced, over, launch_states, s
 FARM_TILE_LANES = 128
 FARM_TILE_FRAMES = 32
 FARM_MAX_CHANNELS = 4096
+# farm_stage_kernel's ring (farm_kernels.cu): its stages, a stream's run of a
+# tile (bytes of int16 input, one bulk copy) and a tile's part of a staged row
+# (bytes of int32 output), which chip_scripts/farm_ring_sweep.py measured
+# against others on the H100 (PERF.md); and the bytes of a block's shared
+# memory before its stages, which hold 2 x stages mbarriers (RING_HEADER in
+# the C source), so at most FARM_RING_HEADER // 16 stages.
+FARM_RING = 4
+FARM_RING_RUN_BYTES = 256
+FARM_RING_ROW_BYTES = 256
+FARM_RING_HEADER = 128
+# crt_farm_stage's paths: element by element, 16-byte stores, the ring.
+FARM_STAGE_ELEMENT, FARM_STAGE_VEC, FARM_STAGE_RING = 0, 1, 2
 
 
 def farm_tile(granule: int) -> tuple:
-    """(streams, frames) of one shared-memory tile of the farm kernels, for
-    ``granule`` samples (or words) a stream and frame: an even count of
-    streams of about FARM_TILE_LANES lanes, FARM_TILE_FRAMES frames unless
-    the granule is so wide that two streams pass 2 x FARM_TILE_LANES."""
+    """(streams, frames) of one shared-memory tile of farm_unstage_kernel and
+    of farm_stage_kernel off the ring, for ``granule`` samples (or words) a
+    stream and frame: an even count of streams of about FARM_TILE_LANES
+    lanes, FARM_TILE_FRAMES frames unless the granule is so wide that two
+    streams pass 2 x FARM_TILE_LANES."""
     streams = max(2, FARM_TILE_LANES // granule // 2 * 2)
     width = streams * granule
     frames = (FARM_TILE_FRAMES if width <= 2 * FARM_TILE_LANES
@@ -528,10 +543,70 @@ def farm_tile(granule: int) -> tuple:
     return streams, frames
 
 
+def farm_ring_layout(channels: int, stages: int = FARM_RING, tile: tuple | None = None) -> dict:
+    """crt_farm_stage's ring arguments for ``channels`` channels, which the C
+    entry lays a block's shared memory out by, and the bytes that takes
+    (``shared_bytes``): ``stages`` stages after FARM_RING_HEADER bytes, each
+    a tile of ``tile`` (streams, frames) -- by default an even count of
+    streams whose lanes fill about FARM_RING_ROW_BYTES of a staged row, and
+    the frames of a run of about FARM_RING_RUN_BYTES, whole 16-byte units --,
+    each stream's slot of a stage whole 16-byte units, their count odd, so
+    that neighbouring slots start on different banks."""
+    if tile is None:
+        unit = 8 // math.gcd(channels, 8)          # frames of a multiple of 8 samples
+        tile = (max(2, FARM_RING_ROW_BYTES // (4 * channels) // 2 * 2),
+                max(unit, FARM_RING_RUN_BYTES // (2 * channels) // unit * unit))
+    streams, frames = tile
+    words = -(-frames * channels // 8) * 4
+    slot = words if words // 4 % 2 else words + 4
+    return dict(tile_streams=streams, tile_frames=frames, stages=stages, slot=slot,
+                shared_bytes=FARM_RING_HEADER + stages * streams * slot * 4)
+
+
+def farm_stage_path(*, channels: int, streams: int, n_in: int, chunk_ptr: int, src_ptr: int,
+                    dst_ptr: int) -> int:
+    """The path of a farm_stage launch, from its shapes and addresses: the
+    ring (FARM_STAGE_RING) when every bulk copy and store it makes is 16-byte
+    aligned -- C even, n_in * C a multiple of 8, L = streams * C a multiple
+    of 4, the chunk, src and dst 16-byte aligned --, there are frames and its
+    stages fit in shared memory; else one tile in flight a block with 16-byte
+    stores (FARM_STAGE_VEC) when C is even, L a multiple of 4 and the
+    pointers aligned; else element by element (FARM_STAGE_ELEMENT)."""
+    aligned = (channels % 2 == 0 and streams * channels % 4 == 0 and src_ptr % 16 == 0
+               and dst_ptr % 16 == 0)
+    if (aligned and n_in > 0 and n_in * channels % 8 == 0 and chunk_ptr % 16 == 0
+            and farm_ring_layout(channels)["shared_bytes"] <= MAX_SHARED_BYTES):
+        return FARM_STAGE_RING
+    return FARM_STAGE_VEC if aligned and chunk_ptr % 4 == 0 else FARM_STAGE_ELEMENT
+
+
 def _check_channels(channels: int) -> None:
     if not 0 < channels <= FARM_MAX_CHANNELS:
         raise ValueError(f"the farm kernels take 1 to {FARM_MAX_CHANNELS} channels, "
                          f"got {channels}")
+
+
+def farm_stage_call_args(args: dict, *, n_in: int, keep: int, consumed: int, src: int,
+                         dst: int) -> dict:
+    """crt_farm_stage's arguments for a call on the buffers and chunk that
+    ``args`` were checked for (farm_stage_args), with its rows and buffer
+    addresses, and its path and tile chosen; no tensor is touched. Refuses
+    rows outside the buffers."""
+    channels, capacity = args["channels"], args["capacity"]
+    if (n_in < 0 or keep < 0 or consumed < 0 or keep + n_in > capacity
+            or consumed + keep > capacity or (src == dst and consumed)):
+        raise ValueError(f"bad farm stage: {n_in} frames at row {keep} of {capacity}, "
+                         f"{consumed} rows consumed{' in place' if src == dst else ''}")
+    path = farm_stage_path(channels=channels, streams=args["streams"], n_in=n_in,
+                           chunk_ptr=args["chunk"], src_ptr=src, dst_ptr=dst)
+    if path == FARM_STAGE_RING:
+        layout = farm_ring_layout(channels)
+        del layout["shared_bytes"]
+    else:
+        tile_streams, tile_frames = farm_tile(channels)
+        layout = dict(tile_streams=tile_streams, tile_frames=tile_frames, stages=0, slot=0)
+    return dict(args, src=src, dst=dst, n_in=n_in, keep=keep, consumed=consumed, path=path,
+                **layout)
 
 
 def farm_stage_args(src, dst, chunk, *, streams: int, channels: int, n_in: int, keep: int,
@@ -545,35 +620,27 @@ def farm_stage_args(src, dst, chunk, *, streams: int, channels: int, n_in: int, 
     _check_channels(channels)
     lanes = streams * channels
     _check_tensors(dst, lanes, 0, src=(src, 2))
-    capacity = dst.shape[0]
-    in_place = src.data_ptr() == dst.data_ptr()
-    if (src.shape != dst.shape or dst.shape[1] != lanes or n_in < 0 or keep < 0 or consumed < 0
-            or keep + n_in > capacity or consumed + keep > capacity
-            or (in_place and consumed)):
-        raise ValueError(f"bad farm stage: buffers {tuple(src.shape)} and {tuple(dst.shape)}, "
-                         f"{streams} streams x {channels} channels, {n_in} frames at row "
-                         f"{keep}, {consumed} rows consumed"
-                         f"{' in place' if in_place else ''}")
+    if src.shape != dst.shape or dst.shape[1] != lanes:
+        raise ValueError(f"bad farm stage: buffers {tuple(src.shape)} and {tuple(dst.shape)} "
+                         f"for {streams} streams x {channels} channels")
     if (chunk.device != dst.device or chunk.dtype != torch.int16 or not chunk.is_contiguous()
-            or chunk.numel() < lanes * n_in):
+            or chunk.numel() < lanes * max(n_in, 0)):
         raise ValueError(f"chunk must be contiguous int16 on {dst.device} with at least "
-                         f"{lanes * n_in} elements, got {chunk.dtype} {tuple(chunk.shape)}")
-    tile_streams, tile_frames = farm_tile(channels)
-    vec = int(channels % 2 == 0 and lanes % 4 == 0 and chunk.data_ptr() % 4 == 0
-              and src.data_ptr() % 16 == 0 and dst.data_ptr() % 16 == 0)
-    return dict(src=src.data_ptr(), dst=dst.data_ptr(), chunk=chunk.data_ptr(), streams=streams,
-                n_in=n_in, channels=channels, keep=keep, consumed=consumed, capacity=capacity,
-                tile_streams=tile_streams, tile_frames=tile_frames, vec=vec,
-                device=dst.device.index, stream=_stream(dst))
+                         f"{lanes * max(n_in, 0)} elements, got {chunk.dtype} "
+                         f"{tuple(chunk.shape)}")
+    base = dict(chunk=chunk.data_ptr(), streams=streams, channels=channels,
+                capacity=dst.shape[0], device=dst.device.index, stream=_stream(dst))
+    return farm_stage_call_args(base, n_in=n_in, keep=keep, consumed=consumed,
+                                src=src.data_ptr(), dst=dst.data_ptr())
 
 
 def farm_stage(src, dst, chunk, *, streams: int, channels: int, n_in: int, keep: int,
                consumed: int) -> None:
-    """Launch farm_stage_kernel once: rows [0, keep) of ``dst`` = rows
-    [consumed, consumed + keep) of ``src`` (left where they are when src is
-    dst), rows [keep, keep + n_in) = the (streams, n_in, channels) int16
-    ``chunk`` widened to int32 and transposed to lane-major, every later row
-    zero."""
+    """Launch farm_stage_kernel once, on the path farm_stage_path picks: rows
+    [0, keep) of ``dst`` = rows [consumed, consumed + keep) of ``src`` (left
+    where they are when src is dst), rows [keep, keep + n_in) = the (streams,
+    n_in, channels) int16 ``chunk`` widened to int32 and transposed to
+    lane-major, every later row zero."""
     _launch("crt_farm_stage", farm_stage_args(src, dst, chunk, streams=streams,
                                               channels=channels, n_in=n_in, keep=keep,
                                               consumed=consumed))

@@ -3,10 +3,10 @@
 // Neither has a Pallas counterpart: they replace device code that XLA compiles
 // around the Pallas kernels in the JAX package's farm.
 //
-// farm_stage_kernel is a call's whole staging in one launch
-// (clownresampler_tpu/farm.py:273-304, `_dev_stage`, `_dev_shift` and
-// `_dev_zero_rows`): from the farm's two lane-major (capacity, L) int32
-// staging buffers and a stream-major (B, n, C) int16 chunk on the device,
+// farm_stage_kernel is a call's staging (clownresampler_tpu/farm.py:273-304,
+// `_dev_stage`, `_dev_shift` and `_dev_zero_rows`): from the farm's two
+// lane-major (capacity, L) int32 staging buffers and a stream-major
+// (B, n, C) int16 chunk on the device,
 //  - rows [0, keep) of the destination get rows [consumed, consumed + keep)
 //    of the source: the slide the call before left parked. With nothing
 //    parked the source is the destination (consumed == 0) and the rows stay
@@ -16,12 +16,27 @@
 //  - every row from keep + n to the capacity is zero.
 // The kept rows and the zero tail are flat (whole rows are contiguous). The
 // transpose is a real one: for a fixed stream the chunk is contiguous along
-// (t, c), a staged row along (b, c). A block carries a tile of TB streams x
-// TT frames through shared memory as int16: it reads each stream's run of
-// TT*C samples (coalesced along the run) and writes each frame's TB*C lanes
-// (coalesced along the row, a 16-byte store of 4 lanes a thread). When C is
-// odd, L is no multiple of 4 or a pointer is unaligned, the same tile moves
-// element by element (2-byte loads, 4-byte stores).
+// (t, c), a staged row along (b, c).
+//
+// Two paths, chosen by the host before the launch from the shapes and
+// addresses (ops/_build.py farm_stage_path):
+//  - the ring (farm_stage_kernel<2>): C even, n*C a multiple of 8, L a
+//    multiple of 4, the chunk and the buffers 16-byte aligned. Two
+//    persistent blocks an SM each keep `stages` tiles of TB streams x TT
+//    frames in flight: a producer warp fills the ring's stages with one bulk
+//    TMA copy (cp.async.bulk) a stream, its run of TT*C samples (256 bytes
+//    for stereo: 32 streams x 64 frames), completing on an mbarrier; eight
+//    consumer warps widen and transpose the landed tile and store each
+//    frame's TB*C lanes (256 bytes) with 16-byte streaming stores, then
+//    release the stage. Loads are in flight while a tile is stored: 4 x 8 KB
+//    a block, 8.6 MB over the card. The host passes the stage count, the
+//    tile and each stream's slot in a stage (ops/_build.py
+//    farm_ring_layout, whose values chip_scripts/farm_ring_sweep.py measured
+//    against others on the H100, PERF.md);
+//  - everything else (farm_stage_kernel<1> and <0>): one tile in flight a
+//    block; each stream's run read by a warp, 4-byte loads and 16-byte
+//    stores when C is even, L a multiple of 4 and the pointers aligned,
+//    element by element (2-byte loads, 4-byte stores) otherwise.
 //
 // farm_unstage_kernel is the other end (clownresampler_tpu/farm.py:517-529,
 // the host's de-interleave of the launched lanes): from the launches'
@@ -36,11 +51,13 @@
 // What bounds them on the H100: bytes. At 1024 stereo streams, 48 kHz ->
 // 44.1 kHz (8916-frame chunks, 8192 frames out) the stage reads 36.5 MB and
 // writes 73.0 MB (plus under 1 MB of kept rows and tail), about 0.033 ms at
-// 3.35 TB/s; the unstage reads and writes 67.1 MB each, 0.040 ms.
+// 3.35 TB/s; the unstage reads and writes 67.1 MB each, 0.040 ms. At that
+// rate the card needs megabytes of loads in flight, which one tile a block
+// of 128-byte runs does not give and the ring does.
 //
 // crt_farm_copy and crt_farm_sync are cudaMemcpyAsync and
-// cudaStreamSynchronize on the caller's stream, so that a farm call's upload,
-// download and wait are issued like its launches.
+// cudaStreamSynchronize on the caller's stream, so that a farm call's
+// uploads, download and wait are issued like its launches.
 //
 // Built by ops/_build.py with nvcc into a shared library with a plain C
 // interface, like the MAC kernels' sources; the Python side checks devices,
@@ -54,6 +71,14 @@ namespace {
 
 constexpr int FARM_THREADS = 256;
 constexpr int FARM_WARPS = FARM_THREADS / 32;
+// The ring path: its blocks an SM, its consumer warps and the producer warp
+// beside them, and the bytes of shared memory before its stages, which hold
+// its 2 x stages mbarriers (ops/_build.py FARM_RING_HEADER): at most
+// RING_HEADER / 16 stages.
+constexpr int RING_BLOCKS_PER_SM = 2;
+constexpr int RING_CONSUMERS = 8;
+constexpr int RING_THREADS = (RING_CONSUMERS + 1) * 32;
+constexpr int RING_HEADER = 128;
 
 struct StageParams {
     const int* src;                   // the buffer that holds the rows to keep
@@ -62,14 +87,18 @@ struct StageParams {
     int streams, n_in, channels;      // B, n, C
     int keep, consumed, capacity;     // rows
     int tile_streams, tile_frames;    // TB, TT
-    int row_stride;                   // int16 elements of one stream's row of the tile (even)
+    int row_stride;                   // int16 elements (one tile a block) or words (ring) of
+                                      // one stream's part of a tile in shared memory
+    int stages;                       // the ring's stages
 };
 
-// Flat part: the kept rows and the zero tail, VEC ints at a time.
+// Flat part: the kept rows and the zero tail, VEC ints at a time, by
+// `threads` threads a block (thread `tid`).
 template <int VEC>
-__device__ __forceinline__ void stage_flat(const StageParams& P, long long L) {
-    const long long stride = static_cast<long long>(gridDim.x) * FARM_THREADS;
-    const long long first = static_cast<long long>(blockIdx.x) * FARM_THREADS + threadIdx.x;
+__device__ __forceinline__ void stage_flat(const StageParams& P, int tid, int threads) {
+    const long long L = static_cast<long long>(P.streams) * P.channels;
+    const long long stride = static_cast<long long>(gridDim.x) * threads;
+    const long long first = static_cast<long long>(blockIdx.x) * threads + tid;
     const long long kept = P.src == P.dst ? 0 : P.keep * L / VEC;
     const long long tail0 = (static_cast<long long>(P.keep) + P.n_in) * L / VEC;
     const long long tail = P.capacity * L / VEC - tail0;
@@ -85,16 +114,16 @@ __device__ __forceinline__ void stage_flat(const StageParams& P, long long L) {
     }
 }
 
-// VEC: C is even, L a multiple of 4, TB*C a multiple of 4 and the chunk and
-// dst pointers 4- and 16-byte aligned.
+// One tile in flight a block (FARM_THREADS threads). VEC: C is even, L a
+// multiple of 4, TB*C a multiple of 4 and the chunk and dst pointers 4- and
+// 16-byte aligned.
 template <bool VEC>
-__global__ void __launch_bounds__(FARM_THREADS)
-farm_stage_kernel(const StageParams P) {
+__device__ __forceinline__ void stage_tiles(const StageParams& P) {
     extern __shared__ __align__(16) unsigned char farm_tile[];
     int16_t* tile = reinterpret_cast<int16_t*>(farm_tile);
     const int C = P.channels, n = P.n_in;
     const long long L = static_cast<long long>(P.streams) * C;
-    stage_flat<VEC ? 4 : 1>(P, L);
+    stage_flat<VEC ? 4 : 1>(P, threadIdx.x, FARM_THREADS);
 
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int TB = P.tile_streams, TT = P.tile_frames;
@@ -144,6 +173,155 @@ farm_stage_kernel(const StageParams P) {
             }
         }
         __syncthreads();
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The ring: mbarriers and bulk TMA copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(shared_address(bar)), "r"(count) : "memory");
+}
+
+// One arrival that also expects `bytes` of copies to complete on the barrier.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, unsigned bytes) {
+    asm volatile("{\n .reg .b64 state;\n"
+                 " mbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n"
+                 :: "r"(shared_address(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+                 :: "r"(shared_address(bar)) : "memory");
+}
+
+// Spin until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    const unsigned addr = shared_address(bar);
+    unsigned done = 0;
+    while (!done) {
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     " selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    }
+}
+
+// Bulk TMA copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+                 "[%0], [%1], %2, [%3];\n"
+                 :: "r"(shared_address(dst)), "l"(src), "r"(bytes), "r"(shared_address(bar))
+                 : "memory");
+}
+
+__device__ __forceinline__ int low_sample(int word) {
+    return static_cast<int16_t>(word & 0xFFFF);
+}
+
+__device__ __forceinline__ int high_sample(int word) { return word >> 16; }
+
+// The ring path (C even; n*C a multiple of 8; the chunk, src and dst 16-byte
+// aligned; L a multiple of 4; TB even, TT*C a multiple of 8). Block b takes
+// tiles b, b + grid, ...; its k-th tile goes through stage k % stages. Stream
+// i of a tile lands at word i*S of its stage (S = row_stride, a multiple of 4
+// words), its run of tv*C samples contiguous, so a stream's run is one bulk
+// copy. RING_THREADS threads.
+__device__ __forceinline__ void stage_ring(const StageParams& P) {
+    extern __shared__ __align__(128) unsigned char farm_ring[];
+    const int ring = P.stages;
+    uint64_t* full = reinterpret_cast<uint64_t*>(farm_ring);
+    uint64_t* empty = full + ring;
+    int* stages = reinterpret_cast<int*>(farm_ring + RING_HEADER);
+    const int C = P.channels, n = P.n_in, S = P.row_stride;
+    const int TB = P.tile_streams, TT = P.tile_frames;
+    const int stage_words = TB * S;
+    const int frame_tiles = (n + TT - 1) / TT;
+    const int tiles = (P.streams + TB - 1) / TB * frame_tiles;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < ring; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, RING_CONSUMERS);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (warp == RING_CONSUMERS) {
+        // Producer: wait for the stage to be released (the first round passes),
+        // expect the tile's bytes, copy each stream's run.
+        int k = 0;
+        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++k) {
+            const int s = k % ring;
+            mbar_wait(empty + s, ((k / ring) & 1) ^ 1);
+            const int b0 = tile / frame_tiles * TB, t0 = tile % frame_tiles * TT;
+            const int sv = min(TB, P.streams - b0), tv = min(TT, n - t0);
+            const unsigned run_bytes = 2u * tv * C;
+            if (lane == 0) mbar_arrive_expect(full + s, run_bytes * sv);
+            __syncwarp();
+            for (int i = lane; i < sv; i += 32) {
+                bulk_load(stages + s * stage_words + i * S,
+                          P.chunk + (static_cast<long long>(b0 + i) * n + t0) * C, run_bytes,
+                          full + s);
+            }
+        }
+        return;
+    }
+
+    stage_flat<4>(P, threadIdx.x, RING_CONSUMERS * 32);
+    const long long L = static_cast<long long>(P.streams) * C;
+    int k = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++k) {
+        const int s = k % ring;
+        mbar_wait(full + s, (k / ring) & 1);
+        const int b0 = tile / frame_tiles * TB, t0 = tile % frame_tiles * TT;
+        const int sv = min(TB, P.streams - b0), tv = min(TT, n - t0);
+        const int width = sv * C;                     // even
+        const int quads = (width + 3) / 4;
+        const int* stage = stages + s * stage_words;
+        int* out = P.dst + (static_cast<long long>(P.keep) + t0) * L +
+                   static_cast<long long>(b0) * C;
+        // Item j: lanes [4q, 4q + 4) of the tile's part of frame t's row,
+        // two words of the stage (each two channels of one stream).
+        for (int j = threadIdx.x; j < quads * tv; j += RING_CONSUMERS * 32) {
+            const int q = j % quads, t = j / quads;
+            const int l = 4 * q;
+            const int w0 = stage[l / C * S + (t * C + l % C) / 2];
+            int* o = out + t * L + l;
+            if (l + 2 < width) {
+                const int w1 = stage[(l + 2) / C * S + (t * C + (l + 2) % C) / 2];
+                __stcs(reinterpret_cast<int4*>(o), make_int4(low_sample(w0), high_sample(w0),
+                                                             low_sample(w1), high_sample(w1)));
+            } else {
+                __stcs(reinterpret_cast<int2*>(o), make_int2(low_sample(w0), high_sample(w0)));
+            }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+    }
+}
+
+// farm_stage_kernel<PATH>: FARM_STAGE_RING (2) the ring, 1 and 0 one tile in
+// flight a block with 16-byte stores or element by element.
+constexpr int FARM_STAGE_RING = 2;
+
+template <int PATH>
+__global__ void __launch_bounds__(PATH == FARM_STAGE_RING ? RING_THREADS : FARM_THREADS,
+                                  PATH == FARM_STAGE_RING ? RING_BLOCKS_PER_SM : 4)
+farm_stage_kernel(const StageParams P) {
+    if constexpr (PATH == FARM_STAGE_RING) {
+        stage_ring(P);
+    } else {
+        stage_tiles<PATH == 1>(P);
     }
 }
 
@@ -216,20 +394,41 @@ int farm_grid(PersistentGrid& cache, Kernel kernel, int smem, int device, long l
     return 0;
 }
 
-template <bool VEC>
-int launch_farm_stage(const StageParams& P, int smem, int device, cudaStream_t stream) {
-    static PersistentGrid cache;
-    const long long L = static_cast<long long>(P.streams) * P.channels;
+// Blocks for the chunk's tiles, or for its flat part at `threads` threads a
+// block and VEC ints a thread, whichever wants more.
+template <int VEC>
+long long stage_blocks(const StageParams& P, int threads) {
     const long long tiles = static_cast<long long>((P.streams + P.tile_streams - 1) /
                                                    P.tile_streams) *
                             ((P.n_in + P.tile_frames - 1) / P.tile_frames);
-    const long long flat = ((P.src == P.dst ? 0 : P.keep) +
-                            (P.capacity - P.keep - P.n_in)) * L / (VEC ? 4 : 1);
+    const long long flat = ((P.src == P.dst ? 0 : P.keep) + (P.capacity - P.keep - P.n_in)) *
+                           static_cast<long long>(P.streams) * P.channels / VEC;
+    return std::max(tiles, (flat + threads - 1) / threads);
+}
+
+template <int PATH>
+int launch_farm_stage(const StageParams& P, int smem, int device, cudaStream_t stream) {
+    static PersistentGrid cache;
     int grid = 0;
-    const int err = farm_grid(cache, farm_stage_kernel<VEC>, smem, device,
-                              std::max(tiles, (flat + FARM_THREADS - 1) / FARM_THREADS), &grid);
+    const int err = farm_grid(cache, farm_stage_kernel<PATH>, smem, device,
+                              stage_blocks<PATH == 1 ? 4 : 1>(P, FARM_THREADS), &grid);
     if (err != 0) return err;
-    farm_stage_kernel<VEC><<<grid, FARM_THREADS, smem, stream>>>(P);
+    farm_stage_kernel<PATH><<<grid, FARM_THREADS, smem, stream>>>(P);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// RING_BLOCKS_PER_SM blocks an SM at most: each keeps its own ring full. A
+// block with no tile writes its share of the flat part only.
+int launch_farm_stage_ring(const StageParams& P, int smem, int device, cudaStream_t stream) {
+    static PersistentGrid cache;
+    int fits = 0;
+    const int err = persistent_grid(cache, farm_stage_kernel<FARM_STAGE_RING>, RING_THREADS,
+                                    smem, device, &fits);
+    if (err != 0) return err;
+    const int most = std::min(fits, RING_BLOCKS_PER_SM * cache.sms[device]);
+    const int grid = static_cast<int>(std::max<long long>(
+        1, std::min<long long>(stage_blocks<4>(P, RING_CONSUMERS * 32), most)));
+    farm_stage_kernel<FARM_STAGE_RING><<<grid, RING_THREADS, smem, stream>>>(P);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -253,22 +452,35 @@ extern "C" {
 // One farm call's staging. src and dst are the farm's (capacity, streams *
 // channels) int32 buffers (dst written; src read unless it is dst), chunk the
 // call's (streams, n_in, channels) int16 input on the device (unread when
-// n_in is 0). Tiles hold tile_streams x tile_frames samples. Returns a
-// cudaError_t.
+// n_in is 0). Tiles hold tile_streams x tile_frames samples. path: 2 the ring
+// (its conditions checked by the caller), with `stages` stages whose slot for
+// one stream is `slot` words (a multiple of 4, at least tile_frames *
+// channels / 2); 1 one tile a block with 16-byte stores; 0 element by
+// element. Returns a cudaError_t.
 int crt_farm_stage(const int* src, int* dst, const void* chunk, int streams, int n_in,
                    int channels, int keep, int consumed, int capacity, int tile_streams,
-                   int tile_frames, int vec, int device, void* stream) {
+                   int tile_frames, int path, int stages, int slot, int device, void* stream) {
     const DeviceGuard guard(device);
     if (guard.err != 0) return guard.err;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    StageParams P{src, dst, static_cast<const int16_t*>(chunk), streams, n_in, channels, keep,
+                  consumed, capacity, tile_streams, tile_frames, 0, stages};
+    if (path == FARM_STAGE_RING) {
+        if (stages < 1 || 16 * stages > RING_HEADER || slot % 4 != 0 ||
+            2 * slot < tile_frames * channels) {
+            return static_cast<int>(cudaErrorInvalidValue);
+        }
+        P.row_stride = slot;
+        const int smem = RING_HEADER + stages * tile_streams * slot *
+                                           static_cast<int>(sizeof(int));
+        return launch_farm_stage_ring(P, smem, device, s);
+    }
     // An even row stride whose half is odd: rows 4 bytes aligned, and the
     // store phase's reads of consecutive streams on different banks.
-    const int row_stride = 2 * ((tile_frames * channels + 1) / 2 | 1);
-    const StageParams P{src, dst, static_cast<const int16_t*>(chunk), streams, n_in, channels,
-                        keep, consumed, capacity, tile_streams, tile_frames, row_stride};
-    const int smem = tile_streams * row_stride * static_cast<int>(sizeof(int16_t));
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    return vec ? launch_farm_stage<true>(P, smem, device, s)
-               : launch_farm_stage<false>(P, smem, device, s);
+    P.row_stride = 2 * ((tile_frames * channels + 1) / 2 | 1);
+    const int smem = tile_streams * P.row_stride * static_cast<int>(sizeof(int16_t));
+    return path ? launch_farm_stage<1>(P, smem, device, s)
+                : launch_farm_stage<0>(P, smem, device, s);
 }
 
 // One farm call's de-interleave: streams [stream_lo, stream_lo + streams) of

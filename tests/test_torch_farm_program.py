@@ -220,7 +220,8 @@ def _tensor(ptr, shape, dtype=np.int32):
 
 
 def _stage_stand_in(calls):
-    """crt_farm_stage over the same pointers, in numpy."""
+    """crt_farm_stage over the same pointers, in numpy; the path and the
+    tile are the launcher's rule's."""
     def entry(*args):
         a = dict(zip(_build.ENTRY_ARGS["crt_farm_stage"], args))
         calls.append(("crt_farm_stage", a))
@@ -228,6 +229,14 @@ def _stage_stand_in(calls):
         shape = (a["capacity"], b * c)
         dst = _view(a["dst"], shape)
         assert a["tile_streams"] % 2 == 0 and a["tile_frames"] >= 1
+        assert a["path"] == _build.farm_stage_path(
+            channels=c, streams=b, n_in=n, chunk_ptr=a["chunk"], src_ptr=a["src"],
+            dst_ptr=a["dst"])
+        if a["path"] == _build.FARM_STAGE_RING:
+            layout = _build.farm_ring_layout(c)
+            assert all(a[k] == layout[k] for k in ("tile_streams", "tile_frames", "stages", "slot"))
+        else:
+            assert (a["tile_streams"], a["tile_frames"]) == _build.farm_tile(c)
         if a["src"] != a["dst"]:
             dst[:keep] = _view(a["src"], shape)[a["consumed"] : a["consumed"] + keep]
         else:
@@ -368,7 +377,7 @@ def test_torch_farm_program_argument_flow(card, engine, clamp):
     emits = sum(1 for o in got if o.shape[1])
     assert rs.ROUTES == {("farm_stage", "cuda"): len(chunks) + 1,
                          ("farm_unstage", "cuda"): emits, (engine, "cuda"): emits}
-    assert {a["vec"] for name, a in card if name == "crt_farm_stage"} == {0}   # 10 lanes
+    assert {a["path"] for name, a in card if name == "crt_farm_stage"} == {0}   # 10 lanes
     assert {a["stream"] for _, a in card} == {77}
 
 
@@ -448,7 +457,9 @@ def test_torch_farm_program_matches_jax_farm(card):
     farm = UniformStreamFarm(64, 2, 48000, 44100, chunk_frames=256, device="cpu",
                              device_staging=True)
     _same(_run(farm, chunks), want, "jax")
-    assert {a["vec"] for name, a in card if name == "crt_farm_stage"} == {1}   # 128 lanes
+    # 128 lanes: the ring where there are frames, 16-byte stores for the flush
+    assert {(a["path"], a["n_in"] > 0) for name, a in card if name == "crt_farm_stage"} == {
+        (_build.FARM_STAGE_RING, True), (_build.FARM_STAGE_VEC, False)}
 
 
 def test_torch_farm_program_converts_chunks_as_ascontiguousarray(card):
@@ -764,7 +775,7 @@ def test_torch_farm_launchers_refuse_what_the_kernels_cannot_take():
         mp.setattr(_build, "_check_cuda", lambda x: None)
         mp.setattr(_build, "_stream", lambda x: 0)
         args = _build.farm_stage_args(src, dst, chunk, **kw)
-        assert (args["capacity"], args["vec"], args["tile_streams"]) == (40, 1, 64)
+        assert (args["capacity"], args["path"], args["tile_streams"]) == (40, 1, 64)
         assert _build.farm_stage_args(src, src, chunk, **dict(kw, consumed=0))["src"] == args["src"]
         for bad in (dict(kw, consumed=2, keep=39), dict(kw, keep=35), dict(kw, streams=3),
                     dict(kw, n_in=-1)):
