@@ -13,29 +13,34 @@ the wide-kernel paths (44.1 kHz -> 132 Hz, and general ratios of 272 and
 8 kHz) and the scans of the other three engines, each one device program
 (a scan_stage_kernel launch and the engine's launches a step) run with no
 host sync, farm checkpoints restored on the card,
-and the CLI on the card -- then, with the launch counts reset, the sharded
+the CLI on the card, and config 5's fleet (1024 stereo streams, 8192 input
+and 16,384 output frames each) as one resample_batch call, one
+batch_mac_kernel launch -- then, with the launch counts reset, the sharded
 paths on a mesh of four dp shards over the machine's cards in turn (one
 card: four shards of it, each on its own CUDA stream): the headline farm,
 the config-5 mixed farm with its per-stream adjust and the 44.1 kHz -> 132 Hz
-farm as sharded farms, the lane-sharded tiled entry, the sharded batch on a
+farm as sharded farms, the lane-sharded tiled entry, the fleet's batch on a
 (dp=2, sp=4) mesh, a sharded farm's checkpoint restored onto the mesh and
 onto the card, and the multichip example as a subprocess. It checks that
 every launch of those paths took a CUDA kernel, checks their outputs against
-the gather oracle, the plain scan (every lane) and the oracle scan, CPU
-replays and a golden md5, and every
+the gather oracle, the plain scan (every lane), the oracle scan and the
+fleet's plain version, CPU replays and a golden md5, and every
 stream of every sharded path against its unsharded counterpart; times the
 kernels beside their bounds, the farms (sharded beside unsharded, each call
 split into staging, launch and copy out, the caller dropping each output),
 the pinned copy rates and the ways a result may reach the caller, the
-batched resample_batch beside a per-stream loop, the output de-interleave
+fleet's resample_batch beside its plain version and its bound, batched
+beside sharded and (at a quarter of the streams and an eighth of the
+frames) beside a per-stream loop, the output de-interleave
 three ways, and the scan (ms a chunk, the host's time to issue a step,
 scan_stage_kernel beside its bound); shows by torch.profiler that each
 engine's step loop runs no aten op, allocates nothing and puts exactly its
 kernels on the card, and that a steady farm call (unsharded, sharded, mixed)
 runs no aten op and puts on the card one upload, one farm_stage_kernel, the
 engine's kernels, one farm_unstage_kernel and one download a program; counts
-the device launches of one tiled, general, strided and wide entry call (one,
-one, one and two: each entry computes its own launch geometry), and prints
+the device launches of one tiled, general, strided, wide and batch entry
+call (one, one, one, two and one: each entry computes its own launch
+geometry), and prints
 one line per phase. It runs in about a minute of command time on an H100.
 Its last line is
 
@@ -340,6 +345,52 @@ SHARDED_WIDE_CHUNKS = 2
 # inside the first, one on the first frame of the second, and zero.
 BATCH = dict(streams=256, channels=2, n_in=1024, n_out=8192, mesh=(2, 4),
              quotas=(10**6, 3000, 6146, 500, 2049, 0))
+# Config 5's fleet as one resample_batch call, the way a caller with every
+# stream's chunk in hand makes it: 1024 stereo streams, 256 on each of
+# MIXED's four ratios, 8192 input frames (config 5's chunk) under MIXED's
+# radius-17 reserve (40 taps), 16,384 output frames (MAX_CHUNK_OUTPUT_FRAMES:
+# the 8 kHz -> 48 kHz streams end output-full), BATCH's quotas dealt as
+# there; unsharded (main path) and on a BATCH["mesh"] mesh (sharded paths).
+FLEET = dict(BATCH, streams=1024, n_in=8192, n_out=16384, replay=(0, 1, 2, 3, 6, 517, 1022))
+# batch_mac_kernel (resample_streams) against its plain version: (label,
+# spec). Streams take spec["rates"], ["starts"] (p0, f0), ["quotas"] and
+# ["totals"] (default n_in) in turn; max_taps defaults to the widest
+# stream's; two_d: one stream as a 2-D (S, C) call with ints and 0-dim
+# leaves (as resample_scan makes it); view: every other stream of a taller
+# buffer (a stride between streams that is not S x C); shard: issued on a
+# side CUDA stream, as a mesh shard's launch is.
+MIXED4 = list(MIXED["groups"])
+BATCH_CASES = (
+    ("2-D C=1 48k->44.1k p0=3", dict(rates=[(48000, 44100)], streams=1, channels=1, n_in=1024,
+                                     n_out=2048, two_d=True, starts=[(3, 0x1234)])),
+    ("2-D C=2 8k->48k output-full", dict(rates=[(8000, 48000)], streams=1, channels=2,
+                                         n_in=1024, n_out=4096, two_d=True)),
+    ("2-D C=3 int32 44.1k->8k", dict(rates=[(44100, 8000)], streams=1, channels=3, n_in=2048,
+                                     n_out=512, two_d=True, dtype="int32", starts=[(1, 7)])),
+    ("2-D C=2048 44.1k->8k (an oracle-scan step)", dict(
+        rates=[(44100, 8000)], streams=1, channels=2048, n_in=512, n_out=128, two_d=True,
+        starts=[(17, 0x2345)])),
+    ("2-D C=2048 int32 96k->48k quota 100", dict(
+        rates=[(96000, 48000)], streams=1, channels=2048, n_in=512, n_out=256, two_d=True,
+        dtype="int32", quotas=[100])),
+    ("B=20 C=2 four classes + 44.1k->132 (2008 taps)", dict(
+        rates=MIXED4 + [(44100, 132)], streams=20, channels=2, n_in=4096, n_out=1024,
+        quotas=[10**6, 0, 300, 1000, 10**6, 1023, 10**6], starts=[(0, 0), (5, 0x8001), (2, 3)])),
+    ("B=64 C=2 int32 quotas 0 and mid-tile", dict(
+        rates=MIXED4, streams=64, channels=2, n_in=2048, n_out=4096, dtype="int32",
+        quotas=[0, 300, 513, 10**6, 2049, 511])),
+    ("B=12 C=3 a short exhausted stream", dict(
+        rates=MIXED4 + [(44100, 8000)], streams=12, channels=3, n_in=1024, n_out=2048,
+        totals=[1024, 1024, 20, 1024, 1000], starts=[(0, 0), (7, 65535)])),
+    ("B=8 C=1 general and strided", dict(
+        rates=[(44100, 8000), (96000, 48000), (48000, 8000), (44100, 1000)], streams=8,
+        channels=1, n_in=2048, n_out=1024, quotas=[10**6, 37])),
+    ("B=16 C=2 view of a taller buffer", dict(
+        rates=MIXED4, streams=16, channels=2, n_in=1024, n_out=2048, view=True)),
+    ("shard: B=32 C=2 on a side stream", dict(
+        rates=MIXED4, streams=32, channels=2, n_in=1024, n_out=8192, shard=True,
+        quotas=list(BATCH["quotas"]))),
+)
 CLI_RATES = (44100, 8000)   # the golden 470b79...: the fixture PCM is 44.1 kHz stereo
 DEVICE = "cuda"
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): HBM bytes/s, and int32 lanes per SM per clock on the CUDA cores
@@ -370,6 +421,11 @@ KERNELS = {  # name -> (ROUTES kind, source, TPU kernels it replaces)
                           "clownresampler_tpu/farm.py:298"),
     "farm_unstage_kernel": ("farm_unstage", CSRC + "farm_kernels.cu",
                             "clownresampler_tpu/farm.py:517"),
+    # No Pallas kernel: the chunk call XLA compiles under jax.vmap and shard_map
+    # (resample_chunk and its gather convolve_frames).
+    "batch_mac_kernel": ("batch", CSRC + "batch_kernels.cu",
+                         "clownresampler_tpu/lowlevel.py:94, "
+                         "clownresampler_tpu/ops/convolve.py:80"),
 }
 # The kernels the sharded paths launch (they run no scan).
 SHARDED_KERNELS = tuple(name for name in KERNELS if name != "scan_stage_kernel")
@@ -656,6 +712,60 @@ def run_farm_unstage_case(case, gen) -> int:
     return int((got.to(dev).long() - want.long()).abs().max())
 
 
+def batch_case_inputs(spec: dict, gen) -> tuple:
+    """(table, x, totals, state, quota, kw) of a BATCH_CASES entry on the
+    card: random samples in every row (exactness needs no zero padding),
+    the per-stream leaves as device tensors (ints and 0-dim leaves for a
+    2-D call)."""
+    from clownresampler_tpu_torch import fixedpoint as fx
+    from clownresampler_tpu_torch.batch import stack_states
+    from clownresampler_tpu_torch.configure import configure
+    from clownresampler_tpu_torch.lowlevel import make_device_state
+    from clownresampler_tpu_torch.models import DEFAULT_MODEL, table_tensor
+
+    dev = torch.device(DEVICE)
+    b, c, view = spec["streams"], spec["channels"], spec.get("view", False)
+    turn = lambda key, default: [spec.get(key, default)[i % len(spec.get(key, default))]
+                                 for i in range(b)]
+    cfgs = [(configure(a, o, max(a, o)), fx.calculate_ratio(a, o))
+            for a, o in turn("rates", None)]
+    r_max = max(cfg.integer_stretched_kernel_radius for cfg, _ in cfgs)
+    taps = spec.get("max_taps") or fx.round_up(2 * r_max, 8)
+    s = spec["n_in"] + 2 * r_max
+    x = torch.randint(-32768, 32768, ((2 if view else 1) * b, s + (5 if view else 0), c),
+                      generator=gen, dtype=getattr(torch, spec.get("dtype", "int16")),
+                      device=dev)
+    if view:
+        x = x[::2, 3 : 3 + s]
+    states = [make_device_state(p0, f0, cfg, inc, dev)
+              for (cfg, inc), (p0, f0) in zip(cfgs, turn("starts", [(0, 0)]))]
+    totals, quotas = turn("totals", [spec["n_in"]]), turn("quotas", [10**6])
+    kw = dict(max_taps=taps, n_out=spec["n_out"])
+    table = table_tensor(DEFAULT_MODEL.table(), dev)
+    if spec.get("two_d"):
+        return table, x[0], totals[0], states[0], quotas[0], kw
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    return table, x, i32(totals), stack_states(states), i32(quotas), kw
+
+
+def run_batch_case(case, gen) -> int:
+    """One BATCH_CASES launch of batch_mac_kernel (resample_streams) against
+    lowlevel.resample_chunk_reference on the same inputs: every leaf exact.
+    Returns the output's max abs error (0)."""
+    from clownresampler_tpu_torch.lowlevel import resample_chunk_reference
+    from clownresampler_tpu_torch.ops import resample as rs
+
+    label, spec = case
+    table, x, totals, state, quota, kw = batch_case_inputs(spec, gen)
+    with shard_stream((None,) * 4 + (spec,)):
+        got = rs.resample_streams(table, x, totals, state, quota, **kw)
+    want = resample_chunk_reference(table, x, totals, state, quota, **kw)
+    for i, (g, w) in enumerate(zip(_batch_leaves(got), _batch_leaves(want))):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"batch_mac_kernel != plain version at {label}, leaf {i}")
+    return int((got[0].long() - want[0].long()).abs().max())
+
+
 def _compare(results, kernel, name, got, want, rows=None, rows_ref=None):
     err = (got.long() - want.long()).abs().max().item()
     if err or got.dtype != want.dtype or got.shape != want.shape or (
@@ -687,6 +797,8 @@ def check_kernels(gen) -> dict:
         raise AssertionError(f"FARM_STAGE_CASES took the paths {paths}, not all three")
     for case in FARM_UNSTAGE_CASES:
         results["farm_unstage_kernel"].append((case[0], run_farm_unstage_case(case, gen)))
+    for case in BATCH_CASES:
+        results["batch_mac_kernel"].append((case[0], run_batch_case(case, gen)))
     torch.cuda.synchronize()
     return results
 
@@ -847,21 +959,25 @@ def time_kernels(gen) -> dict:
 # whole of the entry's device work (no precompute, no copy).
 ENTRY_KERNELS = {"tiled": ("tiled_mac_kernel",), "general": ("tiled_mac_kernel",),
                  "strided": ("strided_mac_kernel",),
-                 "wide": ("wide_mac_kernel", "wide_fold_kernel")}
+                 "wide": ("wide_mac_kernel", "wide_fold_kernel"),
+                 "batch": ("batch_mac_kernel",)}
 
 
 def count_entry_launches(gen) -> dict:
     """The device activities of one call of the tiled, general, strided and
-    wide entries at their timed launches (torch.profiler): exactly their
-    kernels (ENTRY_KERNELS), one for tiled, general and strided, two for
-    wide, and their device time. A count that is off is taken again (the
-    profiler now and then loses a record), up to three times."""
+    wide entries at their timed launches and of resample_batch at BATCH
+    (torch.profiler): exactly their kernels (ENTRY_KERNELS), one for tiled,
+    general, strided and batch, two for wide, and their device time. A
+    count that is off is taken again (the profiler now and then loses a
+    record), up to three times."""
+    from clownresampler_tpu_torch.batch import resample_batch
     from clownresampler_tpu_torch.ops import resample as rs
 
     c = launch_case(*HEADLINE["rates"], HEADLINE["lanes"], HEADLINE["n_out"], gen)
     g = launch_case(44100, 8000, 2048, 4096, gen)
     s = launch_case(*STRIDED_FARM["rates"], 2048, HEADLINE["n_out"], gen)
     w = launch_case(44100, 132, 1024, 64, gen, f0=0x4321)
+    b = batch_case(np.random.default_rng(SEED))
     calls = {
         "tiled": lambda: rs.resample_uniform_lanes_tiled(
             c["table"], c["x"], c["state"], max_taps=c["max_taps"], n_out=c["n_out"],
@@ -874,6 +990,7 @@ def count_entry_launches(gen) -> dict:
         "wide": lambda: rs.resample_wide_taps(
             w["table"], w["x"], w["state"], max_taps=w["max_taps"], n_out=w["n_out"], d=w["d"],
             table_strided=w["table_strided"]),
+        "batch": lambda: resample_batch(*b["args"], **b["kw"]),
     }
     res = {}
     for kind, fn in calls.items():
@@ -1528,31 +1645,81 @@ def check_checkpoints(res: dict) -> dict:
                 mixed_groups=res["groups"], mixed_card_to_card_exact=True)
 
 
-def batch_case(rng) -> dict:
-    """BATCH's inputs on the card: stream i at config 5's ratio i % 4 with
-    quota (i // 4) % 6 of BATCH["quotas"], its n_in random frames padded by
-    MIXED's radius reserve on both sides."""
+def batch_case(rng, spec: dict = BATCH) -> dict:
+    """``spec``'s (BATCH's or FLEET's) inputs on the card: stream i at config
+    5's ratio i % 4 with quota (i // 4) % 6 of spec["quotas"], its n_in
+    random frames padded by MIXED's radius reserve on both sides; ``buf``
+    the input in host memory, ``rates`` each stream's ratio."""
     from clownresampler_tpu_torch import fixedpoint as fx
     from clownresampler_tpu_torch.batch import make_batch_state
     from clownresampler_tpu_torch.configure import configure
     from clownresampler_tpu_torch.models import DEFAULT_MODEL, table_tensor
 
-    b, r_max = BATCH, MIXED["max_radius"]
+    r_max = MIXED["max_radius"]
     dev = torch.device(DEVICE)
-    cfgs = []
-    buf = np.zeros((b["streams"], b["n_in"] + 2 * r_max, b["channels"]), np.int16)
-    for i in range(b["streams"]):
-        rates = MIXED["groups"][i % len(MIXED["groups"])]
-        cfg = configure(*rates, max(rates))
-        cfgs.append((cfg, fx.calculate_ratio(*rates)))
+    cfgs, rates = [], []
+    buf = np.zeros((spec["streams"], spec["n_in"] + 2 * r_max, spec["channels"]), np.int16)
+    for i in range(spec["streams"]):
+        rates.append(MIXED["groups"][i % len(MIXED["groups"])])
+        cfg = configure(*rates[-1], max(rates[-1]))
+        cfgs.append((cfg, fx.calculate_ratio(*rates[-1])))
         r = cfg.integer_stretched_kernel_radius
-        buf[i, r : r + b["n_in"]] = rng.integers(-32768, 32768, size=(b["n_in"], b["channels"]))
-    quotas = [b["quotas"][(i // 4) % len(b["quotas"])] for i in range(b["streams"])]
+        buf[i, r : r + spec["n_in"]] = rng.integers(-32768, 32768,
+                                                    size=(spec["n_in"], spec["channels"]))
+    quotas = [spec["quotas"][(i // 4) % len(spec["quotas"])] for i in range(spec["streams"])]
     args = (table_tensor(DEFAULT_MODEL.table(), dev), torch.from_numpy(buf).to(dev),
-            torch.full((b["streams"],), b["n_in"], dtype=torch.int32, device=dev),
+            torch.full((spec["streams"],), spec["n_in"], dtype=torch.int32, device=dev),
             make_batch_state(cfgs, device=dev),
             torch.tensor(quotas, dtype=torch.int32, device=dev))
-    return dict(args=args, kw=dict(max_taps=fx.round_up(2 * r_max, 8), n_out=b["n_out"]))
+    return dict(args=args, kw=dict(max_taps=fx.round_up(2 * r_max, 8), n_out=spec["n_out"]),
+                buf=buf, rates=rates, quotas=quotas)
+
+
+def run_fleet_batch(rng) -> dict:
+    """Config 5's fleet (FLEET) as one resample_batch call (main path)."""
+    from clownresampler_tpu_torch.batch import resample_batch
+
+    case = batch_case(rng, FLEET)
+    return dict(case=case, out=resample_batch(*case["args"], **case["kw"]))
+
+
+def check_fleet_batch(res: dict) -> dict:
+    """The fleet's call against its plain version on the card (every leaf,
+    exact) and FLEET["replay"]'s streams against a CPU LowLevelResampler
+    replay of the same chunk and quota (frames, produced, consumed, state,
+    exhausted)."""
+    import clownresampler_tpu_torch as crt
+    from clownresampler_tpu_torch.batch import resample_batch_reference
+
+    case, got = res["case"], res["out"]
+    want = resample_batch_reference(*case["args"], **case["kw"])
+    for i, (g, w) in enumerate(zip(_batch_leaves(got), _batch_leaves(want))):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"resample_batch != its plain version on the fleet, leaf {i}")
+    del want
+    out = got[0]
+    produced, consumed, exhausted = (v.cpu().numpy() for v in (got[1], got[2], got[4]))
+    positions = [v.cpu().numpy() for v in (got[3].position_integer, got[3].position_fractional)]
+    n_in, n_out = FLEET["n_in"], FLEET["n_out"]
+    for i in FLEET["replay"]:
+        ll = crt.LowLevelResampler.init(FLEET["channels"], *case["rates"][i],
+                                        max(case["rates"][i]), device="cpu")
+        done, remaining, frames = ll.resample(case["buf"][i], n_in,
+                                              output_limit=min(case["quotas"][i], n_out))
+        k = frames.shape[0]
+        stream = out[i].cpu().numpy()
+        if (k != produced[i] or not np.array_equal(stream[:k], frames) or stream[k:].any()
+                or n_in - remaining != consumed[i] or done != bool(exhausted[i])
+                or (ll.position_integer, ll.position_fractional)
+                != (positions[0][i], positions[1][i])):
+            raise AssertionError(f"fleet stream {i} != its CPU LowLevelResampler replay")
+    return dict(streams=FLEET["streams"], channels=FLEET["channels"], n_in=n_in, n_out=n_out,
+                taps=case["kw"]["max_taps"], tolerance="exact equality, every leaf",
+                plain_version_exact=True, replayed_streams_exact=list(FLEET["replay"]),
+                produced_min_max=[int(produced.min()), int(produced.max())],
+                output_full_streams=int((produced == n_out).sum()),
+                exhausted=int(exhausted.sum()), input_mb=case["buf"].nbytes / 1e6,
+                output_mb=out.numel() * 4 / 1e6)
 
 
 def looped_resample_batch(table, inputs, totals, states, quotas, *, max_taps, n_out):
@@ -1591,13 +1758,15 @@ def run_example() -> dict:
     return dict(seconds=time.perf_counter() - t0, printed=proc.stdout.strip().splitlines())
 
 
-def run_sharded_paths(rng, gen, farm: dict, mixed: dict, checkpoints: dict) -> dict:
+def run_sharded_paths(rng, gen, farm: dict, mixed: dict, checkpoints: dict,
+                      fleet: dict) -> dict:
     """The sharded paths (main path of parallel/) on shard_mesh(): the
     headline farm and config 5 on the unsharded runs' chunks, the 44.1k ->
-    132 farm, the lane-sharded tiled entry at HEADLINE, the sharded batch on
-    a BATCH["mesh"] mesh, the headline farm saved after CKPT["saved_after"]
-    chunks and restored onto the mesh and onto the card (all three
-    continued, on the unsharded checkpoint run's chunks), and the example."""
+    132 farm, the lane-sharded tiled entry at HEADLINE, the fleet batch
+    (FLEET, on the unsharded call's inputs) on a FLEET["mesh"] mesh, the
+    headline farm saved after CKPT["saved_after"] chunks and restored onto
+    the mesh and onto the card (all three continued, on the unsharded
+    checkpoint run's chunks), and the example."""
     from clownresampler_tpu_torch import checkpoint as ckpt
     from clownresampler_tpu_torch import parallel
 
@@ -1616,9 +1785,9 @@ def run_sharded_paths(rng, gen, farm: dict, mixed: dict, checkpoints: dict) -> d
     res["uniform"] = dict(case=c, args=args, out=parallel.sharded_uniform_resample(
         mesh, c["table"], c["x"], c["state"], **args))
 
-    b = batch_case(rng)
-    res["batch"] = dict(case=b, out=parallel.sharded_resample_batch(
-        shard_mesh(*BATCH["mesh"]), *b["args"], **b["kw"]))
+    b = fleet["case"]
+    res["batch"] = parallel.sharded_resample_batch(shard_mesh(*FLEET["mesh"]), *b["args"],
+                                                   **b["kw"])
 
     f, n_saved = FARM, CKPT["saved_after"]
     chunks = checkpoints["chunks"]
@@ -1639,10 +1808,10 @@ def run_sharded_paths(rng, gen, farm: dict, mixed: dict, checkpoints: dict) -> d
     return res
 
 
-def check_sharded_paths(res: dict, farm: dict, mixed: dict, checkpoints: dict, rng) -> dict:
+def check_sharded_paths(res: dict, farm: dict, mixed: dict, checkpoints: dict, fleet: dict,
+                        rng) -> dict:
     """Every stream of every sharded path against its unsharded counterpart,
     exact: whole arrays, not samples."""
-    from clownresampler_tpu_torch.batch import resample_batch
     from clownresampler_tpu_torch.ops import resample as rs
 
     for k, (got, want) in enumerate(zip(res["farm"]["outs"], farm["outs"])):
@@ -1670,9 +1839,8 @@ def check_sharded_paths(res: dict, farm: dict, mixed: dict, checkpoints: dict, r
     if not torch.equal(u["out"], want):
         raise AssertionError("sharded_uniform_resample != the one-launch tiled entry")
 
-    b = res["batch"]
-    want = resample_batch(*b["case"]["args"], **b["case"]["kw"])
-    for i, (g, w) in enumerate(zip(_batch_leaves(b["out"]), _batch_leaves(want))):
+    want = fleet["out"]
+    for i, (g, w) in enumerate(zip(_batch_leaves(res["batch"]), _batch_leaves(want))):
         if g.shape != w.shape or g.device != w.device or not torch.equal(g, w):
             raise AssertionError(f"sharded_resample_batch != resample_batch in leaf {i}")
     produced = want[1]
@@ -1694,8 +1862,8 @@ def check_sharded_paths(res: dict, farm: dict, mixed: dict, checkpoints: dict, r
                   output_shape=wide_shape),
         sharded_uniform_resample=dict(shape=list(u["out"].shape), shards=SHARD_DP),
         sharded_resample_batch=dict(
-            mesh=BATCH["mesh"], streams=BATCH["streams"], n_out=BATCH["n_out"],
-            taps=b["case"]["kw"]["max_taps"], leaves_exact=len(_batch_leaves(want)),
+            mesh=FLEET["mesh"], streams=FLEET["streams"], n_out=FLEET["n_out"],
+            taps=fleet["case"]["kw"]["max_taps"], leaves_exact=len(_batch_leaves(want)),
             produced_min_max=[int(produced.min()), int(produced.max())],
             exhausted=int(want[4].sum())),
         checkpoint=dict(saved_after_chunks=CKPT["saved_after"],
@@ -1720,13 +1888,14 @@ def host_ms(fn, reps: int = 3) -> float:
     return best
 
 
-def time_sharded(rng, farm: dict, batch: dict) -> dict:
+def time_sharded(rng, farm: dict, fleet: dict) -> dict:
     """The headline farm unsharded, sharded, sharded, unsharded on the same
     chunks in fresh farms, each output held against the main path's and
     dropped (Msamples/s, ms a steady call and its split; the main path's
     farms keep every output, so each of their calls pins a new buffer);
-    resample_batch batched, looped and sharded at BATCH; and one headline
-    emit's de-interleave to a fresh host array three ways."""
+    resample_batch batched and sharded on the fleet's inputs (FLEET,
+    ``fleet``), batched and looped stream by stream at BATCH; and one
+    headline emit's de-interleave to a fresh host array three ways."""
     from clownresampler_tpu_torch import parallel
     from clownresampler_tpu_torch.batch import resample_batch
     from clownresampler_tpu_torch.utils import native
@@ -1740,14 +1909,19 @@ def time_sharded(rng, farm: dict, batch: dict) -> dict:
                           ms_per_process=r["ms_per_process"],
                           steady_split_ms=r["steady_split_ms"], ms_per_call=r["ms_per_call"]))
 
-    args, kw = batch["args"], batch["kw"]
-    batch_mesh = shard_mesh(*BATCH["mesh"])
-    batch_ms = dict(
+    args, kw = fleet["args"], fleet["kw"]
+    fleet_mesh = shard_mesh(*FLEET["mesh"])
+    fleet_ms = dict(
+        shape={k: v for k, v in FLEET.items() if k != "replay"},
         batched_ms=host_ms(lambda: resample_batch(*args, **kw)),
-        looped_ms=host_ms(lambda: looped_resample_batch(*args, **kw), reps=2),
-        sharded_ms=host_ms(lambda: parallel.sharded_resample_batch(batch_mesh, *args, **kw)))
+        sharded_ms=host_ms(lambda: parallel.sharded_resample_batch(fleet_mesh, *args, **kw)))
+    fleet_ms["sharded_over_batched"] = fleet_ms["sharded_ms"] / fleet_ms["batched_ms"]
+    small = batch_case(rng)
+    args, kw = small["args"], small["kw"]
+    batch_ms = dict(
+        shape=BATCH, batched_ms=host_ms(lambda: resample_batch(*args, **kw)),
+        looped_ms=host_ms(lambda: looped_resample_batch(*args, **kw), reps=2))
     batch_ms["looped_over_batched"] = batch_ms["looped_ms"] / batch_ms["batched_ms"]
-    batch_ms["sharded_over_batched"] = batch_ms["sharded_ms"] / batch_ms["batched_ms"]
 
     # One headline emit: (n_out, lanes) int32 on the card to a fresh (B, n_out, C).
     n_out, b, c = HEADLINE["n_out"], FARM["streams"], FARM["channels"]
@@ -1779,8 +1953,70 @@ def time_sharded(rng, farm: dict, batch: dict) -> dict:
         if not np.array_equal(fn(), want):
             raise AssertionError(f"de-interleave {name} disagrees")
         unstage[name] = host_ms(fn, reps=5)
-    return dict(farm_turns=turns, resample_batch=dict(shape=BATCH, **batch_ms),
+    return dict(farm_turns=turns, resample_batch_fleet=fleet_ms, resample_batch=batch_ms,
                 deinterleave=unstage)
+
+
+def batch_bound(case: dict, produced, peaks: dict) -> dict:
+    """The least time the card could take for the batch call ``case``
+    (batch_case) that produced ``produced``: the larger of its bytes -- each
+    stream's input rows that its produced frames' windows reach, read once;
+    the (B, n_out, C) int32 output written once, zeros included; the LUT and
+    the per-stream leaves (ten read, four ints and a byte written) -- over
+    the HBM rate, and OPS_PER_TAP operations for each live tap and channel
+    of the produced frames over the int32 rate."""
+    table, x, _, states, _ = case["args"]
+    b, s, c = x.shape
+    taps, n_out = case["kw"]["max_taps"], case["kw"]["n_out"]
+    fields = np.stack([v.cpu().numpy() for v in (states.position_integer,
+                                                 states.position_fractional, *states.cfg)])
+    produced = produced.cpu().numpy()
+    spans, live_taps, rows = {}, 0, 0
+    for i in range(b):
+        key = tuple(int(v) for v in fields[:, i])
+        if key not in spans:
+            p0, f0, radius, int_radius, delta, step, _, hi, lo = key
+            t = f0 + np.arange(n_out, dtype=np.int64) * (hi * 65536 + lo)
+            frac = t & 0xFFFF
+            min_rel = (frac + delta + 0xFFFF) >> 16
+            live = np.clip(int_radius + ((frac + radius) >> 16) - min_rel, 0, taps)
+            first = p0 + (t >> 16) + min_rel
+            spans[key] = (np.concatenate([[0], np.cumsum(live)]), first, first + live)
+        cum, first, end = spans[key]
+        k = int(produced[i])
+        if k > 0:
+            live_taps += int(cum[k])
+            rows += min(int(end[:k].max()), s) - max(int(first[0]), 0)
+    nbytes = (rows * c * x.element_size() + b * n_out * c * 4 + table.numel() * 4
+              + b * (10 * 4 + 4 * 4 + 1))
+    ops = OPS_PER_TAP * live_taps * c
+    memory_ms = 1e3 * nbytes / peaks["hbm_bytes_per_s"]
+    ops_ms = 1e3 * ops / peaks["int32_ops_per_s"]
+    return dict(bound_ms=max(memory_ms, ops_ms),
+                bound_by="bytes" if memory_ms >= ops_ms else "operations",
+                bytes=nbytes, int32_ops=ops, memory_ms=memory_ms, operations_ms=ops_ms)
+
+
+def time_batch_kernel(fleet: dict, peaks: dict) -> dict:
+    """resample_batch on the fleet's inputs (FLEET): the whole entry (one
+    batch_mac_kernel launch and the outputs' allocation) by CUDA events,
+    beside its plain version on the card and its bound (batch_bound). No
+    single PyTorch call computes it: each tap term is truncated on its own
+    (library_ms null)."""
+    from clownresampler_tpu_torch.batch import resample_batch, resample_batch_reference
+    from clownresampler_tpu_torch.ops import _build
+
+    case = fleet["case"]
+    args, kw = case["args"], case["kw"]
+    x = args[1]
+    res = dict(ms=cuda_ms(lambda: resample_batch(*args, **kw)[0]),
+               plain_ms=cuda_ms(lambda: resample_batch_reference(*args, **kw)[0], reps=3),
+               library_ms=None, **batch_bound(case, fleet["out"][1], peaks),
+               tile=_build.batch_tile(x.shape[2], kw["max_taps"], x.element_size()),
+               shape=f"x {tuple(x.shape)} {x.dtype}, n_out {kw['n_out']}, "
+                     f"taps {kw['max_taps']}")
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    return res
 
 
 def _entry_ms(entry: str, args: dict, reps: int = 20) -> float:
@@ -2186,11 +2422,12 @@ def main() -> int:
     scans = run_scans(gen)
     checkpoints = run_checkpoints(rng)
     cli = run_cli()
+    fleet = run_fleet_batch(rng)
     torch.cuda.synchronize()
     launches = dict(ROUTES)
     # The sharded paths, counted apart from the paths above.
     ROUTES.clear()
-    sharded = run_sharded_paths(rng, gen, farm, mixed, checkpoints)
+    sharded = run_sharded_paths(rng, gen, farm, mixed, checkpoints, fleet)
     torch.cuda.synchronize()
     sharded_launches = dict(ROUTES)
     phase("routes", launches={f"{k}/{impl}": v for (k, impl), v in sorted(launches.items())},
@@ -2235,7 +2472,8 @@ def main() -> int:
     del config7, scans
     phase("checkpoint", **check_checkpoints(checkpoints))
     phase("cli", **check_cli(cli))
-    phase("sharded", **check_sharded_paths(sharded, farm, mixed, checkpoints, rng),
+    phase("fleet_batch", **check_fleet_batch(fleet))
+    phase("sharded", **check_sharded_paths(sharded, farm, mixed, checkpoints, fleet, rng),
           nvidia_smi=smi,
           farms={name: dict(msamples_per_s=sharded[name]["msamples_per_s"],
                             ms_per_process=sharded[name]["ms_per_process"],
@@ -2247,7 +2485,6 @@ def main() -> int:
                                       steady_split_ms=r.get("steady_split_ms"))
                            for name, r in (("farm", farm), ("mixed", mixed),
                                            ("wide", wide["farm"]))})
-    batch = sharded["batch"]["case"]
     del checkpoints, cli, sharded, mixed, strided, wide
 
     timing = time_kernels(gen)
@@ -2257,10 +2494,13 @@ def main() -> int:
     phase("farm_kernels", nvidia_smi=smi, **farm_kernels)
     phase("copy_rates", nvidia_smi=smi, **copy_rates())
     phase("result_delivery", nvidia_smi=smi, **time_result_delivery())
-    sharded_timing = time_sharded(rng, farm, batch)
+    batch_kernel = time_batch_kernel(fleet, timing["peaks"])
+    timing["kernels"]["batch_mac_kernel"] = batch_kernel
+    phase("batch_kernel", nvidia_smi=smi, **batch_kernel)
+    sharded_timing = time_sharded(rng, farm, fleet["case"])
     phase("sharded_timing", nvidia_smi=smi, **sharded_timing)
     farm = dict(chunks=farm["chunks"])
-    del batch
+    del fleet
     scan_timing = time_scan(gen, timing["peaks"])
     phase("scan_timing", nvidia_smi=smi, **scan_timing)
     phase("entry_launches", nvidia_smi=smi, **count_entry_launches(gen))

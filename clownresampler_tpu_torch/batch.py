@@ -3,10 +3,11 @@ ratio and phase, through one chunk call.
 
 Counterpart of ``clownresampler_tpu/batch.py``, whose ``resample_batch`` is
 a ``jax.vmap`` of ``lowlevel.resample_chunk`` over the stream axis; here the
-stream axis is a leading batch axis through the port's ``resample_chunk``
-and the gather oracle under it: one set of torch ops for the B streams, in
-runs of streams bounded by ``BATCH_GATHER_BUDGET_BYTES``. States are
-DeviceStates whose leaves carry a leading (B,) axis.
+stream axis is a leading batch axis through the port's ``resample_chunk``:
+on a card one launch of batch_mac_kernel for the B streams, on the CPU the
+plain version ``resample_batch_reference``, the gather oracle in runs of
+streams bounded by ``BATCH_GATHER_BUDGET_BYTES``. States are DeviceStates
+whose leaves carry a leading (B,) axis.
 """
 
 from __future__ import annotations
@@ -15,7 +16,13 @@ import torch
 
 from clownresampler_tpu_torch.configure import Configuration
 from clownresampler_tpu_torch.device import DEFAULT_DEVICE, Device, resolve_device
-from clownresampler_tpu_torch.lowlevel import DeviceState, make_device_state, resample_chunk
+from clownresampler_tpu_torch.lowlevel import (
+    DeviceState,
+    make_device_state,
+    resample_chunk,
+    resample_chunk_reference,
+)
+from clownresampler_tpu_torch.ops import resample as ops_resample
 from clownresampler_tpu_torch.ops.convolve import ConfigScalars
 
 
@@ -29,10 +36,10 @@ def stack_states(states: list) -> DeviceState:
     )
 
 
-# Bytes one gather of resample_batch may hold (``gather_bytes``' count): a
-# batch whose streams need more runs as several gathers of whole streams,
-# one after the other, so a call over any number of streams has a bounded
-# footprint.
+# Bytes one gather of resample_batch_reference may hold (``gather_bytes``'
+# count): a batch whose streams need more runs as several gathers of whole
+# streams, one after the other, so a call over any number of streams has a
+# bounded footprint.
 BATCH_GATHER_BUDGET_BYTES = 1 << 30
 
 
@@ -85,16 +92,31 @@ def resample_batch(
     new_states, input_exhausted (B,)). Streams that produce fewer than n_out
     frames have their tails zero-masked; ``produced`` is authoritative.
 
-    The gather holds ``gather_bytes`` a stream, so a batch past
+    On a CUDA tensor this is one launch of batch_mac_kernel, whatever B; on
+    the CPU the plain version, ``resample_batch_reference``.
+    """
+    if ops_resample.plain_route(padded_inputs, "batch"):
+        return resample_batch_reference(table, padded_inputs, total_input_frames, states,
+                                        output_quota, max_taps=max_taps, n_out=n_out)
+    return resample_chunk(table, padded_inputs, total_input_frames, states, output_quota,
+                          max_taps=max_taps, n_out=n_out)
+
+
+def resample_batch_reference(table, padded_inputs, total_input_frames, states, output_quota,
+                             *, max_taps: int, n_out: int):
+    """Plain PyTorch version of ``resample_batch`` (same arguments and
+    return): ``resample_chunk_reference``, the gather, over the batch. The
+    gather holds ``gather_bytes`` a stream, so a batch past
     BATCH_GATHER_BUDGET_BYTES goes as several calls over runs of whole
     streams (at least one a run), joined along the batch axis.
     """
     b, _, channels = padded_inputs.shape
     run = max(1, BATCH_GATHER_BUDGET_BYTES // gather_bytes(n_out, max_taps, channels))
     results = [
-        resample_chunk(table, padded_inputs[lo : lo + run], total_input_frames[lo : lo + run],
-                       slice_states(states, lo, lo + run), output_quota[lo : lo + run],
-                       max_taps=max_taps, n_out=n_out)
+        resample_chunk_reference(table, padded_inputs[lo : lo + run],
+                                 total_input_frames[lo : lo + run],
+                                 slice_states(states, lo, lo + run), output_quota[lo : lo + run],
+                                 max_taps=max_taps, n_out=n_out)
         for lo in range(0, b, run)
     ]
     if len(results) == 1:

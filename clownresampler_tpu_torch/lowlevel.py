@@ -9,7 +9,9 @@ frac(n) = t & 0xFFFF, which turns the loop into one batched launch per tile.
 
 * ``resample_chunk`` -- one LowLevel_Resample call as a function of tensors,
   with the reference's termination bookkeeping (position carry on input
-  exhaustion, clownresampler.h:1063-1068; rewind on output-full, 1084-1088).
+  exhaustion, clownresampler.h:1063-1068; rewind on output-full, 1084-1088);
+  on a card one launch of batch_mac_kernel (ops.resample.resample_streams),
+  on the CPU its plain version ``resample_chunk_reference``, the gather.
 * ``resample_scan`` / ``resample_scan_fused`` -- a whole chunked stream,
   every chunk on the device, with the high-level layer's 2*radius halo
   carried between chunks (clownresampler.h:1143-1154): the oracle scan
@@ -46,6 +48,7 @@ from clownresampler_tpu_torch.ops.resample import (
     entry_launch_args,
     multi_resample,
     plan_uniform,
+    resample_streams,
     wide_launch_frames,
 )
 
@@ -125,13 +128,36 @@ def resample_chunk(
     loop, which needs strictly fewer natural frames than the output quota
     (clownresampler.h:1058-1092).
 
-    A ``padded_input`` of (B, S, C) is B independent calls in one set of
-    torch ops: ``total_input_frames``, ``output_quota`` and every leaf of
-    ``state`` then carry a leading (B,) axis, and so does every returned
-    value (the output is (B, n_out, C)).
+    A ``padded_input`` of (B, S, C) is B independent calls at once:
+    ``total_input_frames``, ``output_quota`` and every leaf of ``state``
+    then carry a leading (B,) axis, and so does every returned value (the
+    output is (B, n_out, C)).
+
+    On a CUDA tensor this is one launch of batch_mac_kernel for all B
+    streams (ops.resample.resample_streams); on the CPU the plain version,
+    ``resample_chunk_reference``.
     """
+    return resample_streams(table, padded_input, total_input_frames, state, output_quota,
+                            max_taps=max_taps, n_out=n_out)
+
+
+def resample_chunk_reference(
+    table: torch.Tensor,
+    padded_input: torch.Tensor,
+    total_input_frames: int,
+    state: DeviceState,
+    output_quota: int,
+    *,
+    max_taps: int,
+    n_out: int,
+):
+    """Plain PyTorch version of ``resample_chunk`` (same arguments and
+    return): the gather oracle (``convolve_frames``) over every frame up to
+    n_out, masked past ``produced``; a batch is one set of torch ops.
+    Counted as ROUTES[("batch", "oracle")]."""
     if n_out > MAX_CHUNK_OUTPUT_FRAMES:
         raise ValueError(f"n_out {n_out} exceeds {MAX_CHUNK_OUTPUT_FRAMES}")
+    ROUTES[("batch", "oracle")] += 1
     dev = padded_input.device
     i32 = lambda v: torch.as_tensor(v, dtype=torch.int32).to(dev)
     # Per-stream scalars against the frame axis: (B,) -> (B, 1) with a batch.
@@ -196,7 +222,8 @@ def _scan_result(outs, produced, over, state: DeviceState, radius: int):
 def resample_scan(table, chunks, state: DeviceState, *, max_taps: int, n_out: int,
                   radius: int):
     """Whole-stream resampling over K input chunks, ``resample_chunk`` per
-    step: the oracle scan the fused scan is held against.
+    step (on a card a batch_mac_kernel launch a step): the oracle scan the
+    fused scan is held against.
 
     ``chunks`` is (K, n_in, L) int16/int32 with n_in < 2^14; ``state.cfg``
     must have integer radius ``radius``. The reference's high-level layer

@@ -50,8 +50,8 @@ POINTER_ARGS = frozenset((
     "x", "p0_ptr", "f0_ptr", "inc_hi", "inc_lo", "radius", "delta", "int_radius", "step",
     "table", "tstr", "partial", "tap_sums", "out", "rows_out", "n_valid", "stream",
     "prev", "cur", "chunk", "state_in", "produced", "over", "launch_states", "state_out",
-    "src", "dst"))
-LONG_ARGS = frozenset(("nbytes",))   # pass as long long
+    "src", "dst", "totals", "quotas", "consumed", "p_out", "f_out", "exhausted"))
+LONG_ARGS = frozenset(("nbytes", "stride_b"))   # pass as long long
 _LAUNCH_INPUT = ("x", "S", "L", "lane_offset", "lanes", "p0_ptr", "p0_val", "f0_ptr", "f0_val",
                  "inc_hi", "inc_lo", "radius", "delta", "int_radius", "step",
                  "table", "table_size")
@@ -73,6 +73,11 @@ ENTRY_ARGS = {
                          "out_s16", "words", "tile_streams", "tile_frames", "device", "stream"),
     "crt_farm_copy": ("dst", "src", "nbytes", "device", "stream"),
     "crt_farm_sync": ("device", "stream"),
+    "crt_batch_mac": ("x", "x_s16", "B", "S", "C", "stride_b", "totals", "quotas", "p0_ptr",
+                      "f0_ptr", "inc_hi", "inc_lo", "radius", "delta", "int_radius", "step",
+                      "table", "table_size", "T", "N", "channel_tile", "tile_frames", "win_rows",
+                      "words", "out", "produced", "consumed", "p_out", "f_out", "exhausted",
+                      "device", "stream"),
 }
 # library -> (source file, its C entries).
 LIBRARIES = {
@@ -82,6 +87,7 @@ LIBRARIES = {
     "scan": ("scan_kernels.cu", ("crt_scan_stage",)),
     "farm": ("farm_kernels.cu", ("crt_farm_stage", "crt_farm_unstage", "crt_farm_copy",
                                  "crt_farm_sync")),
+    "batch": ("batch_kernels.cu", ("crt_batch_mac",)),
 }
 # C entry -> (its library, what it launches, for error messages).
 ENTRIES = {"crt_tiled_mac": ("resample", "tiled_mac_kernel"),
@@ -91,7 +97,8 @@ ENTRIES = {"crt_tiled_mac": ("resample", "tiled_mac_kernel"),
            "crt_farm_stage": ("farm", "farm_stage_kernel"),
            "crt_farm_unstage": ("farm", "farm_unstage_kernel"),
            "crt_farm_copy": ("farm", "cudaMemcpyAsync"),
-           "crt_farm_sync": ("farm", "cudaStreamSynchronize")}
+           "crt_farm_sync": ("farm", "cudaStreamSynchronize"),
+           "crt_batch_mac": ("batch", "batch_mac_kernel")}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -217,10 +224,12 @@ def _stream(x) -> int:
 # Lanes of one staged tile of the tiled and strided kernels (32 threads x 4
 # lanes); a staged window row is this many ints.
 TILED_LANES = 128
-# The ConfigScalars fields the kernels read, in their argument order.
+# The ConfigScalars fields the kernels read, in their argument order, and
+# the names of those arguments.
 TILED_CONFIG_FIELDS = ("increment_hi", "increment_lo", "stretched_kernel_radius",
                        "stretched_kernel_radius_delta", "integer_stretched_kernel_radius",
                        "kernel_step_size")
+CONFIG_ARGS = ("inc_hi", "inc_lo", "radius", "delta", "int_radius", "step")
 # Input rows of one staged run of wide_mac_kernel (wide_kernels.cu
 # WIDE_RUN_ROWS); 64 measured faster than 32 and 128 on the H100 (PERF.md).
 WIDE_RUN_ROWS = 64
@@ -268,9 +277,8 @@ def _geometry_args(x, p0, f0, cfg) -> dict:
         raise ValueError("the kernels read ConfigScalars as tensors on x's device")
     p0_ptr, p0_val = _scalar_arg(p0, x, "position_integer")
     f0_ptr, f0_val = _scalar_arg(f0, x, "position_fractional")
-    inc_hi, inc_lo, radius, delta, int_radius, step = scalars
-    return dict(p0_ptr=p0_ptr, p0_val=p0_val, f0_ptr=f0_ptr, f0_val=f0_val, inc_hi=inc_hi,
-                inc_lo=inc_lo, radius=radius, delta=delta, int_radius=int_radius, step=step)
+    return dict(p0_ptr=p0_ptr, p0_val=p0_val, f0_ptr=f0_ptr, f0_val=f0_val,
+                **dict(zip(CONFIG_ARGS, scalars)))
 
 
 def _input_args(x, table, p0, f0, cfg, lanes: int, lane_offset: int) -> dict:
@@ -688,3 +696,82 @@ def farm_unstage(src, dst, *, n_out: int, channels: int, stream_lo: int, streams
     _launch("crt_farm_unstage", farm_unstage_args(src, dst.data_ptr(), n_out=n_out,
                                                   channels=channels, stream_lo=stream_lo,
                                                   streams=streams))
+
+
+# batch_mac_kernel (batch_kernels.cu BATCH_THREADS): threads a block; the
+# most channels a block takes; the frames of a block's tile, in frames a
+# thread; the increment (input rows an output frame, rounded up) that the
+# staged window is sized for, which stages a whole tile at every ratio of
+# config 5 (1.09, 0.92, 0.17, 2.0); and the bytes a block's window may take.
+BATCH_THREADS = 256
+BATCH_CHANNEL_TILE = 128
+BATCH_FRAMES_PER_THREAD = 4
+BATCH_STAGE_INCREMENT = 2
+BATCH_SHARED_BUDGET = 32 * 1024
+
+
+def batch_tile(channels: int, max_taps: int, elem_bytes: int) -> dict:
+    """crt_batch_mac's block shape for ``channels`` channels of
+    ``elem_bytes``-byte samples: the channels a block takes (channel_tile,
+    at most BATCH_CHANNEL_TILE), the frames of its tile (its rows of
+    threads, BATCH_THREADS // channel_tile, times BATCH_FRAMES_PER_THREAD)
+    and the rows of its staged window: the tile's window at
+    BATCH_STAGE_INCREMENT, within BATCH_SHARED_BUDGET."""
+    tile = min(channels, BATCH_CHANNEL_TILE)
+    frames = BATCH_THREADS // tile * BATCH_FRAMES_PER_THREAD
+    rows = min(max_taps + (frames - 1) * BATCH_STAGE_INCREMENT,
+               BATCH_SHARED_BUDGET // (tile * elem_bytes))
+    return dict(channel_tile=tile, tile_frames=frames, win_rows=rows)
+
+
+def batch_launch_args(x, table, totals, quotas, p0, f0, cfg, *, max_taps: int,
+                      n_out: int) -> dict:
+    """Check a batch_mac_kernel launch and return crt_batch_mac's arguments
+    by name, all but the outputs'. ``x`` is a (B, S, C) int16 or int32 CUDA
+    tensor whose streams are each contiguous (any stride between streams);
+    ``totals``, ``quotas``, ``p0``, ``f0`` and the TILED_CONFIG_FIELDS of
+    ``cfg`` are contiguous (B,) int32 tensors on x's device, ``table`` the
+    flat LUT there."""
+    _check_cuda(x)
+    if x.dim() != 3 or x.dtype not in (torch.int16, torch.int32):
+        raise ValueError(f"x must be (B, S, C) int16 or int32, got {x.dtype} {tuple(x.shape)}")
+    b, s, c = x.shape
+    if x.stride(2) != 1 or x.stride(1) != c:
+        raise ValueError(f"each stream of x must be contiguous, got strides {x.stride()}")
+    if not (0 < b <= 65535 and s > 0 and c > 0 and max_taps > 0 and n_out >= 0):
+        raise ValueError(f"bad batch launch: x {tuple(x.shape)}, {max_taps} taps, "
+                         f"{n_out} frames")
+    leaves = dict(totals=totals, quotas=quotas, p0_ptr=p0, f0_ptr=f0,
+                  **{arg: getattr(cfg, f) for arg, f in zip(CONFIG_ARGS, TILED_CONFIG_FIELDS)})
+    for name, t in {**leaves, "table": table}.items():
+        if (t.device != x.device or t.dtype != torch.int32 or t.dim() != 1
+                or not t.is_contiguous() or (name != "table" and t.shape[0] != b)):
+            raise ValueError(f"{name} must be a contiguous 1-d int32 tensor on {x.device}"
+                             f"{'' if name == 'table' else f' of {b} streams'}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    s16 = x.dtype == torch.int16
+    words = int(not s16 or (c % 2 == 0 and x.stride(0) % 2 == 0 and x.data_ptr() % 4 == 0))
+    return dict(x=x.data_ptr(), x_s16=int(s16), B=b, S=s, C=c, stride_b=x.stride(0),
+                **{name: t.data_ptr() for name, t in leaves.items()}, table=table.data_ptr(),
+                table_size=table.shape[0], T=max_taps, N=n_out,
+                **batch_tile(c, max_taps, x.element_size()), words=words,
+                device=x.device.index, stream=_stream(x))
+
+
+def batch_mac(x, table, totals, quotas, p0, f0, cfg, *, max_taps: int, n_out: int) -> tuple:
+    """Launch batch_mac_kernel once: stream b of ``x`` (B, S, C) through one
+    chunk call from its own state (p0[b], f0[b], cfg's fields [b]) with
+    totals[b] input frames and quota quotas[b] (batch_launch_args). Returns
+    (out (B, n_out, C) int32, zero from each stream's produced frame on,
+    produced, consumed, position_integer, position_fractional -- (B,) int32
+    -- and exhausted (B,) bool)."""
+    args = batch_launch_args(x, table, totals, quotas, p0, f0, cfg, max_taps=max_taps,
+                             n_out=n_out)
+    b, _, c = x.shape
+    out = torch.empty((b, n_out, c), dtype=torch.int32, device=x.device)
+    produced, consumed, p_out, f_out = torch.empty((4, b), dtype=torch.int32, device=x.device)
+    exhausted = torch.empty(b, dtype=torch.bool, device=x.device)
+    args.update(out=out.data_ptr(), produced=produced.data_ptr(), consumed=consumed.data_ptr(),
+                p_out=p_out.data_ptr(), f_out=f_out.data_ptr(), exhausted=exhausted.data_ptr())
+    _launch("crt_batch_mac", args)
+    return out, produced, consumed, p_out, f_out, exhausted

@@ -13,9 +13,10 @@ frame n with phase (pos, frac) the reference computes:
 
 Windows are padded to a fixed ``max_taps`` and masked: a masked tap adds
 kernel value 0 to both the accumulator and the normaliser, which is exactly
-equivalent to not iterating it. This module serves the ratio classes that
-have no hand-written kernel yet (strided and wide) on every device, and is
-the reference that the kernels and their plain versions are tested against.
+equivalent to not iterating it. This module is the reference that the
+kernels and their plain versions are tested against, and the body of the
+batched chunk call's plain version (lowlevel.resample_chunk_reference); on
+a card every entry runs a hand-written kernel instead.
 """
 
 from __future__ import annotations
@@ -89,7 +90,7 @@ def convolve_frames(
     from ``input_samples[b]`` at its own configuration, all B streams in one
     set of torch ops; returns (B, N, C). The gather then holds B x N x
     max_taps x C ints several times over: callers bound B
-    (batch.resample_batch).
+    (batch.resample_batch_reference).
     """
     dev = input_samples.device
     table_size = table.shape[0]

@@ -30,11 +30,17 @@ Ratio classes (``plan_uniform``, then the tap width):
              it feeds, and a fold kernel sums each frame's runs and
              normalises.
 
+Beside the uniform-ratio launches, ``resample_streams`` runs B independent
+streams, each from its own state and configuration, through one chunk call
+(lowlevel.resample_chunk, batch.resample_batch): on a card one launch of
+``batch_mac_kernel``, on the CPU the gather oracle's chunk call.
+
 Each entry point takes the tensor's device as the route: a CUDA tensor goes
 to the kernel (and raises if it cannot launch), a CPU tensor to the plain
-PyTorch version beside it (``*_reference``). ``ROUTES`` counts which route
-every launch took. The gather oracle (ops/convolve.py) is the reference all
-of them are tested against; it serves only an explicit "oracle" launch.
+PyTorch version beside it (``*_reference``; for ``resample_streams`` the
+gather, counted as "oracle"). ``ROUTES`` counts which route every launch
+took. The gather oracle (ops/convolve.py) is the reference all of them are
+tested against; on a card it serves only an explicit "oracle" launch.
 """
 
 from __future__ import annotations
@@ -281,15 +287,22 @@ def _check_x(x):
         raise ValueError(f"x must be (S, L) int32, got {x.dtype} {tuple(x.shape)}")
 
 
-def _takes_reference(x, kind: str) -> bool:
-    """True (and counted) when x lies on the CPU, where the plain version
-    runs; False on a CUDA card, where the kernel runs. Any other device is
+def plain_route(x, kind: str) -> bool:
+    """True when x lies on the CPU, where an entry runs its plain version;
+    False on a CUDA card, where it runs its kernel. Any other device is
     refused."""
     if x.device.type == "cpu":
-        ROUTES[(kind, "reference")] += 1
         return True
     if x.device.type != "cuda":
         raise ValueError(f"no {kind} route for device {x.device}")
+    return False
+
+
+def _takes_reference(x, kind: str) -> bool:
+    """``plain_route``, the plain route counted as (kind, "reference")."""
+    if plain_route(x, kind):
+        ROUTES[(kind, "reference")] += 1
+        return True
     return False
 
 
@@ -670,6 +683,56 @@ def entry_launch_args(kind: str, table, x, state, *, d: int, cand, max_taps: int
         return "crt_wide_mac", _build.wide_launch_args(
             x, table, table_strided, p0, f0, cfg, partial, d=d, **common)
     raise ValueError(f"no kernel launch of kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# B streams, each at its own ratio and state, through one chunk call
+# ---------------------------------------------------------------------------
+
+def _stream_leaf(v, b: int, x) -> torch.Tensor:
+    """A per-stream scalar as batch_mac_kernel reads it: a contiguous (b,)
+    int32 tensor on x's device. A one-element tensor serves every stream (a
+    0-dim leaf of a 2-D call); a Python int is filled on the device."""
+    if not isinstance(v, torch.Tensor):
+        return torch.full((b,), int(v), dtype=torch.int32, device=x.device)
+    v = v.to(device=x.device, dtype=torch.int32)
+    return v.reshape(-1).expand(b).contiguous()
+
+
+def resample_streams(table, x, totals, state, quota, *, max_taps: int, n_out: int):
+    """One LowLevel_Resample call for each of B streams: the contract and
+    return of ``lowlevel.resample_chunk`` (``x`` (S, C) or (B, S, C) int16 or
+    int32, ``totals``, ``quota`` and the leaves of ``state`` scalars or (B,)),
+    n_out at most lowlevel.MAX_CHUNK_OUTPUT_FRAMES.
+
+    On a CUDA tensor this is one launch of ``batch_mac_kernel``, which reads
+    every stream's state, configuration, input count and quota from device
+    memory (no host sync, no gather, no split of the batch) and computes its
+    frames, zero from ``produced`` on, and its bookkeeping. On the CPU it is
+    the plain version, the gather oracle's chunk call
+    ``lowlevel.resample_chunk_reference``, counted as ("batch", "oracle").
+    """
+    from clownresampler_tpu_torch import lowlevel  # lowlevel imports this module
+
+    if n_out > lowlevel.MAX_CHUNK_OUTPUT_FRAMES:
+        raise ValueError(f"n_out {n_out} exceeds {lowlevel.MAX_CHUNK_OUTPUT_FRAMES}")
+    if plain_route(x, "batch"):
+        return lowlevel.resample_chunk_reference(table, x, totals, state, quota,
+                                                 max_taps=max_taps, n_out=n_out)
+    single = x.dim() == 2
+    xb = x[None] if single else x
+    leaf = functools.partial(_stream_leaf, b=xb.shape[0], x=xb)
+    out, produced, consumed, p, f, exhausted = _build.batch_mac(
+        xb, table, leaf(totals), leaf(quota), leaf(state.position_integer),
+        leaf(state.position_fractional), state.cfg._make(map(leaf, state.cfg)),
+        max_taps=max_taps, n_out=n_out)
+    ROUTES[("batch", "cuda")] += 1
+    if single:
+        out = out[0]
+        produced, consumed, p, f, exhausted = (
+            v.reshape(()) for v in (produced, consumed, p, f, exhausted))
+    return (out, produced, consumed,
+            state._replace(position_integer=p, position_fractional=f), exhausted)
 
 
 # ---------------------------------------------------------------------------
