@@ -19,8 +19,10 @@
 # copy;
 # one JSON line a farm run into chiprun_out/farm_ab.jsonl, and the medians
 # printed at the end. Before the farms: the four runs' scan and entry times
-# side by side, and the host's time to issue config 7's scan in each tree
-# (chiprun_out/scan_ab.jsonl). Last, chip_scripts/farm_probe.py here (the
+# side by side, the host's time to issue config 7's scan in each tree
+# (chiprun_out/scan_ab.jsonl) and the batched chunk call's entry times in
+# each (chip_scripts/batch_ab.py, chiprun_out/batch_ab.jsonl). Last,
+# chip_scripts/farm_probe.py here (the
 # pinned copy rates, the farm kernels and the ways a result reaches the
 # caller; chiprun_out/farm_probe.log).
 parent=${1:?usage: compare.sh PARENT_DIR [FARM_PAIRS [FARM_CHECK_PAIRS]]}
@@ -44,7 +46,7 @@ JAX_PLATFORMS=cpu python3 -m pytest tests/test_torch_resample_ops.py tests/test_
   tests/test_torch_scan.py tests/test_torch_tiled_kernel.py tests/test_torch_strided_wide_kernel.py \
   tests/test_torch_general_kernel.py tests/test_torch_scan_program.py \
   tests/test_torch_farm_program.py tests/test_torch_farm_stage_ring.py \
-  -q -m cuda -p no:cacheprovider \
+  tests/test_torch_batch_kernel.py -q -m cuda -p no:cacheprovider \
   > chiprun_out/cuda_tests.log 2>&1
 echo "cuda tests rc=$? seconds=$(( SECONDS - t0 ))"
 tail -n 2 chiprun_out/cuda_tests.log
@@ -111,6 +113,16 @@ PY
 for tree in parent change change parent; do
   dir=$([ "$tree" = parent ] && echo "$parent" || echo .)
   scan_run "$tree" "$dir" | tee -a chiprun_out/scan_ab.jsonl || echo "scan run $tree rc=$?"
+done
+
+# The batched chunk call (batch_mac_kernel) at the fleet, BATCH and the
+# oracle-scan step, parent and change in turns, a fresh process each
+# (chiprun_out/batch_ab.jsonl).
+rm -f chiprun_out/batch_ab.jsonl
+for tree in parent change change parent; do
+  dir=$([ "$tree" = parent ] && echo "$parent" || echo .)
+  python3 chip_scripts/batch_ab.py "$dir" "$tree" | tee -a chiprun_out/batch_ab.jsonl \
+    || echo "batch run $tree rc=$?"
 done
 
 farm_run() {  # tree dir pre

@@ -29,7 +29,8 @@ stream of every sharded path against its unsharded counterpart; times the
 kernels beside their bounds, the farms (sharded beside unsharded, each call
 split into staging, launch and copy out, the caller dropping each output),
 the pinned copy rates and the ways a result may reach the caller, the
-fleet's resample_batch beside its plain version and its bound, batched
+fleet's resample_batch beside batch_mac_kernel alone, its plain version and
+its bound (and the same at BATCH and at an oracle-scan step), batched
 beside sharded and (at a quarter of the streams and an eighth of the
 frames) beside a per-stream loop, the output de-interleave
 three ways, and the scan (ms a chunk, the host's time to issue a step,
@@ -358,7 +359,11 @@ FLEET = dict(BATCH, streams=1024, n_in=8192, n_out=16384, replay=(0, 1, 2, 3, 6,
 # stream's; two_d: one stream as a 2-D (S, C) call with ints and 0-dim
 # leaves (as resample_scan makes it); view: every other stream of a taller
 # buffer (a stride between streams that is not S x C); shard: issued on a
-# side CUDA stream, as a mesh shard's launch is.
+# side CUDA stream, as a mesh shard's launch is; pad: rows of x past n_in
+# (default twice the widest radius; 0: the last frames' windows run past the
+# buffer, whose rows the kernel clamps); offset: x starts that many frames
+# into its allocation (off 16 bytes: the first window's granules would reach
+# before x, so the kernel copies it another way).
 MIXED4 = list(MIXED["groups"])
 BATCH_CASES = (
     ("2-D C=1 48k->44.1k p0=3", dict(rates=[(48000, 44100)], streams=1, channels=1, n_in=1024,
@@ -390,7 +395,45 @@ BATCH_CASES = (
     ("shard: B=32 C=2 on a side stream", dict(
         rates=MIXED4, streams=32, channels=2, n_in=1024, n_out=8192, shard=True,
         quotas=list(BATCH["quotas"]))),
+    ("B=5 C=3 odd quotas: zero spans off 16 bytes", dict(
+        rates=MIXED4, streams=5, channels=3, n_in=1024, n_out=1001,
+        quotas=[37, 1001, 5, 0, 999], starts=[(2, 0x1111)])),
+    ("B=3 C=1 int16 odd n_out, produced n_out and 0", dict(
+        rates=[(8000, 48000), (96000, 48000), (44100, 48000)], streams=3, channels=1,
+        n_in=777, n_out=2047, quotas=[10**6, 0, 1500])),
+    ("B=3 C=2048 int16 channel tiles, 16-byte rows", dict(
+        rates=[(44100, 8000), (48000, 44100), (96000, 48000)], streams=3, channels=2048,
+        n_in=256, n_out=96, quotas=[10**6, 0, 33])),
+    ("B=2 C=100 int16 channel tiles, rows of whole words", dict(
+        rates=[(44100, 8000), (8000, 48000)], streams=2, channels=100, n_in=512, n_out=256,
+        quotas=[10**6, 77])),
+    ("B=2 C=99 int16 channel tiles, rows off 16 bytes", dict(
+        rates=[(48000, 44100), (44100, 8000)], streams=2, channels=99, n_in=512, n_out=256,
+        quotas=[10**6, 41])),
+    ("2-D C=72 int32 channel tiles of 64 and 8", dict(
+        rates=[(8000, 48000)], streams=1, channels=72, n_in=128, n_out=512, two_d=True,
+        dtype="int32", starts=[(0, 0x7777)])),
+    ("B=4 C=2 int16 unpadded: clamped rows as words", dict(
+        rates=MIXED4, streams=4, channels=2, n_in=1000, n_out=2048, pad=0)),
+    ("B=3 C=3 int16 unpadded: clamped rows by element", dict(
+        rates=[(44100, 8000), (96000, 48000), (48000, 44100)], streams=3, channels=3, n_in=999,
+        n_out=1024, pad=0)),
+    ("B=4 C=6 int16 flat quads", dict(
+        rates=MIXED4, streams=4, channels=6, n_in=1024, n_out=1024, quotas=[10**6, 333])),
+    ("B=2 C=4 int32 44.1k->132 (2008 taps): x read directly", dict(
+        rates=[(44100, 132), (48000, 44100)], streams=2, channels=4, n_in=4096, n_out=64,
+        dtype="int32")),
+    ("B=3 C=2 int16 one frame into its buffer: granules kept inside x", dict(
+        rates=[(8000, 48000), (48000, 44100), (44100, 8000)], streams=3, channels=2, n_in=1024,
+        n_out=2048, offset=1)),
 )
+# The paths of batch_mac_kernel (batch_case_paths) that BATCH_CASES must take.
+BATCH_PATHS = frozenset((
+    "copy granules, flat", "copy granules, channel tiles", "copy words, channel tiles",
+    "copy elements, channel tiles", "clamped rows as words", "clamped rows by element",
+    "zero head off 16 bytes", "produced = n_out", "produced = 0", "2-D, C 2048 over frames",
+    "a thread a frame", "geometry in shared memory", "x read directly",
+    "flat granules past x's ends refused"))
 CLI_RATES = (44100, 8000)   # the golden 470b79...: the fixture PCM is 44.1 kHz stereo
 DEVICE = "cuda"
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): HBM bytes/s, and int32 lanes per SM per clock on the CUDA cores
@@ -731,12 +774,15 @@ def batch_case_inputs(spec: dict, gen) -> tuple:
             for a, o in turn("rates", None)]
     r_max = max(cfg.integer_stretched_kernel_radius for cfg, _ in cfgs)
     taps = spec.get("max_taps") or fx.round_up(2 * r_max, 8)
-    s = spec["n_in"] + 2 * r_max
+    s = spec["n_in"] + spec.get("pad", 2 * r_max)
     x = torch.randint(-32768, 32768, ((2 if view else 1) * b, s + (5 if view else 0), c),
                       generator=gen, dtype=getattr(torch, spec.get("dtype", "int16")),
                       device=dev)
     if view:
         x = x[::2, 3 : 3 + s]
+    if spec.get("offset"):
+        x = torch.cat([x.new_zeros(spec["offset"] * c), x.reshape(-1)])[spec["offset"] * c :]
+        x = x.view(b, s, c)
     states = [make_device_state(p0, f0, cfg, inc, dev)
               for (cfg, inc), (p0, f0) in zip(cfgs, turn("starts", [(0, 0)]))]
     totals, quotas = turn("totals", [spec["n_in"]]), turn("quotas", [10**6])
@@ -748,10 +794,105 @@ def batch_case_inputs(spec: dict, gen) -> tuple:
     return table, x, i32(totals), stack_states(states), i32(quotas), kw
 
 
-def run_batch_case(case, gen) -> int:
+def _edge_windows(p0: int, f0: int, cfg: dict, i: int, tl: int, plan: dict, produced: int,
+                  elem_bytes: int, by_thread: bool) -> tuple:
+    """The input rows [first, end) of stream i's first stage's window (frame 0
+    on) and of the stage that holds its last produced frame
+    (batch_kernels.cu stage_window)."""
+    from clownresampler_tpu_torch.ops import _build
+
+    inc = (cfg["increment_hi"][i] << 16) + cfg["increment_lo"][i]
+    delta = cfg["stretched_kernel_radius_delta"][i]
+
+    def row(n: int) -> int:
+        t = f0 + n * inc
+        return p0 + (t >> 16) + (((t & 0xFFFF) + delta + 0xFFFF) >> 16)
+
+    def stage_frames(n0: int, live_end: int) -> int:
+        return _build.batch_stage_frames(increment=inc, tap_stride=tl,
+                                         channels=plan["channel_tile"], frames=live_end - n0,
+                                         elem_bytes=elem_bytes, by_thread=by_thread)[0]
+
+    nr = plan["range_frames"]
+    first_end = min(produced, nr)
+    n0 = (produced - 1) // nr * nr
+    f = stage_frames(n0, produced)
+    a = n0 + (produced - 1 - n0) // f * f
+    return ((row(0), row(min(stage_frames(0, first_end), first_end) - 1) + tl),
+            (row(a), row(produced - 1) + tl))
+
+
+def _granules_inside_x(xb, i: int, first: int, end: int) -> bool:
+    """Whether the 16-byte granules that cover rows [first, end) of stream i
+    of ``xb`` lie inside its B streams (batch_kernels.cu granules_inside_x)."""
+    b, s, c = xb.shape
+    es, x0 = xb.element_size(), xb.data_ptr()
+    x1 = x0 + ((b - 1) * xb.stride(0) + s * c) * es
+    at = lambda r: x0 + (i * xb.stride(0) + r * c) * es
+    return at(first) & ~15 >= x0 and (at(end) + 15) & ~15 <= x1
+
+
+def batch_case_paths(x, state, produced, *, max_taps: int, n_out: int) -> set:
+    """The BATCH_PATHS a batch_mac_kernel launch on ``x`` ((S, C) or (B, S,
+    C)) from ``state`` took, from its plan (ops/_build.py batch_plan,
+    batch_copy_path, batch_stage_frames) and the streams' produced counts."""
+    from clownresampler_tpu_torch.ops import _build
+
+    xb = x[None] if x.dim() == 2 else x
+    b, _, c = xb.shape
+    plan = _build.batch_plan(b, n_out, c)
+    copy = _build.batch_copy_path(channels=c, elem_bytes=xb.element_size(),
+                                  stride_b=xb.stride(0), ptr=xb.data_ptr())
+    produced = [int(v) for v in produced.reshape(-1).cpu()]
+    cfg = {f: [int(v) for v in getattr(state.cfg, f).reshape(-1).expand(b).cpu()]
+           for f in ("increment_hi", "increment_lo", "integer_stretched_kernel_radius",
+                     "stretched_kernel_radius", "stretched_kernel_radius_delta")}
+    flat = plan["channel_tile"] == c
+    paths = set()
+    if any(produced):
+        paths.add("copy granules, flat" if flat else
+                  "copy granules, channel tiles" if copy & _build.BATCH_COPY_VEC else
+                  "copy words, channel tiles" if copy & _build.BATCH_COPY_WORDS else
+                  "copy elements, channel tiles")
+    p0 = [int(v) for v in state.position_integer.reshape(-1).expand(b).cpu()]
+    f0 = [int(v) for v in state.position_fractional.reshape(-1).expand(b).cpu()]
+    for i, p in enumerate(produced):
+        # The zero span of the block that holds frame p starts at output int
+        # (i * n_out + p) * C.
+        if flat and 0 <= p < n_out and (i * n_out + p) * c % 4:
+            paths.add("zero head off 16 bytes")
+        if p > 0:
+            tl = _build.batch_tap_stride(
+                int_radius=cfg["integer_stretched_kernel_radius"][i],
+                radius=cfg["stretched_kernel_radius"][i],
+                delta=cfg["stretched_kernel_radius_delta"][i], max_taps=max_taps)
+            frames, _ = _build.batch_stage_frames(
+                increment=(cfg["increment_hi"][i] << 16) + cfg["increment_lo"][i],
+                tap_stride=tl, channels=plan["channel_tile"],
+                frames=min(p, plan["range_frames"]), elem_bytes=xb.element_size(),
+                by_thread=flat and c <= 4)
+            paths.add("x read directly" if not frames else
+                      "a thread a frame" if flat and c <= 4 else "geometry in shared memory")
+            windows = _edge_windows(p0[i], f0[i], cfg, i, tl, plan, p, xb.element_size(),
+                                    flat and c <= 4) if frames else ()
+            for first, end in windows:
+                if first < 0 or end > xb.shape[1]:
+                    paths.add("clamped rows as words" if copy & _build.BATCH_COPY_WORDS else
+                              "clamped rows by element")
+                elif flat and not _granules_inside_x(xb, i, first, end):
+                    paths.add("flat granules past x's ends refused")
+    paths |= {"produced = n_out"} if n_out in produced else set()
+    paths |= {"produced = 0"} if 0 in produced else set()
+    if x.dim() == 2 and c == 2048 and plan["range_frames"] < n_out:
+        paths.add("2-D, C 2048 over frames")
+    return paths
+
+
+def run_batch_case(case, gen, paths=None) -> int:
     """One BATCH_CASES launch of batch_mac_kernel (resample_streams) against
     lowlevel.resample_chunk_reference on the same inputs: every leaf exact.
-    Returns the output's max abs error (0)."""
+    Returns the output's max abs error (0); adds the launch's BATCH_PATHS to
+    ``paths``."""
     from clownresampler_tpu_torch.lowlevel import resample_chunk_reference
     from clownresampler_tpu_torch.ops import resample as rs
 
@@ -763,6 +904,8 @@ def run_batch_case(case, gen) -> int:
     for i, (g, w) in enumerate(zip(_batch_leaves(got), _batch_leaves(want))):
         if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(g, w):
             raise AssertionError(f"batch_mac_kernel != plain version at {label}, leaf {i}")
+    if paths is not None:
+        paths |= batch_case_paths(x, state, got[1], **kw)
     return int((got[0].long() - want[0].long()).abs().max())
 
 
@@ -797,8 +940,11 @@ def check_kernels(gen) -> dict:
         raise AssertionError(f"FARM_STAGE_CASES took the paths {paths}, not all three")
     for case in FARM_UNSTAGE_CASES:
         results["farm_unstage_kernel"].append((case[0], run_farm_unstage_case(case, gen)))
+    batch_paths = set()
     for case in BATCH_CASES:
-        results["batch_mac_kernel"].append((case[0], run_batch_case(case, gen)))
+        results["batch_mac_kernel"].append((case[0], run_batch_case(case, gen, batch_paths)))
+    if batch_paths != BATCH_PATHS:
+        raise AssertionError(f"BATCH_CASES missed the paths {sorted(BATCH_PATHS - batch_paths)}")
     torch.cuda.synchronize()
     return results
 
@@ -1997,25 +2143,81 @@ def batch_bound(case: dict, produced, peaks: dict) -> dict:
                 bytes=nbytes, int32_ops=ops, memory_ms=memory_ms, operations_ms=ops_ms)
 
 
-def time_batch_kernel(fleet: dict, peaks: dict) -> dict:
-    """resample_batch on the fleet's inputs (FLEET): the whole entry (one
-    batch_mac_kernel launch and the outputs' allocation) by CUDA events,
-    beside its plain version on the card and its bound (batch_bound). No
-    single PyTorch call computes it: each tap term is truncated on its own
-    (library_ms null)."""
-    from clownresampler_tpu_torch.batch import resample_batch, resample_batch_reference
+# The BATCH_CASES launch that is an oracle-scan step (B = 1, C = 2048),
+# timed beside the fleet and BATCH.
+ORACLE_STEP_CASE = "2-D C=2048 44.1k->8k (an oracle-scan step)"
+
+
+def batch_kernel_ms(case: dict) -> float:
+    """batch_mac_kernel alone on ``case`` (batch_case's keys; x (B, S, C)):
+    its C entry called back to back with checked arguments into one set of
+    outputs (_entry_ms), no host work between the launches."""
     from clownresampler_tpu_torch.ops import _build
 
-    case = fleet["case"]
+    table, x, totals, states, quotas = case["args"]
+    args = _build.batch_launch_args(x, table, totals, quotas, states.position_integer,
+                                    states.position_fractional, states.cfg, **case["kw"])
+    b, _, c = x.shape
+    outs = [torch.empty((b, case["kw"]["n_out"], c), dtype=torch.int32, device=x.device),
+            *torch.empty((4, b), dtype=torch.int32, device=x.device),
+            torch.empty(b, dtype=torch.bool, device=x.device)]
+    args.update(zip(("out", "produced", "consumed", "p_out", "f_out", "exhausted"),
+                    (t.data_ptr() for t in outs)))
+    return _entry_ms("crt_batch_mac", args)
+
+
+def _batch_entry_timing(case: dict, call, peaks: dict, plain_reps: int = 3) -> dict:
+    """One batch entry ``call`` on ``case`` (batch_case's keys; x (B, S, C))
+    by CUDA events beside the kernel alone (batch_kernel_ms), its plain
+    version and its bound (batch_bound)."""
+    from clownresampler_tpu_torch.batch import resample_batch_reference
+    from clownresampler_tpu_torch.ops import _build
+
     args, kw = case["args"], case["kw"]
     x = args[1]
-    res = dict(ms=cuda_ms(lambda: resample_batch(*args, **kw)[0]),
-               plain_ms=cuda_ms(lambda: resample_batch_reference(*args, **kw)[0], reps=3),
-               library_ms=None, **batch_bound(case, fleet["out"][1], peaks),
-               tile=_build.batch_tile(x.shape[2], kw["max_taps"], x.element_size()),
+    produced = call()[1].reshape(-1)
+    res = dict(ms=cuda_ms(lambda: call()[0]), kernel_ms=batch_kernel_ms(case),
+               plain_ms=cuda_ms(lambda: resample_batch_reference(*args, **kw)[0],
+                                reps=plain_reps),
+               library_ms=None, **batch_bound(case, produced, peaks),
+               plan=_build.batch_plan(x.shape[0], kw["n_out"], x.shape[2]),
                shape=f"x {tuple(x.shape)} {x.dtype}, n_out {kw['n_out']}, "
                      f"taps {kw['max_taps']}")
     res["bound_share"] = res["bound_ms"] / res["ms"]
+    return res
+
+
+def oracle_step_case(gen) -> tuple:
+    """(case, call) of the oracle-scan step (ORACLE_STEP_CASE): the 2-D call
+    as resample_scan makes it, and its inputs as a one-stream batch for the
+    bound."""
+    from clownresampler_tpu_torch.batch import stack_states
+    from clownresampler_tpu_torch.ops import resample as rs
+
+    table, x, totals, state, quota, kw = batch_case_inputs(dict(BATCH_CASES)[ORACLE_STEP_CASE],
+                                                          gen)
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32, device=x.device)
+    case = dict(args=(table, x[None], i32(totals), stack_states([state]), i32(quota)), kw=kw)
+    return case, lambda: rs.resample_streams(table, x, totals, state, quota, **kw)
+
+
+def time_batch_kernel(fleet: dict, peaks: dict, gen) -> dict:
+    """resample_batch on the fleet's inputs (FLEET): the whole entry (one
+    batch_mac_kernel launch and the outputs' allocation) by CUDA events,
+    beside its plain version on the card and its bound (batch_bound); the
+    same at BATCH and at the oracle-scan step (ORACLE_STEP_CASE, as
+    resample_streams). No single PyTorch call computes it: each tap term is
+    truncated on its own (library_ms null)."""
+    from clownresampler_tpu_torch.batch import resample_batch
+
+    case = fleet["case"]
+    res = _batch_entry_timing(case, lambda: resample_batch(*case["args"], **case["kw"]), peaks)
+    small = batch_case(np.random.default_rng(SEED), BATCH)
+    step, step_call = oracle_step_case(gen)
+    res["shapes"] = dict(
+        batch=_batch_entry_timing(small, lambda: resample_batch(*small["args"], **small["kw"]),
+                                  peaks),
+        oracle_scan_step=_batch_entry_timing(step, step_call, peaks))
     return res
 
 
@@ -2494,7 +2696,7 @@ def main() -> int:
     phase("farm_kernels", nvidia_smi=smi, **farm_kernels)
     phase("copy_rates", nvidia_smi=smi, **copy_rates())
     phase("result_delivery", nvidia_smi=smi, **time_result_delivery())
-    batch_kernel = time_batch_kernel(fleet, timing["peaks"])
+    batch_kernel = time_batch_kernel(fleet, timing["peaks"], gen)
     timing["kernels"]["batch_mac_kernel"] = batch_kernel
     phase("batch_kernel", nvidia_smi=smi, **batch_kernel)
     sharded_timing = time_sharded(rng, farm, fleet["case"])

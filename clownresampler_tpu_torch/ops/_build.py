@@ -75,9 +75,9 @@ ENTRY_ARGS = {
     "crt_farm_sync": ("device", "stream"),
     "crt_batch_mac": ("x", "x_s16", "B", "S", "C", "stride_b", "totals", "quotas", "p0_ptr",
                       "f0_ptr", "inc_hi", "inc_lo", "radius", "delta", "int_radius", "step",
-                      "table", "table_size", "T", "N", "channel_tile", "tile_frames", "win_rows",
-                      "words", "out", "produced", "consumed", "p_out", "f_out", "exhausted",
-                      "device", "stream"),
+                      "table", "table_size", "T", "N", "channel_tile", "range_frames", "copy",
+                      "out", "produced", "consumed", "p_out", "f_out", "exhausted", "device",
+                      "stream"),
 }
 # library -> (source file, its C entries).
 LIBRARIES = {
@@ -698,30 +698,97 @@ def farm_unstage(src, dst, *, n_out: int, channels: int, stream_lo: int, streams
                                                   streams=streams))
 
 
-# batch_mac_kernel (batch_kernels.cu BATCH_THREADS): threads a block; the
-# most channels a block takes; the frames of a block's tile, in frames a
-# thread; the increment (input rows an output frame, rounded up) that the
-# staged window is sized for, which stages a whole tile at every ratio of
-# config 5 (1.09, 0.92, 0.17, 2.0); and the bytes a block's window may take.
+# batch_mac_kernel (batch_kernels.cu): threads a block; the most channels a
+# block takes (more channels split into tiles of this many; up to it a
+# block's frames are one contiguous span of the output); the blocks a
+# launch aims for, which the frame ranges are sized to reach (4096: at
+# config 5's fleet four ranges a stream, which measured faster on the H100
+# than 1024, 2048, 8192 or 16,384; PERF.md); the fewest
+# frames of a range; the bytes of each of a block's two stages
+# (batch_kernels.cu BATCH_STAGE_BYTES: 2 x 24 KB, the most a block takes
+# without opting in to more); the frames of a stage (BATCH_MAX_TILE, or
+# BATCH_MAX_THREAD_TILE where a thread takes a frame -- flat, C <= 4 --, and
+# BATCH_MIN_TILE: below it, a stream reads x directly); how a stage's window
+# may be copied (batch_copy_path: bits BATCH_COPY_VEC and BATCH_COPY_WORDS,
+# or BATCH_COPY_PLAIN).
 BATCH_THREADS = 256
-BATCH_CHANNEL_TILE = 128
-BATCH_FRAMES_PER_THREAD = 4
-BATCH_STAGE_INCREMENT = 2
-BATCH_SHARED_BUDGET = 32 * 1024
+BATCH_CHANNEL_TILE = 64
+BATCH_GRID_BLOCKS = 4096
+BATCH_MIN_RANGE_FRAMES = 8
+BATCH_STAGE_BYTES = 24 * 1024
+BATCH_MAX_TILE = 512
+BATCH_MAX_THREAD_TILE = 2048
+BATCH_MIN_TILE = 8
+BATCH_COPY_PLAIN = 0
+BATCH_COPY_VEC = 1
+BATCH_COPY_WORDS = 2
 
 
-def batch_tile(channels: int, max_taps: int, elem_bytes: int) -> dict:
-    """crt_batch_mac's block shape for ``channels`` channels of
-    ``elem_bytes``-byte samples: the channels a block takes (channel_tile,
-    at most BATCH_CHANNEL_TILE), the frames of its tile (its rows of
-    threads, BATCH_THREADS // channel_tile, times BATCH_FRAMES_PER_THREAD)
-    and the rows of its staged window: the tile's window at
-    BATCH_STAGE_INCREMENT, within BATCH_SHARED_BUDGET."""
+def batch_plan(streams: int, n_out: int, channels: int) -> dict:
+    """crt_batch_mac's grid, from the launch's shape alone (only the card
+    knows how many frames each stream produces): the channels a block takes
+    (channel_tile: all C up to BATCH_CHANNEL_TILE, else tiles of that many),
+    the frames of its range (range_frames: the longest, in whole
+    BATCH_MIN_RANGE_FRAMES, that still gives BATCH_GRID_BLOCKS blocks where
+    the launch has them)."""
     tile = min(channels, BATCH_CHANNEL_TILE)
-    frames = BATCH_THREADS // tile * BATCH_FRAMES_PER_THREAD
-    rows = min(max_taps + (frames - 1) * BATCH_STAGE_INCREMENT,
-               BATCH_SHARED_BUDGET // (tile * elem_bytes))
-    return dict(channel_tile=tile, tile_frames=frames, win_rows=rows)
+    per_range = streams * -(-channels // tile)
+    ranges = max(1, min(-(-BATCH_GRID_BLOCKS // per_range), -(-n_out // BATCH_MIN_RANGE_FRAMES)))
+    frames = -(-max(n_out, 1) // ranges)
+    frames = -(-frames // BATCH_MIN_RANGE_FRAMES) * BATCH_MIN_RANGE_FRAMES
+    return dict(channel_tile=tile, range_frames=frames)
+
+
+def batch_tap_stride(*, int_radius: int, radius: int, delta: int, max_taps: int) -> int:
+    """batch_kernels.cu tap_stride: the most live taps a frame of a stream
+    with these ConfigScalars can have (frame_window's min_rel and max_rel
+    are both nondecreasing in the phase's fraction), at most max_taps."""
+    most = int_radius + ((0xFFFF + radius) >> 16) - ((delta + 0xFFFF) >> 16)
+    return max(1, min(most, max_taps))
+
+
+def batch_stage_frames(*, increment: int, tap_stride: int, channels: int, frames: int,
+                       elem_bytes: int, by_thread: bool) -> tuple:
+    """The rule by which a batch_mac_kernel block picks its frames a stage
+    on the card (stage_frames; by_thread: mac_frames_by_thread, flat blocks
+    of C <= 4, whose stage is its window alone): the most of the largest
+    tile, halved, no more than the ``frames`` live frames need, whose window
+    -- at most ceil((F - 1) * increment / 2^16) + tap_stride rows of
+    ``channels`` samples, in whole 16-byte granules and one more -- fits
+    BATCH_STAGE_BYTES beside the frames' geometry (tap_stride taps and three
+    ints a frame; none by_thread). Returns (F, window bytes); (0, 0) when
+    not even BATCH_MIN_TILE frames fit: the block reads x directly."""
+    f = BATCH_MAX_THREAD_TILE if by_thread else BATCH_MAX_TILE
+    while f > BATCH_MIN_TILE and f // 2 >= frames:
+        f //= 2
+    while f >= BATCH_MIN_TILE:
+        rows = (((f - 1) * increment + 0xFFFF) >> 16) + tap_stride
+        window = (rows * channels * elem_bytes + 15) // 16 * 16 + 16
+        if window + (0 if by_thread else 4 * f * (tap_stride + 3)) <= BATCH_STAGE_BYTES:
+            return f, window
+        f //= 2
+    return 0, 0
+
+
+def batch_copy_path(*, channels: int, elem_bytes: int, stride_b: int, ptr: int) -> int:
+    """How batch_mac_kernel may copy a stage's window (x (B, S, C) of
+    elem_bytes-byte samples at address ptr, stride_b elements between
+    streams), as bits: BATCH_COPY_VEC, 16-byte granules, for windows inside
+    the buffer, when a block takes all C channels -- its window is one
+    contiguous byte range, covered by whole granules; the card copies a
+    window so only where those granules lie inside x's streams -- or,
+    with channel tiles, when every row segment of a tile starts and ends on 16 bytes
+    (C * elem_bytes, stride_b * elem_bytes and ptr multiples of 16);
+    BATCH_COPY_WORDS, 4-byte words with each row clamped (windows at the
+    buffer's edges, or every window without VEC), when every row segment is
+    whole words at 4-byte aligned addresses. Neither (BATCH_COPY_PLAIN):
+    element by element."""
+    def aligned(to: int) -> bool:
+        return (channels * elem_bytes % to == 0 and stride_b * elem_bytes % to == 0
+                and ptr % to == 0)
+
+    vec = channels <= BATCH_CHANNEL_TILE or aligned(16)
+    return (BATCH_COPY_VEC if vec else 0) | (BATCH_COPY_WORDS if aligned(4) else 0)
 
 
 def batch_launch_args(x, table, totals, quotas, p0, f0, cfg, *, max_taps: int,
@@ -736,26 +803,27 @@ def batch_launch_args(x, table, totals, quotas, p0, f0, cfg, *, max_taps: int,
     if x.dim() != 3 or x.dtype not in (torch.int16, torch.int32):
         raise ValueError(f"x must be (B, S, C) int16 or int32, got {x.dtype} {tuple(x.shape)}")
     b, s, c = x.shape
-    if x.stride(2) != 1 or x.stride(1) != c:
+    stride_b, stride_s, stride_c = x.stride()
+    if stride_c != 1 or stride_s != c:
         raise ValueError(f"each stream of x must be contiguous, got strides {x.stride()}")
     if not (0 < b <= 65535 and s > 0 and c > 0 and max_taps > 0 and n_out >= 0):
         raise ValueError(f"bad batch launch: x {tuple(x.shape)}, {max_taps} taps, "
                          f"{n_out} frames")
     leaves = dict(totals=totals, quotas=quotas, p0_ptr=p0, f0_ptr=f0,
                   **{arg: getattr(cfg, f) for arg, f in zip(CONFIG_ARGS, TILED_CONFIG_FIELDS)})
+    dev = x.get_device()
     for name, t in {**leaves, "table": table}.items():
-        if (t.device != x.device or t.dtype != torch.int32 or t.dim() != 1
-                or not t.is_contiguous() or (name != "table" and t.shape[0] != b)):
+        if not (t.dtype == torch.int32 and t.get_device() == dev and t.dim() == 1
+                and t.is_contiguous() and (name == "table" or t.shape[0] == b)):
             raise ValueError(f"{name} must be a contiguous 1-d int32 tensor on {x.device}"
                              f"{'' if name == 'table' else f' of {b} streams'}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    s16 = x.dtype == torch.int16
-    words = int(not s16 or (c % 2 == 0 and x.stride(0) % 2 == 0 and x.data_ptr() % 4 == 0))
-    return dict(x=x.data_ptr(), x_s16=int(s16), B=b, S=s, C=c, stride_b=x.stride(0),
+    ptr = x.data_ptr()
+    copy = batch_copy_path(channels=c, elem_bytes=x.element_size(), stride_b=stride_b, ptr=ptr)
+    return dict(x=ptr, x_s16=int(x.dtype == torch.int16), B=b, S=s, C=c, stride_b=stride_b,
                 **{name: t.data_ptr() for name, t in leaves.items()}, table=table.data_ptr(),
-                table_size=table.shape[0], T=max_taps, N=n_out,
-                **batch_tile(c, max_taps, x.element_size()), words=words,
-                device=x.device.index, stream=_stream(x))
+                table_size=table.shape[0], T=max_taps, N=n_out, **batch_plan(b, n_out, c),
+                copy=copy, device=dev, stream=_stream(x))
 
 
 def batch_mac(x, table, totals, quotas, p0, f0, cfg, *, max_taps: int, n_out: int) -> tuple:

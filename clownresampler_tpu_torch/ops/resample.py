@@ -691,10 +691,16 @@ def entry_launch_args(kind: str, table, x, state, *, d: int, cand, max_taps: int
 
 def _stream_leaf(v, b: int, x) -> torch.Tensor:
     """A per-stream scalar as batch_mac_kernel reads it: a contiguous (b,)
-    int32 tensor on x's device. A one-element tensor serves every stream (a
-    0-dim leaf of a 2-D call); a Python int is filled on the device."""
+    int32 tensor on x's device, as it comes or made so. A one-element tensor
+    serves every stream (a 0-dim leaf of a 2-D call); a Python int is filled
+    on the device."""
     if not isinstance(v, torch.Tensor):
         return torch.full((b,), int(v), dtype=torch.int32, device=x.device)
+    if v.dtype == torch.int32 and v.get_device() == x.get_device():
+        if v.shape == (b,) and v.is_contiguous():
+            return v
+        if b == 1 and v.dim() == 0:
+            return v.reshape(1)
     v = v.to(device=x.device, dtype=torch.int32)
     return v.reshape(-1).expand(b).contiguous()
 

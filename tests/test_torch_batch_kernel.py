@@ -6,14 +6,21 @@ and ``parallel.sharded_resample_batch`` (and ``lowlevel.resample_scan``, a
 On the CPU: the plain versions (the gather) are exact against the JAX
 package's ``resample_batch`` and ``resample_chunk`` on the same seeded
 inputs; a numpy mirror of the kernel's int64 bookkeeping equals the plain
-version's int32 results at the quota and exhaustion edges; a mirror of the
-kernel's stage plan shows that every staged window holds every tap row its
-frames read; the entries' card route runs on CPU tensors with the C entry
-stood in over the same pointers by an exact-integer mirror of the kernel,
-against the plain version; and the routing: the CPU takes the gather, a card
-the kernel and never ``convolve_frames``. ``cuda``-marked tests (skipped
-without a card) hold every ``chip_smoke.BATCH_CASES`` launch against its
-plain version and the sharded batch against the unsharded one.
+version's int32 results at the quota and exhaustion edges; mirrors of the
+kernel's plan show that the host's range split covers every frame and
+channel once and fills the card, that every staged window holds every tap
+row its frames read, that a block's zero span splits into a head, a 16-byte
+body and a tail that cover it exactly, that the copy path's alignment
+rule matches the copies (its constants checked against the CUDA source),
+that a flat window's 16-byte granules are copied only inside x, and that
+``chip_smoke.BATCH_CASES`` take every path the chip run requires;
+the entries' card route runs on CPU tensors with the C entry stood in over
+the same pointers by an exact-integer mirror of the kernel that stores
+block by block through the mirrored plan, against the plain version; and
+the routing: the CPU takes the gather, a card the kernel and never
+``convolve_frames``. ``cuda``-marked tests (skipped without a card) hold
+every ``chip_smoke.BATCH_CASES`` launch against its plain version and the
+sharded batch against the unsharded one.
 """
 
 import ctypes
@@ -273,22 +280,75 @@ def _view(ptr, shape, dtype=np.int32):
     return np.frombuffer((ctypes.c_char * nbytes).from_address(ptr), dtype=dtype).reshape(shape)
 
 
+def _blocks(a: dict):
+    """batch_kernels.cu batch_mac_kernel's blocks of one stream, mirrored:
+    (n0, n1, c0, cn) of grid (frame ranges, channel tiles)."""
+    n_out, c, nr, ct = a["N"], a["C"], a["range_frames"], a["channel_tile"]
+    return [(n0, min(n0 + nr, n_out), c0, min(ct, c - c0))
+            for n0 in range(0, max(n_out, 1), nr) for c0 in range(0, c, ct)]
+
+
+def _zero_split(base: int, a: int, e: int, c: int) -> tuple:
+    """store_zeros' flat span of frames [a, e) (output indices from the
+    stream's base), mirrored: the scalar head up to 16-byte alignment, the
+    body of 16-byte stores and the scalar tail, each a (start, end) range."""
+    e0, e1 = base + a * c, base + e * c
+    h = min((e0 + 3) & ~3, e1)
+    t = max(h, e1 & ~3)
+    return (e0, h), (h, t), (t, e1)
+
+
+def _flat_quads(base: int, a: int, e: int, c: int) -> np.ndarray:
+    """store_frames' flat quads of frames [a, e): the output index of each
+    quad's first int (16-byte aligned), its elements those inside the span."""
+    la = a * c
+    return base + np.arange(la - ((base + la) & 3), e * c, 4)
+
+
+def _block_writes(a: dict, b: int, produced: int, block: tuple) -> tuple:
+    """The output indices one block stores (live, zero), as store_frames and
+    store_zeros store them: flat (one span) through the quads and the zero
+    split, channel tiles frame by frame."""
+    n_out, c = a["N"], a["C"]
+    n0, n1, c0, cn = block
+    base = b * n_out * c
+    live_end = max(n0, min(produced, n1))
+    rows = lambda f0, f1: (base + np.arange(f0, f1)[:, None] * c + c0
+                           + np.arange(cn)[None]).reshape(-1)
+    if cn != c:
+        return rows(n0, live_end), rows(live_end, n1)
+    zero = np.concatenate([np.arange(*r) for r in _zero_split(base, live_end, n1, c)])
+    if c <= 4:
+        # frames_by_thread: a thread stores a frame's C ints.
+        return rows(n0, live_end), zero
+    quads = _flat_quads(base, n0, live_end, c)
+    assert not (quads % 4).any()
+    live = (quads[:, None] + np.arange(4)[None]).reshape(-1)
+    live = live[(live >= base + n0 * c) & (live < base + live_end * c)]
+    return live, zero
+
+
 def _batch_stand_in(calls):
     """crt_batch_mac over the same pointers, by the exact-integer mirror:
-    stream b's rows at x + b * stride_b elements, its ten leaves at index b."""
+    stream b's rows at x + b * stride_b elements, its ten leaves at index b;
+    each block's frames stored through the mirror of its stores, every
+    output int exactly once."""
     def entry(*args):
         a = dict(zip(_build.ENTRY_ARGS["crt_batch_mac"], args))
         calls.append(a)
         b, s, c, n_out = a["B"], a["S"], a["C"], a["N"]
         dt = np.int16 if a["x_s16"] else np.int32
-        assert a["words"] in (0, 1) and a["T"] > 0
-        assert a == dict(a, **_build.batch_tile(c, a["T"], np.dtype(dt).itemsize))
+        assert a["T"] > 0 and a["out"] % 16 == 0
+        assert a == dict(a, **_build.batch_plan(b, n_out, c))
+        assert a["copy"] == _build.batch_copy_path(
+            channels=c, elem_bytes=np.dtype(dt).itemsize, stride_b=a["stride_b"], ptr=a["x"])
         leaf = lambda k: _view(a[k], (b,)).astype(np.int64)
         geo = dict(zip(GEOMETRY, map(leaf, ("p0_ptr", "f0_ptr", *GEOMETRY[2:]))))
         table = _view(a["table"], (a["table_size"],)).astype(np.int64)
-        out = _view(a["out"], (b, n_out, c))
+        out = _view(a["out"], (b * n_out * c,))
         results = [_view(a[k], (b,)) for k in ("produced", "consumed", "p_out", "f_out")]
         exhausted = _view(a["exhausted"], (b,), np.uint8)
+        writes = np.zeros(b * n_out * c, np.int64)
         for i in range(b):
             g = {k: int(v[i]) for k, v in geo.items()}
             g["inc"] = g["inc_hi"] * 65536 + g["inc_lo"]
@@ -298,8 +358,14 @@ def _batch_stand_in(calls):
                 r[i] = v
             exhausted[i] = got[4]
             x = _view(a["x"] + i * a["stride_b"] * np.dtype(dt).itemsize, (s, c), dt)
-            out[i] = 0
-            out[i, : max(got[0], 0)] = _frames_int64(x, g, table, a["T"], got[0])
+            frames = np.zeros(n_out * c, np.int64)
+            frames[: max(got[0], 0) * c] = _frames_int64(x, g, table, a["T"], got[0]).reshape(-1)
+            for block in _blocks(a):
+                live, zero = _block_writes(a, i, got[0], block)
+                out[live] = frames[live - i * n_out * c]
+                out[zero] = 0
+                np.add.at(writes, np.concatenate([live, zero]), 1)
+        assert (writes == 1).all()
         return 0
     return entry
 
@@ -344,7 +410,8 @@ def test_torch_batch_entry_argument_flow(card, channels, dtype):
         assert card[-1]["B"] == 1 and got[1].dim() == 0
     assert len(card) == 2 + len(RATES)
     assert {a["x_s16"] for a in card} == {int(dtype == np.int16)}
-    assert {a["words"] for a in card} == {int(dtype == np.int32 or channels % 2 == 0)}
+    words = _build.BATCH_COPY_WORDS if channels * np.dtype(dtype).itemsize % 4 == 0 else 0
+    assert {a["copy"] for a in card} == {_build.BATCH_COPY_VEC | words}
 
 
 def test_torch_batch_entry_argument_flow_wide_taps(card):
@@ -379,39 +446,82 @@ def test_torch_batch_launcher_refuses_what_the_kernel_cannot_take(card):
 
 
 # ---------------------------------------------------------------------------
-# The stage plan: every staged window holds its frames' taps
+# The kernel's plan: ranges, stages, zero spans, copy paths
 # ---------------------------------------------------------------------------
 
+# (B, n_out, C): config 5's fleet, BATCH, an oracle-scan step (2-D, C 2048),
+# a 2-D mono call, the port's small batches, channel tiles, no frames.
+PLAN_SHAPES = ((1024, 16384, 2), (256, 8192, 2), (1, 128, 2048), (1, 2048, 1), (7, 512, 3),
+               (64, 4096, 2), (3, 100, 200), (1, 0, 2), (20000, 1024, 2))
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+def test_torch_batch_range_split_fills_the_card_and_covers_once(shape):
+    """batch_plan's grid covers every (frame, channel) of a stream exactly
+    once, reaches BATCH_GRID_BLOCKS blocks where the launch has that many
+    ranges of BATCH_MIN_RANGE_FRAMES, and takes no more ranges than that
+    needs (each as long as it can be); at the fleet, four blocks a stream."""
+    b, n_out, c = shape
+    plan = _build.batch_plan(b, n_out, c)
+    a = dict(plan, N=n_out, C=c)
+    nr, ct = plan["range_frames"], plan["channel_tile"]
+    assert nr % _build.BATCH_MIN_RANGE_FRAMES == 0 and 0 < ct <= _build.BATCH_CHANNEL_TILE
+    counts = np.zeros((n_out, c), np.int64)
+    blocks = _blocks(a)
+    for n0, n1, c0, cn in blocks:
+        counts[n0:n1, c0 : c0 + cn] += 1
+    assert (counts == 1).all()
+    # The C entry's grid: (ceil(N / NR) or 1, ceil(C / CT), B).
+    ranges = max(1, -(-n_out // nr))
+    assert len(blocks) == ranges * -(-c // ct)
+    per_range = b * -(-c // ct)
+    most = per_range * max(1, -(-n_out // _build.BATCH_MIN_RANGE_FRAMES))
+    assert ranges * per_range >= min(_build.BATCH_GRID_BLOCKS, most)
+    assert ranges <= max(1, -(-_build.BATCH_GRID_BLOCKS // per_range))
+    if shape == (1024, 16384, 2):
+        assert ranges == 4 and ct == 2
+    if shape == (1, 128, 2048):
+        assert ct == 64 and ranges > 1
+
+
 def _stage_plan(state, *, taps, n_out, produced, channels, elem_bytes, s):
-    """batch_kernels.cu batch_mac_kernel's stages for one stream, mirrored:
-    per block tile, its frames per stage (halved from the tile's until
-    their window fits), each stage's first row and rows, whether it is
-    staged; asserts that a staged window holds every tap row of its frames
-    (which clamped staging then serves as the gather clamps them). Returns
-    (staged, direct) stage counts."""
-    tile = _build.batch_tile(channels, taps, elem_bytes)
-    tf, w = tile["tile_frames"], tile["win_rows"]
-    r = _build.BATCH_THREADS // tile["channel_tile"]
+    """batch_mac_kernel's stages for one stream, mirrored: per block, its
+    frames per stage (stage_frames) and each stage's window (stage_window);
+    asserts that every frame's live taps fit the stage's tap stride, that a
+    staged window holds every tap row of its frames and fits its stage's
+    bytes beside their geometry. Returns (staged, direct) stage counts."""
+    cfg = state.cfg
+    g = dict(inc=(int(cfg.increment_hi) << 16) + int(cfg.increment_lo),
+             int_radius=int(cfg.integer_stretched_kernel_radius),
+             radius=int(cfg.stretched_kernel_radius),
+             delta=int(cfg.stretched_kernel_radius_delta))
     row, _, live = rs._frame_windows(state, torch.arange(n_out, dtype=torch.int64))
-    row, live = row.numpy(), live.numpy()
-    end = row + live                       # the kernel's span uses the unclamped taps
-    used = row + np.clip(live, 0, taps)    # rows the frames read
+    row, live = row.numpy(), np.clip(live.numpy(), 0, taps)
+    tl = _build.batch_tap_stride(int_radius=g["int_radius"], radius=g["radius"],
+                                 delta=g["delta"], max_taps=taps)
+    assert (live <= tl).all()
+    a = dict(_build.batch_plan(1024, n_out, channels), N=n_out, C=channels)
     counts = [0, 0]
-    for n0 in range(0, n_out, tf):
-        nb = min(tf, n_out - n0)
-        live_frames = max(0, min(produced - n0, nb))
-        span = lambda a, e: end[n0 + e - 1] - row[n0 + a]
-        f = tf
-        while f > r and live_frames > 0 and span(0, min(f, live_frames)) > w:
-            f //= 2
-        for s0 in range(0, live_frames, f):
-            sf = min(f, live_frames - s0)
-            first, rows = row[n0 + s0], span(s0, s0 + sf)
-            staged = rows <= w
-            counts[not staged] += 1
-            if staged:
-                frames = slice(n0 + s0, n0 + s0 + sf)
-                assert (row[frames] >= first).all() and (used[frames] <= first + rows).all()
+    for n0, n1, _, cn in _blocks(a):
+        live_end = max(n0, min(produced, n1))
+        if live_end == n0:
+            continue
+        by_thread = cn == channels <= 4
+        f, wb = _build.batch_stage_frames(increment=g["inc"], tap_stride=tl, channels=cn,
+                                          frames=live_end - n0, elem_bytes=elem_bytes,
+                                          by_thread=by_thread)
+        if not f:
+            counts[1] += 1
+            continue
+        for s0 in range(n0, live_end, f):
+            frames = slice(s0, min(s0 + f, live_end))
+            first = row[s0]
+            rows = row[frames.stop - 1] - first + tl
+            counts[0] += 1
+            assert (row[frames] >= first).all()
+            assert (row[frames] + live[frames] <= first + rows).all()
+            assert 15 + rows * cn * elem_bytes <= wb
+            assert wb + (0 if by_thread else 4 * f * (tl + 3)) <= _build.BATCH_STAGE_BYTES
     return tuple(counts)
 
 
@@ -419,14 +529,16 @@ def _stage_plan(state, *, taps, n_out, produced, channels, elem_bytes, s):
                                    WIDE_RATE, (44100, 132)], ids=str)
 def test_torch_batch_stage_windows_hold_every_tap(rates):
     """At config 5's ratios stereo int16 at 40 taps, every stage of every
-    tile is staged; at 44.1k -> 132 (2008 taps) its stages read x directly;
-    and from a nonzero start, at any channel count, every staged window
-    holds its frames' tap rows."""
+    block is staged; at 44.1k -> 132 (2008 taps) stereo is staged a frame a
+    thread, three channels and channel tiles read x directly;
+    and from a nonzero start, at any channel count (C = 2048 in channel
+    tiles), every staged window holds its frames' tap rows."""
     cfg = configure(*rates, max(rates))
     inc = fx.calculate_ratio(*rates)
     taps = max(40, fx.round_up(2 * cfg.integer_stretched_kernel_radius, 8))
     n_in = 8192
-    for (p0, f0), channels, elem in (((0, 0), 2, 2), ((5, 0x9abc), 3, 2), ((1, 7), 2048, 4)):
+    for (p0, f0), channels, elem in (((0, 0), 2, 2), ((5, 0x9abc), 3, 2), ((1, 7), 2048, 4),
+                                     ((2, 3), 2048, 2)):
         state = make_device_state(p0, f0, cfg, inc, CPU)
         produced = _bookkeeping_int64(p0, f0, inc, n_in, 1 << 30, 1 << 14)[0]
         staged, direct = _stage_plan(state, taps=taps, n_out=1 << 14, produced=produced,
@@ -434,20 +546,139 @@ def test_torch_batch_stage_windows_hold_every_tap(rates):
         if channels == 2 and taps == 40 and rates in chip_smoke.MIXED["groups"]:
             assert staged and not direct, (rates, staged, direct)
         if rates == (44100, 132):
-            assert direct and not staged
+            # A thread a frame stages the stereo stream's 2008-tap windows;
+            # the geometry of 8 frames beside a window does not fit.
+            assert (staged and not direct) if channels == 2 else (direct and not staged)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 64])
+def test_torch_batch_zero_span_head_body_tail(channels):
+    """store_zeros' split of a block's zero frames [produced, range end) x C
+    into a scalar head, 16-byte body and scalar tail: the three cover the
+    span exactly, in order; the body starts and ends on 16 bytes of the
+    output and the head and tail are under a quad -- at odd produced counts,
+    odd streams and n_out, and empty spans. And store_frames' flat quads
+    start on 16 bytes and cover the live span."""
+    seen = set()
+    for n_out in (16384, 37, 1):
+        for b in (0, 1, 3):
+            base = b * n_out * channels
+            for a, e in ((0, n_out), (1, n_out), (n_out // 3 | 1, n_out), (n_out, n_out),
+                         (0, 0), (n_out // 2, n_out // 2 + 1)):
+                if not 0 <= a <= e <= n_out:
+                    continue
+                (h0, h1), (b0, b1), (t0, t1) = _zero_split(base, a, e, channels)
+                assert (h0, t1) == (base + a * channels, base + e * channels)
+                assert h0 <= h1 == b0 <= b1 == t0 <= t1
+                assert b0 % 4 == 0 and b1 % 4 == 0 or b0 == b1
+                assert h1 - h0 < 4 and t1 - t0 < 4
+                seen.add(("head", h1 > h0))
+                seen.add(("body", b1 > b0))
+                quads = _flat_quads(base, a, e, channels)
+                assert not (quads % 4).any()
+                if e > a:
+                    assert quads[0] <= base + a * channels < quads[0] + 4
+                    assert quads[-1] < base + e * channels <= quads[-1] + 4
+    # At C a multiple of 4 every span starts on 16 bytes: no head.
+    assert seen == {("head", channels % 4 != 0), ("head", False), ("body", True),
+                    ("body", False)}
 
 
 def test_torch_batch_block_constants_match_the_kernel_source():
     with open(_build.os.path.join(_build.CSRC, "batch_kernels.cu")) as f:
         src = f.read()
-    assert f"constexpr int BATCH_THREADS = {_build.BATCH_THREADS};" in src
-    for c in (1, 2, 3, 128, 2048):
-        t = _build.batch_tile(c, 40, 2)
-        # The frames per stage halve from the tile's down to one a row of threads.
-        r = _build.BATCH_THREADS // t["channel_tile"]
-        assert t["tile_frames"] // r & (t["tile_frames"] // r - 1) == 0
-        assert t["win_rows"] * t["channel_tile"] * 2 <= _build.BATCH_SHARED_BUDGET
-        assert t["win_rows"] >= 40 or c >= 128
+    for name in ("BATCH_THREADS", "BATCH_MAX_TILE", "BATCH_MIN_TILE", "BATCH_MAX_THREAD_TILE",
+                 "BATCH_STAGE_BYTES", "BATCH_COPY_PLAIN", "BATCH_COPY_VEC", "BATCH_COPY_WORDS"):
+        assert f"constexpr int {name} = {getattr(_build, name)};" in src, name
+    # Two stages a block, within what a block takes without opting in to more.
+    assert 2 * _build.BATCH_STAGE_BYTES <= 48 * 1024 and _build.BATCH_STAGE_BYTES % 16 == 0
+    # The geometry gives a stage's frames to 256 / F threads each, within a warp.
+    assert _build.BATCH_THREADS // _build.BATCH_MIN_TILE <= 32
+    for tile in (_build.BATCH_MAX_TILE, _build.BATCH_MAX_THREAD_TILE):
+        assert tile & (tile - 1) == 0 and tile >= _build.BATCH_MIN_TILE
+
+
+# (C, bytes a sample, stride between streams, address, path bits): flat
+# blocks copy granules at any alignment; channel tiles only when every row
+# segment is whole 16-byte granules; clamped rows go as 4-byte words where
+# every row segment is whole words at 4-byte aligned addresses.
+VEC, WORDS = _build.BATCH_COPY_VEC, _build.BATCH_COPY_WORDS
+COPY_PATHS = (
+    (2, 2, 16452, 0x1000, VEC | WORDS),
+    (3, 2, 3 * 1025, 0x1002, VEC),
+    (1, 2, 1025, 0x1002, VEC),
+    (64, 4, 64 * 7, 0x1004, VEC | WORDS),
+    (2048, 2, 2048 * 556, 0x1000, VEC | WORDS),
+    (2048, 4, 2048 * 300, 0x1000, VEC | WORDS),
+    (2048, 2, 2048 * 556, 0x1002, _build.BATCH_COPY_PLAIN),
+    (2048, 2, 2048 * 556 + 2, 0x1000, WORDS),
+    (100, 2, 100 * 300, 0x1000, WORDS),
+    (100, 4, 100 * 300, 0x1000, VEC | WORDS),
+    (99, 2, 99 * 300, 0x1000, _build.BATCH_COPY_PLAIN),
+)
+
+
+@pytest.mark.parametrize("case", COPY_PATHS, ids=str)
+def test_torch_batch_copy_path_by_alignment(case):
+    """batch_copy_path against the kernel's copies: with channel tiles, VEC
+    only where every tile's row segment (channel_tile samples, or the last
+    tile's) starts on 16 bytes of every stream and is whole granules; WORDS
+    only where every row segment starts on 4 bytes and is whole words."""
+    c, es, stride_b, ptr, want = case
+    assert _build.batch_copy_path(channels=c, elem_bytes=es, stride_b=stride_b, ptr=ptr) == want
+    ct = _build.batch_plan(1, 64, c)["channel_tile"]
+    for bit, unit in ((VEC, 16), (WORDS, 4)):
+        if not want & bit or (bit == VEC and ct == c):
+            continue
+        for b in range(3):
+            for c0 in range(0, c, ct):
+                cn = min(ct, c - c0)
+                for r in (0, 1, 7):
+                    assert (ptr + ((b * stride_b) + r * c + c0) * es) % unit == 0
+                    assert cn * es % unit == 0
+
+
+# (x's offset into its allocation in samples, B, S, C, stream, rows [first,
+# end), whether the granules that cover the rows lie inside x): a window at
+# x's first row when x starts off 16 bytes, or ending in the last granule of
+# an x whose end is off 16 bytes, would read bytes outside it.
+GRANULE_CASES = (
+    (0, 2, 9, 1, 0, 0, 5, True),
+    (1, 2, 9, 1, 0, 0, 5, False),
+    (1, 2, 9, 1, 0, 7, 12, True),
+    (0, 2, 9, 1, 1, 3, 9, False),
+    (0, 2, 8, 1, 1, 3, 8, True),
+    (2, 3, 40, 2, 1, 0, 40, True),
+    (3, 1, 64, 3, 0, 2, 60, True),
+)
+
+
+@pytest.mark.parametrize("case", GRANULE_CASES, ids=str)
+def test_torch_batch_flat_granules_stay_inside_x(case):
+    """batch_kernels.cu granules_inside_x, mirrored (chip_smoke's path
+    mirror reads it): the 16-byte granules that cover a flat window's bytes
+    hold them, and lie inside x's B streams exactly when the case says."""
+    off, b, s, c, i, first, end, want = case
+    xb = torch.zeros(b * s * c + off, dtype=torch.int16)[off:].view(b, s, c)
+    assert xb.data_ptr() % 16 == 2 * off % 16
+    assert chip_smoke._granules_inside_x(xb, i, first, end) == want
+    lo = xb.data_ptr() + (i * s + first) * c * 2
+    hi = xb.data_ptr() + (i * s + end) * c * 2
+    assert lo & ~15 <= lo < hi <= (hi + 15) & ~15
+
+
+def test_torch_batch_cases_take_every_path(monkeypatch):
+    """chip_smoke.BATCH_CASES, built on the CPU and run through the plain
+    version, take every one of chip_smoke.BATCH_PATHS by the plan's mirror
+    (batch_case_paths), as the chip run requires of the kernel's launches."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    gen = torch.Generator().manual_seed(1)
+    paths = set()
+    for _, spec in chip_smoke.BATCH_CASES:
+        table, x, totals, state, quota, kw = chip_smoke.batch_case_inputs(spec, gen)
+        got = resample_chunk_reference(table, x, totals, state, quota, **kw)
+        paths |= chip_smoke.batch_case_paths(x, state, got[1], **kw)
+    assert paths == chip_smoke.BATCH_PATHS, sorted(chip_smoke.BATCH_PATHS - paths)
 
 
 # ---------------------------------------------------------------------------
