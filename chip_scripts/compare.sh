@@ -19,7 +19,8 @@
 # copy;
 # one JSON line a farm run into chiprun_out/farm_ab.jsonl, and the medians
 # printed at the end. Before the farms: the four runs' scan and entry times
-# side by side, the host's time to issue config 7's scan in each tree
+# side by side (the scan's kernels alone and each engine's device ms a
+# step among them), the host's time to issue config 7's scan in each tree
 # (chiprun_out/scan_ab.jsonl) and the batched chunk call's entry times in
 # each (chip_scripts/batch_ab.py, chiprun_out/batch_ab.jsonl). Last,
 # chip_scripts/farm_probe.py here (the
@@ -45,7 +46,7 @@ t0=$SECONDS
 JAX_PLATFORMS=cpu python3 -m pytest tests/test_torch_resample_ops.py tests/test_torch_strided_wide.py \
   tests/test_torch_scan.py tests/test_torch_tiled_kernel.py tests/test_torch_strided_wide_kernel.py \
   tests/test_torch_general_kernel.py tests/test_torch_scan_program.py \
-  tests/test_torch_farm_program.py tests/test_torch_farm_stage_ring.py \
+  tests/test_torch_scan_inplace.py tests/test_torch_farm_program.py tests/test_torch_farm_stage_ring.py \
   tests/test_torch_batch_kernel.py -q -m cuda -p no:cacheprovider \
   > chiprun_out/cuda_tests.log 2>&1
 echo "cuda tests rc=$? seconds=$(( SECONDS - t0 ))"
@@ -74,6 +75,10 @@ for name in ("parent1", "change1", "change2", "parent2"):
                                          (old.get("mac_kernel_ms_per_step") or 0)
                                          + (old.get("other_device_ms_per_step") or 0)))
     print(name, "entries ms", {k: round(v["ms"], 5) for k, v in timing.items()})
+    print(name, "scan kernels alone ms", {k: (scan.get(k) or {}).get("ms")
+                                          for k in ("scan_inplace", "scan_stage_kernel")},
+          "engines' device ms a step", [(lp.get("rates"), lp.get("device_ms_per_step"))
+                                         for lp in loops])
 PY
 # The host's time to issue config 7's scan, parent and change in turns, a fresh
 # process each: the call's return (no synchronise) and the run's end, at

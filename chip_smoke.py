@@ -11,8 +11,10 @@ the card, drives the public entry points -- the four reference goldens, a
 the wide-kernel paths (44.1 kHz -> 132 Hz, and general ratios of 272 and
 1016 taps), config 7's whole-stream scan (1024 stereo streams, 44.1 kHz ->
 8 kHz) and the scans of the other three engines, each one device program
-(a scan_stage_kernel launch and the engine's launches a step) run with no
-host sync, farm checkpoints restored on the card,
+run with no host sync (a step of the tiled and general engines one
+tiled_mac_kernel launch in scan mode, which reads the int16 chunks in
+place; of the strided and wide engines a scan_stage_kernel launch and the
+engine's launches), farm checkpoints restored on the card,
 the CLI on the card, and config 5's fleet (1024 stereo streams, 8192 input
 and 16,384 output frames each) as one resample_batch call, one
 batch_mac_kernel launch -- then, with the launch counts reset, the sharded
@@ -34,7 +36,8 @@ its bound (and the same at BATCH and at an oracle-scan step), batched
 beside sharded and (at a quarter of the streams and an eighth of the
 frames) beside a per-stream loop, the output de-interleave
 three ways, and the scan (ms a chunk, the host's time to issue a step,
-scan_stage_kernel beside its bound); shows by torch.profiler that each
+the scan mode at config 7's step and scan_stage_kernel at the strided
+engine's, each beside its bound); shows by torch.profiler that each
 engine's step loop runs no aten op, allocates nothing and puts exactly its
 kernels on the card, and that a steady farm call (unsharded, sharded, mixed)
 runs no aten op and puts on the card one upload, one farm_stage_kernel, the
@@ -258,6 +261,57 @@ SCAN_STAGE_CASES = (
     ("44.1k->8k state past the chunk (nothing produced)", (44100, 8000), 512, 1024,
      torch.int16, dict(p=1030, f=1)),
 )
+# tiled_mac_kernel's scan mode against its plain version, one launch of
+# scan_inplace_step a case: (label, rates, lanes, n_in, chunk type, step k,
+# options). The chunks are K random chunks in one tensor (option chunks,
+# default 3), so the rows past step k's chunk hold the next chunk's samples
+# and a window that read them would differ; the step's state is (p + radius,
+# f) (options p and f, default 0). Options: n_out (default as scan_case sizes
+# it); offset (the chunks start that many elements past a 16-byte aligned
+# address); flat (the flat LUT instead of the strided one). Each case's copy
+# path (_build.scan_copy_path) is recorded with its chunk type, and every
+# path of SCAN_INPLACE_PATHS must be taken.
+SCAN_INPLACE_CASES = (
+    ("44.1k->8k config 7 step 0 int16 x 2048", (44100, 8000), 2048, 8192, torch.int16, 0, {}),
+    ("44.1k->8k config 7 step 1 int16 x 2048 p=3 f=0x8421", (44100, 8000), 2048, 8192,
+     torch.int16, 1, dict(p=3, f=0x8421)),
+    ("44.1k->8k last step int32 x 2048", (44100, 8000), 2048, 8192, torch.int32, 2,
+     dict(p=1, f=0xFFFF)),
+    ("44.1k->8k int16 x 6 (4-byte copies)", (44100, 8000), 6, 4096, torch.int16, 1,
+     dict(p=2, f=777)),
+    ("44.1k->8k int16 x 5 (element loads)", (44100, 8000), 5, 4096, torch.int16, 1,
+     dict(f=0x1111)),
+    ("44.1k->8k int32 x 6 (4-byte copies)", (44100, 8000), 6, 4096, torch.int32, 2,
+     dict(p=4, f=5)),
+    ("44.1k->8k int16 x 2048, chunks 4 bytes off 16", (44100, 8000), 2048, 2048, torch.int16,
+     1, dict(offset=2, f=0x4321)),
+    ("44.1k->8k int16 x 512, chunks 2 bytes off 16 (element loads)", (44100, 8000), 512, 2048,
+     torch.int16, 1, dict(offset=1)),
+    ("44.1k->8k int32 x 512, chunks 4 bytes off 16", (44100, 8000), 512, 2048, torch.int32, 1,
+     dict(offset=1, p=2)),
+    ("44.1k->8k n_in 16 < 2r, step 0", (44100, 8000), 512, 16, torch.int16, 0, dict(chunks=6)),
+    ("44.1k->8k n_in 16 < 2r, step 4", (44100, 8000), 512, 16, torch.int16, 4,
+     dict(chunks=6, p=1, f=0x2222)),
+    ("44.1k->8k flat LUT", (44100, 8000), 512, 2048, torch.int16, 1, dict(flat=True, f=99)),
+    ("44.1k->4k taps 72 (generic tap loop)", (44100, 4000), 512, 4096, torch.int16, 1,
+     dict(p=5, f=0x0F0F)),
+    ("44.1k->1100 taps 248 (windows read from the stream) int16 x 512", (44100, 1100), 512,
+     4096, torch.int16, 1, dict(p=3, f=0x8421)),
+    ("44.1k->1100 taps 248 (windows read from the stream) int16 x 5", (44100, 1100), 5, 4096,
+     torch.int16, 0, {}),
+    ("48k->44.1k tiled int16 x 2048", (48000, 44100), 2048, 8192, torch.int16, 1,
+     dict(p=1, f=12345)),
+    ("48k->44.1k tiled n_in 3 < 2r int32 x 6", (48000, 44100), 6, 3, torch.int32, 2,
+     dict(chunks=4)),
+    ("8k->44.1k undersized n_out (over)", (8000, 44100), 512, 8192, torch.int16, 1,
+     dict(n_out=8192)),
+    ("44.1k->8k state past the chunk (nothing produced)", (44100, 8000), 512, 1024,
+     torch.int16, 1, dict(p=1030, f=1)),
+)
+SCAN_COPY_NAMES = ("element loads", "4-byte copies", "16-byte copies")  # by SCAN_COPY_*
+SCAN_INPLACE_PATHS = frozenset(
+    [f"int16 {name}" for name in SCAN_COPY_NAMES]
+    + [f"int32 {name}" for name in SCAN_COPY_NAMES[1:]])
 # farm_stage_kernel against its plain version, one launch a case: (label,
 # streams, channels, capacity rows, chunk frames n, keep, consumed, options).
 # Rows [0, keep) of the destination come from rows [consumed, consumed +
@@ -451,10 +505,16 @@ KERNELS = {  # name -> (ROUTES kind, source, TPU kernels it replaces)
     # The general entry launches tiled_mac_kernel too.
     "tiled_mac_kernel/general": ("general", CSRC + "resample_kernels.cu",
                                  f"{PALLAS}:475, {PALLAS}:61"),
+    # Its scan mode: a tiled or general scan step, the window read from the
+    # chunks in place, with the stage and bookkeeping XLA compiles into the
+    # jitted scan around the engine.
+    "tiled_mac_kernel/scan": ("scan_inplace", CSRC + "resample_kernels.cu",
+                              f"{PALLAS}:475, {PALLAS}:201, clownresampler_tpu/lowlevel.py:378"),
     "strided_mac_kernel": ("strided", CSRC + "strided_kernels.cu",
                            f"{PALLAS}:664, {PALLAS}:720"),
     "wide_mac_kernel": ("wide", CSRC + "wide_kernels.cu", f"{PALLAS}:1074, {PALLAS}:1158"),
-    # No Pallas kernel: the stage and bookkeeping XLA compiles into the jitted scan.
+    # No Pallas kernel: the stage and bookkeeping XLA compiles into the jitted
+    # scan (the strided and wide engines' steps).
     "scan_stage_kernel": ("scan_stage", CSRC + "scan_kernels.cu",
                           "clownresampler_tpu/lowlevel.py:378, clownresampler_tpu/lowlevel.py:381"),
     # No Pallas kernels either: the farm's jitted staging programs and the
@@ -471,7 +531,8 @@ KERNELS = {  # name -> (ROUTES kind, source, TPU kernels it replaces)
                          "clownresampler_tpu/ops/convolve.py:80"),
 }
 # The kernels the sharded paths launch (they run no scan).
-SHARDED_KERNELS = tuple(name for name in KERNELS if name != "scan_stage_kernel")
+SHARDED_KERNELS = tuple(name for name in KERNELS
+                        if name not in ("scan_stage_kernel", "tiled_mac_kernel/scan"))
 
 
 def phase(name: str, **fields) -> None:
@@ -698,6 +759,60 @@ def run_scan_stage_case(case, gen) -> int:
     if not (out[want[0].shape[0]:] == -7).all():
         raise AssertionError(f"scan_stage_kernel wrote past the staged rows at {label}")
     return err
+
+
+def scan_inplace_inputs(rates, lanes: int, n_in: int, dtype, gen, chunks=3, p=0, f=0,
+                        n_out=None, offset=0, flat=False) -> dict:
+    """One scan step's inputs on the card: ``chunks`` random chunks of the
+    given type as one contiguous tensor starting ``offset`` elements past a
+    16-byte aligned address, the state (p + radius, f) and the scan's
+    geometry, as scan_case sizes it."""
+    from clownresampler_tpu_torch import fixedpoint as fx
+    from clownresampler_tpu_torch.configure import configure
+    from clownresampler_tpu_torch.lowlevel import make_device_state
+    from clownresampler_tpu_torch.models import DEFAULT_MODEL, table_tensor
+
+    dev = torch.device(DEVICE)
+    cfg = configure(*rates, max(rates))
+    inc = fx.calculate_ratio(*rates)
+    r = cfg.integer_stretched_kernel_radius
+    taps = fx.round_up(2 * r, 8)
+    count = chunks * n_in * lanes
+    flat_buf = torch.randint(-32768, 32768, (count + 8,), generator=gen, dtype=torch.int32,
+                             device=dev).to(dtype)
+    return dict(
+        chunks=flat_buf[offset : offset + count].view(chunks, n_in, lanes),
+        state=torch.tensor([p + r, f], dtype=torch.int32).to(dev),
+        cfg=make_device_state(0, 0, cfg, inc, dev).cfg,
+        table=table_tensor(DEFAULT_MODEL.table(), dev),
+        args=dict(radius=r, max_taps=taps, increment=inc,
+                  n_out=n_out or fx.round_up((((n_in + 2 * r) << 16) // inc) + 8, 128),
+                  table_strided=None if flat else table_tensor(
+                      DEFAULT_MODEL.strided_table(cfg.kernel_step_size, taps), dev)))
+
+
+def run_scan_inplace_case(case, gen) -> tuple:
+    """One SCAN_INPLACE_CASES launch of tiled_mac_kernel's scan mode
+    (scan_inplace_step) against scan_inplace_step_reference on the same
+    inputs: the step's frames, produced, over and the next state, exact.
+    Returns the largest difference (0) and the copy path the launch took."""
+    from clownresampler_tpu_torch.lowlevel import scan_inplace_step, scan_inplace_step_reference
+    from clownresampler_tpu_torch.ops import _build
+
+    label, rates, lanes, n_in, dtype, k, opts = case
+    c = scan_inplace_inputs(rates, lanes, n_in, dtype, gen, **opts)
+    inputs = (c["table"], c["chunks"], k, c["state"], c["cfg"])
+    got = scan_inplace_step(*inputs, **c["args"])
+    want = scan_inplace_step_reference(*inputs, **c["args"])
+    err = 0
+    for name, g, w in zip(("frames", "produced", "over", "next_state"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+            raise AssertionError(f"tiled_mac_kernel's scan mode != plain version at {label}: "
+                                 f"{name}")
+        err = max(err, int((g.long() - w.long()).abs().max()))
+    copy = _build.scan_copy_path(elem_bytes=c["chunks"].element_size(), lanes=lanes,
+                                 ptr=c["chunks"].data_ptr())
+    return err, f"{str(dtype)[6:]} {SCAN_COPY_NAMES[copy]}"
 
 
 def run_farm_stage_case(case, gen) -> tuple:
@@ -931,6 +1046,14 @@ def check_kernels(gen) -> dict:
         _compare(results, "wide_mac_kernel", case[0], *run_wide_case(case, gen))
     for case in SCAN_STAGE_CASES:
         results["scan_stage_kernel"].append((case[0], run_scan_stage_case(case, gen)))
+    scan_paths = set()
+    for case in SCAN_INPLACE_CASES:
+        err, path = run_scan_inplace_case(case, gen)
+        results["tiled_mac_kernel/scan"].append((case[0], err))
+        scan_paths.add(path)
+    if scan_paths != SCAN_INPLACE_PATHS:
+        raise AssertionError(f"SCAN_INPLACE_CASES missed the paths "
+                             f"{sorted(SCAN_INPLACE_PATHS - scan_paths)}")
     paths = set()
     for case in FARM_STAGE_CASES:
         err, path = run_farm_stage_case(case, gen)
@@ -1472,15 +1595,34 @@ def scan_args(c: dict) -> dict:
 
 
 def run_scans(gen) -> dict:
-    """Config 7's scan and the other engines' scans (main path)."""
+    """Config 7's scan and the other engines' scans (main path). Each scan's
+    own launch counts must be its engine's: one scan-mode tiled_mac_kernel
+    launch a step for the tiled and general engines (a scan_stage_kernel
+    launch there fails), scan_stage_kernel and the engine's launches for the
+    strided and wide ones."""
+    from clownresampler_tpu_torch.lowlevel import INPLACE_KINDS, _scan_engine
+    from clownresampler_tpu_torch.ops.resample import ROUTES
+
     runs = {}
     for rates, lanes, k in ((SCAN7["rates"], SCAN7["lanes"], SCAN7["chunks"]),
                             *((r, l, SCAN_ENGINE_CHUNKS) for r, l in SCAN_ENGINES)):
         c = scan_case(rates, lanes, k, gen)
+        before = dict(ROUTES)
         t0 = time.perf_counter()
         res = fused_scan(c)
         torch.cuda.synchronize()
-        runs[rates] = dict(case=c, result=res, seconds=time.perf_counter() - t0)
+        seconds = time.perf_counter() - t0
+        counts = {key: n - before.get(key, 0) for key, n in ROUTES.items()
+                  if n != before.get(key, 0)}
+        runs[rates] = dict(case=c, result=res, seconds=seconds,
+                           launch_counts={"/".join(key): n for key, n in counts.items()})
+        kind, _, _, step = _scan_engine(c["increment"], c["max_taps"], c["n_out"])
+        steps = k + 1
+        want = ({("scan_inplace", "cuda"): steps} if kind in INPLACE_KINDS else
+                {("scan_stage", "cuda"): steps,
+                 (kind, "cuda"): steps * -(-c["n_out"] // step)})
+        if counts != want:
+            raise AssertionError(f"scan {rates} ({kind} engine) launched {counts}, not {want}")
     return runs
 
 
@@ -1512,6 +1654,7 @@ def check_scan(run: dict) -> dict:
         raise AssertionError(f"scan {c['rates']} != oracle scan on lanes {cols}")
     return dict(rates=c["rates"], lanes=lanes, chunks=c["chunks"].shape[0], n_in=SCAN7["n_in"],
                 n_out=c["n_out"], taps=c["max_taps"], produced_frames=int(produced.sum()),
+                launch_counts=run.get("launch_counts"),
                 state=list(pos), backlog=False, plain_version_exact="every lane",
                 oracle_lanes_exact=cols,
                 seconds_with_no_sync=run["seconds"])
@@ -1545,9 +1688,10 @@ def profile_scan_program(c: dict, k: int, attempts: int = 3) -> dict:
     """The step loop of one scan (``ScanProgram.run`` over the first k
     chunks, set up outside) under torch.profiler with memory profiling on:
     fails unless the loop ran no ``aten::`` op, allocated and freed nothing
-    and put exactly its kernels on the card -- a step is one
-    scan_stage_kernel and the engine's launches (one device activity each,
-    two for a wide launch). The profiler now and then loses a kernel's
+    and put exactly its kernels on the card -- a step of the tiled and
+    general engines is one tiled_mac_kernel launch (its scan mode), of the
+    strided and wide engines one scan_stage_kernel and the engine's launches
+    (one device activity each, two for a wide launch). The profiler now and then loses a kernel's
     record, so a count that is off is taken again with a new program, up to
     ``attempts`` times; an aten op, a memory event or an activity that is
     none of the loop's kernels fails at once. Returns the device activities
@@ -1574,22 +1718,24 @@ def profile_scan_program(c: dict, k: int, attempts: int = 3) -> dict:
                 aten.append(evt.key)
             elif evt.key == "[memory]":
                 memory_events += evt.count
-        kernels = ("scan_stage_kernel", *ENTRY_KERNELS[program.kind])
+        stages = () if program.inplace else ("scan_stage_kernel",)
+        kernels = (*stages, *ENTRY_KERNELS[program.kind])
         strangers = [key for key in counts if not any(name in key for name in kernels)]
         if aten or memory_events or strangers:
             raise AssertionError(
                 f"scan {c['rates']}: the step loop ran aten ops {aten}, {memory_events} memory "
                 f"events and device activities other than its kernels: {strangers}")
-        want = 1 + program.launches * len(ENTRY_KERNELS[program.kind])
+        want = len(stages) + program.launches * len(ENTRY_KERNELS[program.kind])
         stage_launches = sum(n for key, n in counts.items() if "scan_stage_kernel" in key)
-        if sum(counts.values()) == want * k and stage_launches == k:
+        if sum(counts.values()) == want * k and stage_launches == len(stages) * k:
             break
         if attempt == attempts:
             raise AssertionError(
                 f"scan {c['rates']}: {counts} device activities over {k} steps in each of "
                 f"{attempts} profiles (wanted {want} a step)")
     total_us = sum(device_us.values())
-    return dict(rates=c["rates"], engine=program.kind, steps=k, aten_ops=0, memory_events=0,
+    return dict(rates=c["rates"], engine=program.kind, in_place=program.inplace, steps=k,
+                aten_ops=0, memory_events=0,
                 profiles_taken=attempt, device_activities_per_step=want,
                 device_ms_per_step=total_us / 1e3 / k,
                 device_ms_per_step_by_kernel={key[:60]: v / 1e3 / k
@@ -1598,8 +1744,9 @@ def profile_scan_program(c: dict, k: int, attempts: int = 3) -> dict:
 
 
 def time_scan_stage(c: dict, peaks: dict) -> dict:
-    """scan_stage_kernel at config 7's step: the C entry as the scan calls
-    it (its arguments built once), CUDA events around 20 back-to-back calls
+    """scan_stage_kernel at the step of scan case c (the strided engine's,
+    which the main path runs through it): the C entry as the scan calls it
+    (its arguments built once), CUDA events around 20 back-to-back calls
     after 20 untimed, the result then checked against the plain version;
     the plain version's time; the bound -- the chunk and the halo read once,
     the staged rows written once, over the HBM rate (the bookkeeping's few
@@ -1649,18 +1796,104 @@ def time_scan_stage(c: dict, peaks: dict) -> dict:
                       f"n_out {n_out}")
 
 
+def scan_step_bound(c: dict, state, k: int, produced: int, peaks: dict) -> dict:
+    """The least time the card could take for step k of scan case c in scan
+    mode from ``state`` (2,): the larger of its bytes -- the stream rows its
+    produced frames' windows reach inside the step's live rows [k*n_in - 2r,
+    (k+1)*n_in), read once at the chunks' width, and the (n_out, L) int32
+    output written once -- over the HBM rate, and OPS_PER_TAP operations
+    for each live tap and lane of the produced frames (the others store
+    zeros) over the int32 rate."""
+    from clownresampler_tpu_torch import fixedpoint as fx
+    from clownresampler_tpu_torch.ops.convolve import window_geometry
+
+    cfg, taps, n_out = c["state"].cfg, c["max_taps"], c["n_out"]
+    _, n_in, lanes = c["chunks"].shape
+    first, end = k * n_in - 2 * c["radius"], (k + 1) * n_in
+    n = torch.arange(produced, dtype=torch.int32, device=state.device)
+    pos, frac = fx.positions_from_state(state[0], state[1], cfg.increment_hi, cfg.increment_lo,
+                                        n)
+    min_rel, _, _, live = window_geometry(cfg, frac)
+    live = live.clamp(0, taps)
+    rows = pos + min_rel          # window rows of the staged buffer the step stands for
+    span = 0
+    if produced:
+        span = max(min(int((rows + live).max()), end - first) - max(int(rows[0]), -first, 0), 0)
+    nbytes = span * lanes * c["chunks"].element_size() + 4 * n_out * lanes
+    ops = OPS_PER_TAP * int(live.sum()) * lanes
+    memory_ms = 1e3 * nbytes / peaks["hbm_bytes_per_s"]
+    ops_ms = 1e3 * ops / peaks["int32_ops_per_s"]
+    return dict(bound_ms=max(memory_ms, ops_ms),
+                bound_by="bytes" if memory_ms >= ops_ms else "operations",
+                bytes=nbytes, int32_ops=ops, memory_ms=memory_ms, operations_ms=ops_ms,
+                window_rows_read=span, produced=produced)
+
+
+def time_scan_inplace(c: dict, peaks: dict) -> dict:
+    """tiled_mac_kernel's scan mode at config 7's step (step 1 of case c's
+    chunks, from the state (radius + 2, 0x8421)): the C entry as the scan
+    calls it (its arguments built once), CUDA events around 20 back-to-back
+    calls after 20 untimed, the result then checked against the plain
+    version; the plain version's time; the bound (scan_step_bound)."""
+    from clownresampler_tpu_torch.lowlevel import scan_inplace_step_reference
+    from clownresampler_tpu_torch.ops import _build
+    from clownresampler_tpu_torch.ops.resample import scan_stage_plan
+
+    dev = torch.device(DEVICE)
+    r, n_out, taps, inc, k = c["radius"], c["n_out"], c["max_taps"], c["increment"], 1
+    chunks, cfg = c["chunks"], c["state"].cfg
+    lanes = chunks.shape[2]
+    state = torch.tensor([r + 2, 0x8421], dtype=torch.int32).to(dev)
+    out = torch.empty((n_out, lanes), dtype=torch.int32, device=dev)
+    book = torch.empty(4, dtype=torch.int32, device=dev)
+    frames, win_rows = scan_stage_plan(taps, inc, chunks.element_size())
+    call = _build.tiled_scan_args(chunks, c["table"], c["table_strided"], state, cfg, out,
+                                  book[0:1], book[1:2], book[2:4], step=k, radius=r,
+                                  max_taps=taps, frames_per_stage=frames, win_rows=win_rows)
+    args = _build.ordered_args("crt_tiled_scan", call)
+    entry = _build.entry_function("crt_tiled_scan")
+
+    def issue(reps):
+        for _ in range(reps):
+            _build.raise_on_launch(entry(*args), "crt_tiled_scan")
+
+    reps = 20
+    issue(reps)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    issue(reps)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    plain = lambda: scan_inplace_step_reference(
+        c["table"], chunks, k, state, cfg, radius=r, max_taps=taps, n_out=n_out, increment=inc,
+        table_strided=c["table_strided"])
+    want = plain()
+    if not all(torch.equal(g, w) for g, w in zip((out, book[0], book[1], book[2:4]), want)):
+        raise AssertionError("the timed scan-mode launches != the plain version")
+    bound = scan_step_bound(c, state, k, int(want[1]), peaks)
+    return dict(ms=ms, plain_ms=cuda_ms(lambda: plain()[0]), **bound,
+                bound_share=bound["bound_ms"] / ms,
+                achieved_bytes_per_s=bound["bytes"] / (ms / 1e3),
+                stage=dict(most_frames=frames, window_rows=win_rows,
+                           copy=SCAN_COPY_NAMES[call["copy"]]),
+                shape=f"chunks {tuple(chunks.shape)} {str(chunks.dtype)[6:]}, step {k}, "
+                      f"halo {2 * r} rows, n_out {n_out}, taps {taps}")
+
+
 def time_scan(gen, peaks: dict) -> dict:
     """Config 7's per-chunk time: the K-slope of the fused scan between
     SCAN7["timing_k"] chunks (every step's output kept), CUDA events around
     each run, best of 3 after a warm-up, with the host's time to issue a run
     (the call's return, before any synchronise) beside it and the step
-    loop's own host time a step (``ScanProgram.run`` alone); scan_stage_kernel
-    alone beside its bound; one step's general entry (events) beside its
-    device activities and their time (torch.profiler); then, last (a
-    profiler run slows later launches), each engine's step loop under
-    torch.profiler (profile_scan_program)."""
-    from clownresampler_tpu_torch.lowlevel import ScanProgram, make_device_state
-    from clownresampler_tpu_torch.ops import resample as rs
+    loop's own host time a step (``ScanProgram.run`` alone); the scan mode
+    alone at config 7's step and scan_stage_kernel alone at the strided
+    engine's, each beside its bound; one step's scan_inplace_step (events)
+    beside its device activities and their time (torch.profiler); then,
+    last (a profiler run slows later launches), each engine's step loop
+    under torch.profiler (profile_scan_program)."""
+    from clownresampler_tpu_torch.lowlevel import ScanProgram, scan_inplace_step
 
     k1, k2 = SCAN7["timing_k"]
     lanes = SCAN7["lanes"]
@@ -1699,19 +1932,20 @@ def time_scan(gen, peaks: dict) -> dict:
         loop_us.append(1e6 * (time.perf_counter() - t0) / k2)
         torch.cuda.synchronize()
         del program
-    stage = time_scan_stage(c, peaks)
+    strided = scan_case(*SCAN_ENGINES[1], 1, gen)
+    stage = time_scan_stage(strided, peaks)
+    del strided
+    inplace = time_scan_inplace(c, peaks)
 
-    # One step's launch: buffer [halo | chunk | zeros], the first step's state.
+    # One step through scan_inplace_step: step 0 from the first step's state.
     r, taps, n_out = c["radius"], c["max_taps"], c["n_out"]
-    buf = torch.cat([torch.zeros((2 * r, lanes), dtype=torch.int32, device=DEVICE),
-                     c["chunks"][0].to(torch.int32),
-                     torch.zeros((taps + 8, lanes), dtype=torch.int32, device=DEVICE)])
-    st = make_device_state(r, 0, c["cfg"], c["increment"], torch.device(DEVICE))
-    args = dict(max_taps=taps, n_out=n_out, table_strided=c["table_strided"])
-    entry = lambda: rs.resample_uniform_lanes_general(c["table"], buf, st, **args)[0]
+    st = torch.tensor([r, 0], dtype=torch.int32).to(DEVICE)
+    args = dict(radius=r, max_taps=taps, n_out=n_out, increment=c["increment"],
+                table_strided=c["table_strided"])
+    entry = lambda: scan_inplace_step(c["table"], c["chunks"], 0, st, c["state"].cfg,
+                                      **args)[0]
     split = dict(entry_ms=cuda_ms(entry))
     split["device_activities"], split["device_ms"] = device_launches(entry)
-    del buf
 
     profiles = [profile_scan_program(c, k1)]
     del c
@@ -1729,7 +1963,7 @@ def time_scan(gen, peaks: dict) -> dict:
         step_loop_host_us_per_step=min(loop_us), step_loop_host_us_per_step_runs=loop_us,
         device_busy_share=device_ms / ms_per_chunk,
         host_bound=min(loop_us) / 1e3 > device_ms,
-        scan_stage_kernel=stage, step_launch=split, step_loops=profiles)
+        scan_inplace=inplace, scan_stage_kernel=stage, step_launch=split, step_loops=profiles)
 
 
 def run_checkpoints(rng) -> dict:
@@ -2707,6 +2941,7 @@ def main() -> int:
     phase("scan_timing", nvidia_smi=smi, **scan_timing)
     phase("entry_launches", nvidia_smi=smi, **count_entry_launches(gen))
     timing["kernels"]["scan_stage_kernel"] = scan_timing["scan_stage_kernel"]
+    timing["kernels"]["tiled_mac_kernel/scan"] = scan_timing["scan_inplace"]
     # A steady farm call under the profiler, beside the unprofiled calls' time.
     profiles = profile_farms(rng, farm)
     steady_ms = statistics.median(t["ms_per_process"] for t in sharded_timing["farm_turns"]
@@ -2725,8 +2960,8 @@ def main() -> int:
             ms=timing["kernels"][name]["ms"], plain_ms=timing["kernels"][name]["plain_ms"],
             bound_ms=timing["kernels"][name]["bound_ms"],
             bound_by=timing["kernels"][name]["bound_by"],
-            # No single PyTorch call computes the MAC launches (each tap term is
-            # truncated on its own) or the stages (a cat of a slice and a
+            # No single PyTorch call computes the MAC launches, the scan mode's
+            # included (each tap term is truncated on its own) or the stages (a cat of a slice and a
             # widened chunk beside integer bookkeeping; a widen, a transpose,
             # kept rows and a zero tail); the unstage has ``copy_`` of the
             # permuted view (PERF.md).

@@ -16,9 +16,11 @@ frac(n) = t & 0xFFFF, which turns the loop into one batched launch per tile.
   every chunk on the device, with the high-level layer's 2*radius halo
   carried between chunks (clownresampler.h:1143-1154): the oracle scan
   (``resample_chunk`` per step) and the scan whose steps run the ratio
-  class's kernel: on a card one device program (``ScanProgram``: per step a
-  launch of scan_stage_kernel and the engine's launches, nothing else), on
-  the CPU its plain version (``resample_scan_fused_reference``).
+  class's kernel: on a card one device program (``ScanProgram``: per step
+  one scan-mode launch of tiled_mac_kernel, which reads the chunks in place,
+  for the tiled and general engines; a launch of scan_stage_kernel and the
+  engine's launches for the strided and wide ones; nothing else), on the
+  CPU its plain version (``resample_scan_fused_reference``).
 * ``LowLevelResampler`` -- the host streaming class mirroring the C API,
   including the per-frame output-callback contract. Bookkeeping uses exact
   Python ints; the frames are computed on the resampler's ``device``, in
@@ -49,6 +51,9 @@ from clownresampler_tpu_torch.ops.resample import (
     multi_resample,
     plan_uniform,
     resample_streams,
+    resample_uniform_lanes_general_reference,
+    resample_uniform_lanes_tiled_reference,
+    scan_stage_plan,
     wide_launch_frames,
 )
 
@@ -64,6 +69,9 @@ MAX_CHUNK_OUTPUT_FRAMES = 1 << 14
 # their host floor up to 352 taps (PERF.md; chip_smoke.py times the two).
 FAST_KERNEL_MAX_TAPS = 1024
 GENERAL_WIDE_MIN_TAPS = 256
+# The fused scan's engines whose steps read the chunks in place
+# (tiled_mac_kernel's scan mode): no staging pass, no staging buffers.
+INPLACE_KINDS = ("tiled", "general")
 
 Scalar = Union[int, torch.Tensor]
 OutputCallback = Callable[[np.ndarray], bool]
@@ -281,38 +289,119 @@ def resample_scan_fused_reference(table, chunks, state: DeviceState, *, max_taps
 
     Each step stages [halo | chunk widened to int32 | max_taps + 8 zero
     rows]: the zero rows keep every real frame's launch-width window inside
-    the buffer, so ``launch_rows`` never moves it. The loop's state stays in
-    0-dim tensors on the chunks' device.
+    the buffer, so ``launch_rows`` never moves it. The buffer is built from
+    the stream of chunks (``scan_stream_rows_reference``), as the tiled and
+    general engines' scan mode reads it. The loop's state stays in 0-dim
+    tensors on the chunks' device.
     """
     kind, d, cand, step = _scan_engine(increment, max_taps, n_out)
     st = _scan_setup(chunks, state, radius)
-    _, n_in, lanes = chunks.shape
-    dev = chunks.device
+    k, n_in, _ = chunks.shape
     cfg = st.cfg
     offsets = range(0, n_out, step)
     plans = tuple((kind, d, cand, max_taps, min(step, n_out - o), False) for o in offsets)
     tstrs = (table_strided,) * len(plans)
 
-    halo = torch.zeros((2 * radius, lanes), dtype=torch.int32, device=dev)
-    tail = torch.zeros((max_taps + 8, lanes), dtype=torch.int32, device=dev)
-    frame = torch.arange(n_out, dtype=torch.int32, device=dev)
+    frame = torch.arange(n_out, dtype=torch.int32, device=chunks.device)
     p, f = st.position_integer, st.position_fractional
     outs, produced, over = [], [], []
-    for chunk in chunks:
-        buffer = torch.cat([halo, chunk.to(torch.int32), tail])
-        natural = natural_output_count(p, f, cfg.increment_hi, cfg.increment_lo, n_in)
-        prod = natural.clamp_max(n_out)
+    for s in range(k):
+        buffer = scan_stream_rows_reference(chunks, s, radius, max_taps + 8)
+        natural, prod, (p_next, f_next) = _step_scalars(p, f, cfg, n_in, n_out)
         states = tuple(DeviceState(*fx.positions_from_state(p, f, cfg.increment_hi,
                                                             cfg.increment_lo, o), cfg)
                        for o in offsets)
         out = torch.cat(multi_resample(table, (buffer,) * len(plans), states, plans, tstrs))
         outs.append(torch.where((frame < prod)[:, None], out, 0))
-        p_after, f = fx.positions_from_state(p, f, cfg.increment_hi, cfg.increment_lo, prod)
-        p = p_after - p_after.clamp_max(n_in)
-        halo = buffer[n_in : n_in + 2 * radius]
+        p, f = p_next, f_next
         produced.append(prod)
         over.append(natural > n_out)
     return _scan_result(outs, produced, over, DeviceState(p, f, cfg), radius)
+
+
+def _step_scalars(p, f, cfg: ConfigScalars, n_in: int, n_out: int) -> tuple:
+    """A scan step's scalars from its state (p with the scan's +radius bias,
+    f): (natural -- the frames due against the chunk's n_in frames --,
+    produced -- at most n_out of them --, the next step's state (2,): the
+    position after them with the carry, clownresampler.h:1063-1068)."""
+    hi, lo = cfg.increment_hi, cfg.increment_lo
+    natural = natural_output_count(p, f, hi, lo, n_in)
+    produced = natural.clamp_max(n_out)
+    p_after, f_next = fx.positions_from_state(p, f, hi, lo, produced)
+    return natural, produced, torch.stack([p_after - p_after.clamp_max(n_in), f_next])
+
+
+def scan_stream_rows_reference(chunks, k: int, radius: int, extra_rows: int):
+    """Scan step ``k``'s staged buffer built from the stream: the (K, n_in, L)
+    chunks read as one stream of K * n_in rows, buffer row i is stream row
+    k*n_in - 2*radius + i while that lies in [0, (k+1)*n_in), else 0; 2*radius
+    + n_in + ``extra_rows`` rows, int32. It equals the JAX scan's [halo |
+    chunk | zeros] (clownresampler_tpu/lowlevel.py:378-412): the halo is the
+    stream's 2*radius rows before the chunk (zeros before the stream), also
+    when n_in < 2*radius and it reaches back over several chunks."""
+    _, n_in, lanes = chunks.shape
+    first, end = k * n_in - 2 * radius, (k + 1) * n_in
+    rows = torch.zeros((2 * radius + n_in + extra_rows, lanes), dtype=torch.int32,
+                       device=chunks.device)
+    lo = max(first, 0)
+    rows[lo - first : end - first] = chunks.reshape(-1, lanes)[lo:end]
+    return rows
+
+
+def scan_inplace_step_reference(table, chunks, k: int, state, cfg: ConfigScalars, *,
+                                radius: int, max_taps: int, n_out: int, increment: int,
+                                table_strided=None):
+    """Plain PyTorch version of ``scan_inplace_step``: what one scan-mode
+    launch of tiled_mac_kernel computes for step ``k`` of a tiled or general
+    fused scan over ``chunks`` (K, n_in, L) int16/int32, from ``state`` (2,)
+    int32 -- (position_integer with the scan's +radius bias,
+    position_fractional) --: the window from the stream
+    (``scan_stream_rows_reference`` with max_taps + 8 zero rows), the engine's
+    plain version with the frames from ``produced`` on stored as 0, and the
+    bookkeeping. Returns (out (n_out, L), produced (), over () -- 1 iff more
+    than n_out frames were due --, next_state (2,)), all int32."""
+    kind, d, cand, _ = _scan_engine(increment, max_taps, n_out)
+    if kind not in INPLACE_KINDS:
+        raise ValueError(f"the {kind} engine stages its steps (scan_stage)")
+    x = scan_stream_rows_reference(chunks, k, radius, max_taps + 8)
+    natural, produced, next_state = _step_scalars(state[0], state[1], cfg, chunks.shape[1], n_out)
+    args = dict(max_taps=max_taps, n_out=n_out, table_strided=table_strided, n_valid=produced)
+    st = DeviceState(state[0], state[1], cfg)
+    if kind == "tiled":
+        out, _ = resample_uniform_lanes_tiled_reference(table, x, st, d=d, cand=cand, **args)
+    else:
+        out, _ = resample_uniform_lanes_general_reference(table, x, st, **args)
+    return (out, produced.to(torch.int32), (natural > n_out).to(torch.int32),
+            next_state.to(torch.int32))
+
+
+def scan_inplace_step(table, chunks, k: int, state, cfg: ConfigScalars, *, radius: int,
+                      max_taps: int, n_out: int, increment: int, table_strided=None):
+    """Step ``k`` of a tiled or general fused scan, read straight from the
+    chunks; arguments and return as ``scan_inplace_step_reference``.
+
+    On a CUDA card this is one scan-mode launch of tiled_mac_kernel
+    (ops/csrc/resample_kernels.cu): its blocks copy their windows' rows from
+    the chunks as they are (int16 or int32) into shared memory and block 0
+    writes the bookkeeping; ``chunks`` must be contiguous. On the CPU the
+    plain version runs."""
+    if chunks.device.type == "cpu":
+        ROUTES[("scan_inplace", "reference")] += 1
+        return scan_inplace_step_reference(
+            table, chunks, k, state, cfg, radius=radius, max_taps=max_taps, n_out=n_out,
+            increment=increment, table_strided=table_strided)
+    if chunks.device.type != "cuda":
+        raise ValueError(f"no scan_inplace route for device {chunks.device}")
+    if _scan_engine(increment, max_taps, n_out)[0] not in INPLACE_KINDS:
+        raise ValueError("the strided and wide engines stage their steps (scan_stage)")
+    frames, win_rows = scan_stage_plan(max_taps, increment, chunks.element_size())
+    out = torch.empty((n_out, chunks.shape[2]), dtype=torch.int32, device=chunks.device)
+    book = torch.empty(4, dtype=torch.int32, device=chunks.device)
+    _build.tiled_scan(chunks, table, table_strided, state, cfg, out, book[0:1], book[1:2],
+                      book[2:4], step=k, radius=radius, max_taps=max_taps,
+                      frames_per_stage=frames, win_rows=win_rows)
+    ROUTES[("scan_inplace", "cuda")] += 1
+    return out, book[0], book[1], book[2:4]
 
 
 def scan_stage_reference(prev_buffer, chunk, state, cfg: ConfigScalars, *, radius: int,
@@ -332,16 +421,13 @@ def scan_stage_reference(prev_buffer, chunk, state, cfg: ConfigScalars, *, radiu
     int32.
     """
     n_in = chunk.shape[0]
-    hi, lo = cfg.increment_hi, cfg.increment_lo
     rows = torch.cat([prev_buffer[n_in : n_in + 2 * radius], chunk.to(torch.int32)])
     p, f = state[0], state[1]
-    natural = natural_output_count(p, f, hi, lo, n_in)
-    produced = natural.clamp_max(n_out)
+    natural, produced, next_state = _step_scalars(p, f, cfg, n_in, n_out)
     offsets = torch.arange(0, n_out, launch_step or n_out, dtype=torch.int32,
                            device=chunk.device)
-    launch_states = torch.stack(fx.positions_from_state(p, f, hi, lo, offsets), dim=1)
-    p_after, f_next = fx.positions_from_state(p, f, hi, lo, produced)
-    next_state = torch.stack([p_after - p_after.clamp_max(n_in), f_next])
+    launch_states = torch.stack(
+        fx.positions_from_state(p, f, cfg.increment_hi, cfg.increment_lo, offsets), dim=1)
     return (rows, produced.to(torch.int32), (natural > n_out).to(torch.int32),
             launch_states.to(torch.int32), next_state.to(torch.int32))
 
@@ -384,18 +470,28 @@ class ScanProgram:
     once, then ``run`` is kernel launches and nothing else.
 
     The constructor validates, plans the engine's launches, allocates (the
-    (K, n_out, L) outputs, two staging buffers of 2*radius + n_in + max_taps
-    + 8 rows whose tail rows stay zero, the wide engine's scratch, and one
-    int32 array for produced (K,), over (K,), the launch states (K,
-    launches, 2) and the carried states (K + 1, 2)) and builds every
-    launch's argument list. ``run`` then calls, for each step, the C entry
-    of scan_stage_kernel -- which stages [halo | chunk] into the step's
-    buffer (the halo from the other buffer) and computes the step's
-    bookkeeping on the device -- and the engine's C entry once per launch
-    offset, which reads its launch state and the step's produced count from
-    device memory, stores the frames past it as 0 and writes straight into
-    the outputs. No torch op, allocation, argument check or host sync
-    happens between the first launch and the last. A program runs once."""
+    (K, n_out, L) outputs, one int32 array for produced (K,), over (K,), the
+    launch states (K, launches, 2) and the carried states (K + 1, 2), and for
+    the strided and wide engines two staging buffers of 2*radius + n_in +
+    max_taps + 8 rows whose tail rows stay zero and the wide engine's
+    scratch) and builds every launch's argument list. ``run`` then calls,
+    for each step:
+
+    * tiled and general engines: one scan-mode launch of tiled_mac_kernel
+      (the C entry crt_tiled_scan), which reads the step's window rows
+      straight from the chunks (as the stream rows [k*n_in - 2*radius,
+      (k+1)*n_in), int16 or int32), computes the step's bookkeeping from the
+      step's state, stores the frames past ``produced`` as 0 straight into
+      the outputs and writes produced, over and the next state;
+    * strided and wide engines: the C entry of scan_stage_kernel -- which
+      stages [halo | chunk] into the step's buffer (the halo from the other
+      buffer) and computes the step's bookkeeping on the device -- and the
+      engine's C entry once per launch offset, which reads its launch state
+      and the step's produced count from device memory, stores the frames
+      past it as 0 and writes straight into the outputs.
+
+    No torch op, allocation, argument check or host sync happens between
+    the first launch and the last. A program runs once."""
 
     def __init__(self, table, chunks, state: DeviceState, *, max_taps: int, n_out: int,
                  radius: int, increment: int, table_strided=None):
@@ -412,14 +508,34 @@ class ScanProgram:
         # Every tensor a launch reads by pointer stays referenced here.
         self.chunks, self.cfg, self.tables = chunks, st.cfg, (table, table_strided)
         self.radius, self.kind = radius, kind
+        self.inplace = kind in INPLACE_KINDS
         self.steps, self.launches = k, launches
         self.outputs = torch.empty((k, n_out, lanes), **i32)
-        self.buffers = torch.zeros((2, 2 * radius + n_in + max_taps + 8, lanes), **i32)
         book = torch.empty(2 * k + 2 * launches * k + 2 * (k + 1), **i32)
         self.produced, self.over = book[:k], book[k : 2 * k]
         launch_states = book[2 * k : 2 * k * (1 + launches)].view(k, launches, 2)
         self.states = book[2 * k * (1 + launches) :].view(k + 1, 2)
         self.states[0] = torch.stack([st.position_integer, st.position_fractional])
+        out_bytes = self.outputs[0].nbytes
+        self.calls = []
+        if self.inplace:
+            # Step 0's launch, checked; the other steps' differ in their window
+            # and pointers only.
+            frames, win_rows = scan_stage_plan(max_taps, increment, chunks.element_size())
+            args = _build.tiled_scan_args(
+                chunks, table, table_strided, self.states[0], st.cfg, self.outputs[0],
+                self.produced[:1], self.over[:1], self.states[1], step=0, radius=radius,
+                max_taps=max_taps, frames_per_stage=frames, win_rows=win_rows)
+            fn = _build.entry_function("crt_tiled_scan")
+            for s in range(k):
+                self.calls.append((fn, "crt_tiled_scan", _build.ordered_args(
+                    "crt_tiled_scan", dict(
+                        args, **_build.scan_window(s, n_in, radius),
+                        state_in=args["state_in"] + 8 * s, state_out=args["state_out"] + 8 * s,
+                        produced=args["produced"] + 4 * s, over=args["over"] + 4 * s,
+                        out=args["out"] + s * out_bytes))))
+            return
+        self.buffers = torch.zeros((2, 2 * radius + n_in + max_taps + 8, lanes), **i32)
         self.scratch = None
         if kind == "wide":
             self.scratch = torch.empty(_build.wide_scratch_ints(max_taps, step, lanes), **i32)
@@ -441,8 +557,7 @@ class ScanProgram:
                              clamp_s16=0, n_valid=self.produced.data_ptr(), frame_offset=o))
         stage_fn, mac_fn = _build.entry_function("crt_scan_stage"), _build.entry_function(entry)
         buffer = [self.buffers[0].data_ptr(), self.buffers[1].data_ptr()]
-        chunk_bytes, out_bytes = chunks[0].nbytes, self.outputs[0].nbytes
-        self.calls = []
+        chunk_bytes = chunks[0].nbytes
         for s in range(k):
             cur, prev = buffer[s % 2], buffer[(s + 1) % 2]
             self.calls.append((stage_fn, "crt_scan_stage", _build.ordered_args(
@@ -467,8 +582,11 @@ class ScanProgram:
             err = fn(*args)
             if err:
                 _build.raise_on_launch(err, entry)
-        ROUTES[("scan_stage", "cuda")] += self.steps
-        ROUTES[(self.kind, "cuda")] += self.steps * self.launches
+        if self.inplace:
+            ROUTES[("scan_inplace", "cuda")] += self.steps
+        else:
+            ROUTES[("scan_stage", "cuda")] += self.steps
+            ROUTES[(self.kind, "cuda")] += self.steps * self.launches
 
     def result(self):
         """What ``resample_scan_fused`` returns."""
@@ -493,10 +611,14 @@ def resample_scan_fused(table, chunks, state: DeviceState, *, max_taps: int, n_o
     gather into a row take. ``n_out`` must be a multiple of 8.
 
     On a CUDA card the scan is one device program (``ScanProgram``): after
-    one set-up every step is a launch of scan_stage_kernel and the engine's
-    launches, which take the step's state and produced count from device
-    memory and write the outputs in place, so the host only queues kernels
-    and never synchronises. On the CPU the plain version runs
+    one set-up every step of the tiled and general engines is one scan-mode
+    launch of tiled_mac_kernel, which reads its window rows straight from
+    the chunks (no staging pass, no staging buffers) and computes the
+    step's bookkeeping itself; every step of the strided and wide engines is
+    a launch of scan_stage_kernel and the engine's launches, which take the
+    step's state and produced count from device memory. Every launch writes
+    the outputs in place, so the host only queues kernels and never
+    synchronises. On the CPU the plain version runs
     (``resample_scan_fused_reference``).
     """
     if chunks.device.type == "cpu":

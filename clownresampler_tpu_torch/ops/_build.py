@@ -51,14 +51,19 @@ POINTER_ARGS = frozenset((
     "table", "tstr", "partial", "tap_sums", "out", "rows_out", "n_valid", "stream",
     "prev", "cur", "chunk", "state_in", "produced", "over", "launch_states", "state_out",
     "src", "dst", "totals", "quotas", "consumed", "p_out", "f_out", "exhausted"))
-LONG_ARGS = frozenset(("nbytes", "stride_b"))   # pass as long long
+# The ConfigScalars pointers every MAC entry takes, in order (TILED_CONFIG_FIELDS).
+CONFIG_ARGS = ("inc_hi", "inc_lo", "radius", "delta", "int_radius", "step")
+LONG_ARGS = frozenset(("nbytes", "stride_b", "src_first", "src_end"))   # pass as long long
 _LAUNCH_INPUT = ("x", "S", "L", "lane_offset", "lanes", "p0_ptr", "p0_val", "f0_ptr", "f0_val",
-                 "inc_hi", "inc_lo", "radius", "delta", "int_radius", "step",
-                 "table", "table_size")
+                 *CONFIG_ARGS, "table", "table_size")
 _LAUNCH_OUTPUT = ("out", "rows_out", "clamp_s16", "n_valid", "frame_offset", "device", "stream")
 ENTRY_ARGS = {
     "crt_tiled_mac": (*_LAUNCH_INPUT, "tstr", "tstr_rows", "N", "T", "frames_per_stage",
                       "win_rows", "vec", *_LAUNCH_OUTPUT),
+    "crt_tiled_scan": ("src", "src_s16", "src_first", "src_end", "n_in", "S", "L", "copy", "vec",
+                       "state_in", *CONFIG_ARGS, "table", "table_size", "tstr", "tstr_rows", "N",
+                       "T", "frames_per_stage", "win_rows", "out", "produced", "over",
+                       "state_out", "device", "stream"),
     "crt_strided_mac": (*_LAUNCH_INPUT, "N", "T", "d", "frames_per_tile", "win_rows", "vec",
                         *_LAUNCH_OUTPUT),
     "crt_wide_mac": (*_LAUNCH_INPUT, "tstr", "tstr_rows", "N", "T", "K", "runs_bound", "vec",
@@ -81,7 +86,7 @@ ENTRY_ARGS = {
 }
 # library -> (source file, its C entries).
 LIBRARIES = {
-    "resample": ("resample_kernels.cu", ("crt_tiled_mac",)),
+    "resample": ("resample_kernels.cu", ("crt_tiled_mac", "crt_tiled_scan")),
     "strided": ("strided_kernels.cu", ("crt_strided_mac",)),
     "wide": ("wide_kernels.cu", ("crt_wide_mac",)),
     "scan": ("scan_kernels.cu", ("crt_scan_stage",)),
@@ -91,6 +96,7 @@ LIBRARIES = {
 }
 # C entry -> (its library, what it launches, for error messages).
 ENTRIES = {"crt_tiled_mac": ("resample", "tiled_mac_kernel"),
+           "crt_tiled_scan": ("resample", "tiled_mac_kernel"),
            "crt_strided_mac": ("strided", "strided_mac_kernel"),
            "crt_wide_mac": ("wide", "wide_mac_kernel"),
            "crt_scan_stage": ("scan", "scan_stage_kernel"),
@@ -224,22 +230,22 @@ def _stream(x) -> int:
 # Lanes of one staged tile of the tiled and strided kernels (32 threads x 4
 # lanes); a staged window row is this many ints.
 TILED_LANES = 128
-# The ConfigScalars fields the kernels read, in their argument order, and
-# the names of those arguments.
+# The ConfigScalars fields the kernels read, in their argument order
+# (CONFIG_ARGS names those arguments).
 TILED_CONFIG_FIELDS = ("increment_hi", "increment_lo", "stretched_kernel_radius",
                        "stretched_kernel_radius_delta", "integer_stretched_kernel_radius",
                        "kernel_step_size")
-CONFIG_ARGS = ("inc_hi", "inc_lo", "radius", "delta", "int_radius", "step")
 # Input rows of one staged run of wide_mac_kernel (wide_kernels.cu
 # WIDE_RUN_ROWS); 64 measured faster than 32 and 128 on the H100 (PERF.md).
 WIDE_RUN_ROWS = 64
 
 
-def tiled_shared_bytes(frames: int, win_rows: int, taps: int) -> int:
+def tiled_shared_bytes(frames: int, win_rows: int, taps: int, elem_bytes: int = 4) -> int:
     """Dynamic shared memory of one tiled_mac_kernel block: two stages, each
-    a window of win_rows x TILED_LANES ints and its frames' taps, rows,
-    reciprocals and live tap counts."""
-    return 2 * 4 * (win_rows * TILED_LANES + frames * (taps + 3))
+    a window of win_rows x TILED_LANES samples of ``elem_bytes`` bytes (int32
+    rows; the scan mode's int16 or int32 stream rows) and its frames' taps,
+    rows, reciprocals and live tap counts."""
+    return 2 * (win_rows * TILED_LANES * elem_bytes + 4 * frames * (taps + 3))
 
 
 def strided_shared_bytes(taps: int, win_rows: int) -> int:
@@ -370,6 +376,103 @@ def tiled_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int
     if n_out:
         _launch("crt_tiled_mac", args)
     return out, rows
+
+
+# How tiled_mac_kernel's scan mode copies a window's stream rows
+# (resample_kernels.cu SCAN_COPY_*): element loads, 4-byte or 16-byte cp.async.
+SCAN_COPY_ELEMENTS, SCAN_COPY_WORDS, SCAN_COPY_VEC = 0, 1, 2
+
+
+def scan_copy_path(*, elem_bytes: int, lanes: int, ptr: int) -> int:
+    """The copy path of a scan-mode launch over a stream of ``lanes`` lanes
+    of ``elem_bytes``-byte samples at address ``ptr``: SCAN_COPY_VEC when
+    every row and the stream start on 16 bytes (8 int16 or 4 int32 lanes a
+    copy), else SCAN_COPY_WORDS when on 4 bytes, else SCAN_COPY_ELEMENTS
+    (an odd int16 lane count, or an int16 stream off 4 bytes)."""
+    row = lanes * elem_bytes
+    if row % 16 == 0 and ptr % 16 == 0:
+        return SCAN_COPY_VEC
+    return SCAN_COPY_WORDS if row % 4 == 0 and ptr % 4 == 0 else SCAN_COPY_ELEMENTS
+
+
+def scan_window(step: int, n_in: int, radius: int) -> dict:
+    """Scan step ``step``'s window in stream rows: window row i is stream row
+    src_first + i while that lies in [0, src_end), else 0 -- the JAX scan's
+    staged [halo | chunk | zeros] (clownresampler_tpu/lowlevel.py:378-412)."""
+    return dict(src_first=step * n_in - 2 * radius, src_end=(step + 1) * n_in)
+
+
+def tiled_scan_args(chunks, table, table_strided, state_in, cfg, out, produced, over,
+                    state_out, *, step: int, radius: int, max_taps: int, frames_per_stage: int,
+                    win_rows: int) -> dict:
+    """Check one scan-mode tiled_mac_kernel launch and return crt_tiled_scan's
+    arguments by name: scan step ``step`` of ``chunks`` (K, n_in, L) int16 or
+    int32, read as one stream, from the state ``state_in`` (2,) -- (p with the
+    scan's +radius bias, f) --, its n_out frames into ``out`` (n_out, L)
+    int32, ``produced`` and ``over`` (1,) and ``state_out`` (2,) int32; the
+    flat LUT ``table`` or its strided form; ``cfg`` ConfigScalars; everything
+    contiguous on the chunks' card."""
+    _check_cuda(chunks)
+    if (chunks.dim() != 3 or chunks.dtype not in (torch.int16, torch.int32)
+            or not chunks.is_contiguous()):
+        raise ValueError(f"chunks must be a contiguous (K, n_in, L) int16 or int32 tensor, got "
+                         f"{chunks.dtype} {tuple(chunks.shape)}")
+    k, n_in, lanes = chunks.shape
+    n_out = out.shape[0] if out.dim() == 2 else -1
+    tables = {"table": (table, 1)}
+    if table_strided is not None:
+        tables["table_strided"] = (table_strided, 2)
+    small = dict(state_in=(state_in, 2), state_out=(state_out, 2), produced=(produced, 1),
+                 over=(over, 1))
+    _check_tensors(out, lanes, 0, **tables, **{name: (t, 1) for name, (t, _) in small.items()})
+    for name, (t, numel) in small.items():
+        if t.numel() != numel:
+            raise ValueError(f"{name} must have {numel} elements, got {t.numel()}")
+    if chunks.device != out.device or not (0 <= step < k and n_out > 0 and radius >= 0):
+        raise ValueError(f"bad scan step {step} of chunks {tuple(chunks.shape)} on "
+                         f"{chunks.device}, radius {radius}, out {tuple(out.shape)} on "
+                         f"{out.device}")
+    if frames_per_stage not in (8, 16, 32, 64) or win_rows < 0:
+        raise ValueError(f"bad tiled stage: {frames_per_stage} frames, {win_rows} rows")
+    elem_bytes = chunks.element_size()
+    smem = tiled_shared_bytes(frames_per_stage, win_rows, max_taps, elem_bytes)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"tiled stages of {smem} bytes exceed {MAX_SHARED_BYTES} bytes "
+                         f"of shared memory")
+    if max_taps <= 0 or (table_strided is not None and table_strided.shape[1] != max_taps):
+        raise ValueError(f"bad scan taps: {max_taps}, strided table "
+                         f"{None if table_strided is None else tuple(table_strided.shape)}")
+    scalars = [_scalar_arg(getattr(cfg, f), out, f)[0] for f in TILED_CONFIG_FIELDS]
+    if None in scalars:
+        raise ValueError("the kernels read ConfigScalars as tensors on the chunks' device")
+    tstr_ptr, tstr_rows = ((None, 0) if table_strided is None
+                           else (table_strided.data_ptr(), table_strided.shape[0]))
+    ptr = chunks.data_ptr()
+    return dict(src=ptr, src_s16=int(chunks.dtype == torch.int16),
+                # S: the staged buffer the step stands for, [halo | chunk | max_taps + 8
+                # zero rows], by which the padding frames' windows are clamped.
+                **scan_window(step, n_in, radius), n_in=n_in, S=2 * radius + n_in + max_taps + 8,
+                L=lanes,
+                copy=scan_copy_path(elem_bytes=elem_bytes, lanes=lanes, ptr=ptr),
+                vec=int(lanes % 4 == 0 and out.data_ptr() % 16 == 0),
+                state_in=state_in.data_ptr(), **dict(zip(CONFIG_ARGS, scalars)),
+                table=table.data_ptr(), table_size=table.shape[0], tstr=tstr_ptr,
+                tstr_rows=tstr_rows, N=n_out, T=max_taps, frames_per_stage=frames_per_stage,
+                win_rows=win_rows, out=out.data_ptr(), produced=produced.data_ptr(),
+                over=over.data_ptr(), state_out=state_out.data_ptr(),
+                device=out.device.index, stream=_stream(out))
+
+
+def tiled_scan(chunks, table, table_strided, state_in, cfg, out, produced, over, state_out, *,
+               step: int, radius: int, max_taps: int, frames_per_stage: int,
+               win_rows: int) -> None:
+    """Launch tiled_mac_kernel once in scan mode (tiled_scan_args): scan step
+    ``step`` straight from the chunks -- each block copies its tiles' window
+    rows from the stream, as int16 when the chunks are, into shared memory --
+    and its bookkeeping, written in place."""
+    _launch("crt_tiled_scan", tiled_scan_args(
+        chunks, table, table_strided, state_in, cfg, out, produced, over, state_out, step=step,
+        radius=radius, max_taps=max_taps, frames_per_stage=frames_per_stage, win_rows=win_rows))
 
 
 def strided_launch_args(x, table, p0, f0, cfg, *, max_taps: int, n_out: int, d: int,

@@ -37,6 +37,29 @@
 // The per-term truncation rules out tensor cores: the MACs are int32 work on
 // the CUDA cores.
 //
+// Scan mode (SCAN): a step of the whole-stream scan with the tiled or general
+// engine (lowlevel.ScanProgram), as one launch. It replaces the engine's
+// Pallas kernel together with the staging, bookkeeping and halo slice XLA
+// compiles around it in the JAX scan (clownresampler_tpu/lowlevel.py:378-412),
+// which concatenates [halo | chunk | zeros] in device memory. The chunks are
+// one contiguous (K, n_in, L) tensor, so step k's staged buffer is exactly
+// stream rows [k*n_in - 2r, (k+1)*n_in) with zeros before row 0 and past the
+// chunk (for n_in < 2r too: the halo is the same stream window). A block
+// copies its tile's window rows straight from the int16 (or int32) stream
+// into shared memory, still int16, zero-filled outside the step's live rows,
+// and widens a quad of lanes when a tap reads it: the step reads the chunk
+// once and writes no staging buffer, where a separate stage pass read it,
+// wrote it widened to int32 and the MAC read that back (at config 7: 33.6 MB
+// read instead of 33.6 + 67.4 + 67.4 MB moved), and a stage's rows take half
+// the shared memory. The host knows the scan's increment, so it sizes each
+// stage to the window its frames reach (ops.resample.scan_stage_plan: at
+// config 7 16 frames of 123 rows, where the int32 entry takes 8 of 79), and
+// the shared memory left holds more blocks an SM. Each block also works out
+// the step's produced count from the state (the same int64 formulas as
+// scan_kernels.cu scan_bookkeeping), masks its stores by it, and block 0
+// writes produced, over and the next step's state, which the next launch
+// reads in stream order.
+//
 // Built by ops/_build.py with nvcc into a shared library with a plain C
 // interface; the Python wrappers check devices, dtypes, shapes and strides
 // before they pass pointers, and every entry returns cudaGetLastError().
@@ -58,6 +81,28 @@ namespace {
 constexpr int TILED_THREADS = 256;                // 8 warps
 constexpr int TILED_WARPS = TILED_THREADS / 32;
 
+// Scan mode: how a window's rows are copied from the stream, picked by the
+// host (_build.scan_copy_path): 16-byte cp.async granules (a row's bytes and
+// the chunks' address multiples of 16), 4-byte cp.async words (multiples of
+// 4), or element loads (cp.async has no 2-byte form: an odd int16 lane count
+// or an address off 4 bytes).
+constexpr int SCAN_COPY_ELEMENTS = 0;
+constexpr int SCAN_COPY_WORDS = 1;
+constexpr int SCAN_COPY_VEC = 2;
+
+// Scan mode's source and bookkeeping. Window row i of the step is stream row
+// first + i of the chunks read as one (K * n_in, L) stream when 0 <= first + i
+// < end, else 0: first = k*n_in - 2r, end = (k+1)*n_in for step k.
+struct ScanSource {
+    const void* chunks;               // int16 or int32 (SrcT); never offset before it
+    long long first, end;
+    int copy;                         // SCAN_COPY_*
+    int n_in;                         // chunk frames
+    int* produced;                    // (1,) written by block 0
+    int* over;                        // (1,)
+    int* state_out;                   // (2,) the next step's (p, f)
+};
+
 struct TiledParams {
     const int* x;
     int S, L, lane_offset, lanes;
@@ -70,13 +115,124 @@ struct TiledParams {
     int* rows_out;                    // null: the rows are not written
     const int* n_valid;               // frames from *n_valid - frame_offset on are stored
     int frame_offset;                 // as 0 (valid_frames); null: every frame is kept
+    ScanSource scan;                  // scan mode only (x null, S the staged buffer's rows)
 };
 
+// Ints of a stage's window of W rows of SrcT (int32 staged buffers, or the
+// scan's int16 or int32 stream rows).
+template <typename SrcT>
+__host__ __device__ inline int window_ints(int W) {
+    return W * TILE_LANES * static_cast<int>(sizeof(SrcT)) / 4;
+}
+
 // One stage of a block's shared memory, in ints: the staged window
-// [W][TILE_LANES], the masked taps [F][T], the clamped rows [F], q [F], the
-// live tap counts [F].
+// [W][TILE_LANES] of SrcT, the masked taps [F][T], the clamped rows [F], q
+// [F], the live tap counts [F].
+template <typename SrcT>
 __host__ __device__ inline int tiled_stage_ints(int F, int T, int W) {
-    return W * TILE_LANES + F * (T + 3);
+    return window_ints<SrcT>(W) + F * (T + 3);
+}
+
+// Four staged lanes as one shared load (16 bytes of int32, 8 of int16), and
+// widened to int32.
+template <typename SrcT>
+struct Quad;
+
+template <>
+struct Quad<int32_t> {
+    using type = int4;
+    static __device__ __forceinline__ int4 widen(int4 v) { return v; }
+};
+
+template <>
+struct Quad<int16_t> {
+    using type = int2;
+    // Little-endian pairs: the low half sign-extended, the high half shifted down.
+    static __device__ __forceinline__ int4 widen(int2 v) {
+        return make_int4(static_cast<int16_t>(v.x & 0xFFFF), v.x >> 16,
+                         static_cast<int16_t>(v.y & 0xFFFF), v.y >> 16);
+    }
+};
+
+// Scan mode: the step's frames that keep their values, from the step's
+// state (the launch state: p with the scan's +radius bias, f) and the
+// increment, in int64 as scan_kernels.cu scan_bookkeeping computes them for
+// one launch: natural = ceil(((n_in - p) * 2^16 - f) / inc) frames are due,
+// produced = min(natural, N). Thread 0 of block 0 writes produced, over
+// (natural > N) and the next step's state (the position carry,
+// clownresampler.h:1063-1068); every block masks its stores by produced.
+__device__ __forceinline__ int scan_step(const TiledParams& P, const LaunchGeometry& g) {
+    const ScanSource& s = P.scan;
+    const long long num = (static_cast<long long>(s.n_in) - g.p0) * 65536 - g.f0;
+    const long long natural = num > 0 ? (num + g.inc - 1) / (g.inc > 1 ? g.inc : 1) : 0;
+    const long long produced = natural < P.N ? natural : P.N;
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+        *s.produced = static_cast<int>(produced);
+        *s.over = natural > P.N ? 1 : 0;
+        const long long t = g.f0 + produced * g.inc;
+        const long long p_after = g.p0 + (t >> 16);
+        s.state_out[0] = static_cast<int>(p_after - (p_after < s.n_in ? p_after : s.n_in));
+        s.state_out[1] = static_cast<int>(t & 0xFFFF);
+    }
+    return static_cast<int>(produced);
+}
+
+// The frames of the launch that keep their values (valid_frames; in scan
+// mode the step's produced count, scan_step).
+template <bool SCAN>
+__device__ __forceinline__ int launch_valid(const TiledParams& P, const LaunchGeometry& g) {
+    if constexpr (SCAN) {
+        return scan_step(P, g);
+    } else {
+        return valid_frames(P.n_valid, P.frame_offset);
+    }
+}
+
+// Scan mode: start the copy of window rows [0, rows) -- stream rows first +
+// r -- x lanes [lane0, lane0 + TILE_LANES) into win, BYTES (16 or 4) a copy,
+// by THREADS threads; rows outside [0, end) and lanes past L are
+// zero-filled (the copy's source is then the stream's base, never an
+// address before it). A thread keeps one column, as load_rows_async does.
+template <int THREADS, int BYTES, typename SrcT>
+__device__ __forceinline__ void copy_stream_rows(const SrcT* x, int L, long long first,
+                                                 long long end, int rows, int lane0, SrcT* win) {
+    constexpr int PER = BYTES / static_cast<int>(sizeof(SrcT));     // lanes a copy
+    constexpr int COLS = TILE_LANES / PER;
+    constexpr int STEP = THREADS / COLS;
+    static_assert(THREADS % COLS == 0, "a thread keeps one column");
+    constexpr unsigned DST_STEP = STEP * TILE_LANES * sizeof(SrcT);
+    const int col = threadIdx.x % COLS;
+    const int lane = lane0 + PER * col;
+    int r = threadIdx.x / COLS;
+    unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(win + r * TILE_LANES + PER * col));
+    for (; r < rows; r += STEP, dst += DST_STEP) {
+        const long long s = first + r;
+        const bool ok = lane < L && s >= 0 && s < end;
+        const SrcT* src = ok ? x + s * L + lane : x;
+        if constexpr (BYTES == 16) {
+            cp_async16(dst, src, ok);
+        } else {
+            cp_async4(dst, src, ok);
+        }
+    }
+}
+
+template <int THREADS, typename SrcT>
+__device__ __forceinline__ void load_stream_rows(const ScanSource& s, int L, long long first,
+                                                 int rows, int lane0, SrcT* win) {
+    const SrcT* x = static_cast<const SrcT*>(s.chunks);
+    if (s.copy == SCAN_COPY_VEC) {
+        copy_stream_rows<THREADS, 16>(x, L, first, s.end, rows, lane0, win);
+    } else if (s.copy == SCAN_COPY_WORDS) {
+        copy_stream_rows<THREADS, 4>(x, L, first, s.end, rows, lane0, win);
+    } else {
+        // Plain loads and shared stores, visible after the next barrier.
+        for (int i = threadIdx.x; i < rows * TILE_LANES; i += THREADS) {
+            const long long r = first + i / TILE_LANES;
+            const int lane = lane0 + i % TILE_LANES;
+            win[i] = lane < L && r >= 0 && r < s.end ? __ldg(x + r * L + lane) : SrcT(0);
+        }
+    }
 }
 
 // Frames per stage: the most of F, F/2, ..., 8 whose window -- at most
@@ -110,11 +266,18 @@ __device__ __forceinline__ Tile tiled_tile(const TiledParams& P, const LaunchGeo
     return t;
 }
 
-// Start the asynchronous copy of a staged tile's window rows into `win`.
-__device__ __forceinline__ void tiled_load_window(const TiledParams& P, const Tile& t, int* win) {
+// Start the asynchronous copy of a staged tile's window rows into `win` (in
+// scan mode from the stream, window row r being stream row scan.first + r).
+template <typename SrcT, bool SCAN>
+__device__ __forceinline__ void tiled_load_window(const TiledParams& P, const Tile& t, SrcT* win) {
     if (!t.staged) return;
-    load_rows_async<TILED_THREADS>(P.x, P.L, P.lane_offset, P.lanes, P.vec, t.first, t.rows,
-                                   t.lane0, win);
+    if constexpr (SCAN) {
+        load_stream_rows<TILED_THREADS>(P.scan, P.L, P.scan.first + t.first, t.rows, t.lane0,
+                                        win);
+    } else {
+        load_rows_async<TILED_THREADS>(P.x, P.L, P.lane_offset, P.lanes, P.vec, t.first, t.rows,
+                                       t.lane0, win);
+    }
 }
 
 // The tile's geometry (the launch precompute, ops/resample.py): each frame's
@@ -157,11 +320,13 @@ __device__ __forceinline__ void tiled_geometry(const TiledParams& P, const Launc
 // stops at its live taps (from 24 taps up, in fours): a reserve or a width
 // rounded up to 8 adds taps that are zero, and a zero tap adds nothing. A
 // frame from `valid` on (valid_frames) skips its taps and is stored as 0: its
-// sum stays 0, and 0 normalises and clamps to 0.
-template <int TT, typename OutT>
+// sum stays 0, and 0 normalises and clamps to 0. A window of int16 rows (scan
+// mode) is widened a quad at a time as its taps read it.
+template <int TT, typename OutT, typename SrcT, bool SCAN>
 __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& t, int T,
-                                              const int* win, const int* kv, const int* rl,
+                                              const SrcT* win, const int* kv, const int* rl,
                                               const int* q, const int* lv, int valid) {
+    using Q = Quad<SrcT>;
     const int tx = threadIdx.x & 31;
     const int lane = t.lane0 + 4 * tx;
     if (lane >= P.lanes) return;
@@ -172,8 +337,8 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
         if (t.n0 + f >= valid) {
             // masked: the zeros are stored below
         } else if (t.staged) {
-            const int4* w =
-                reinterpret_cast<const int4*>(win) + (rl[f] - t.first) * TILE_COLS + tx;
+            const typename Q::type* w = reinterpret_cast<const typename Q::type*>(win) +
+                                        (rl[f] - t.first) * TILE_COLS + tx;
             if (TT) {
 #pragma unroll
                 for (int j = 0; j < TT; j += 4) {
@@ -182,7 +347,7 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
                     const int kj[4] = {kk.x, kk.y, kk.z, kk.w};
 #pragma unroll
                     for (int i = 0; i < 4; ++i) {
-                        const int4 v = w[(j + i) * TILE_COLS];
+                        const int4 v = Q::widen(w[(j + i) * TILE_COLS]);
                         a0 = macc_trunc(a0, v.x, kj[i]);
                         a1 = macc_trunc(a1, v.y, kj[i]);
                         a2 = macc_trunc(a2, v.z, kj[i]);
@@ -191,13 +356,28 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
                 }
             } else {
                 for (int j = 0; j < live; ++j) {
-                    const int4 v = w[j * TILE_COLS];
+                    const int4 v = Q::widen(w[j * TILE_COLS]);
                     const int kj = k[j];
                     a0 = macc_trunc(a0, v.x, kj);
                     a1 = macc_trunc(a1, v.y, kj);
                     a2 = macc_trunc(a2, v.z, kj);
                     a3 = macc_trunc(a3, v.w, kj);
                 }
+            }
+        } else if constexpr (SCAN) {
+            // A window past the stage's rows, read from the stream a row at a
+            // time; rows outside the step's live range read as zero.
+            const SrcT* xs = static_cast<const SrcT*>(P.scan.chunks);
+            const int nl = min(4, P.lanes - lane);
+            long long s = P.scan.first + rl[f];
+            for (int j = 0; j < live; ++j, ++s) {
+                if (s < 0 || s >= P.scan.end) continue;
+                const SrcT* xr = xs + s * P.L + lane;
+                const int kj = k[j];
+                a0 = macc_trunc(a0, __ldg(xr), kj);
+                if (nl > 1) a1 = macc_trunc(a1, __ldg(xr + 1), kj);
+                if (nl > 2) a2 = macc_trunc(a2, __ldg(xr + 2), kj);
+                if (nl > 3) a3 = macc_trunc(a3, __ldg(xr + 3), kj);
             }
         } else if (P.vec) {
             // A window past the stage's rows (taps too wide to stage, or an
@@ -232,7 +412,9 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
 // flight share their stages' rows in L2). Two stages of shared memory: while
 // a block computes one tile, the copy of its next tile's window is in flight
 // (cp.async), and its geometry follows the compute. One barrier per tile.
-template <int TT, typename OutT>
+// SrcT and SCAN: the window's rows are int32 rows of x (SCAN false: the
+// tiled and general entries), or the scan's int16 or int32 stream rows.
+template <int TT, typename OutT, typename SrcT, bool SCAN>
 __global__ void __launch_bounds__(TILED_THREADS, 2)
 tiled_mac_kernel(const TiledParams P) {
     extern __shared__ int4 smem4[];
@@ -240,23 +422,23 @@ tiled_mac_kernel(const TiledParams P) {
     const int T = TT ? TT : P.T;
     const LaunchGeometry g = read_geometry(P.geo);
     const int F = stage_frames(g, P.F, T, P.W);
-    const int stage_ints = tiled_stage_ints(F, T, P.W);
+    const int stage_ints = tiled_stage_ints<SrcT>(F, T, P.W);
     const int row_max = max(P.S - T, 0);
-    const int valid = valid_frames(P.n_valid, P.frame_offset);
+    const int valid = launch_valid<SCAN>(P, g);
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
     const int tiles = lane_tiles * ((P.N + F - 1) / F);
     int tile = blockIdx.x;
     if (tile >= tiles) return;
 
     // Stage b: window at smem + b * stage_ints, then taps, rows, q, live.
-    auto win = [&](int b) { return smem + b * stage_ints; };
-    auto taps = [&](int b) { return win(b) + P.W * TILE_LANES; };
+    auto win = [&](int b) { return reinterpret_cast<SrcT*>(smem + b * stage_ints); };
+    auto taps = [&](int b) { return smem + b * stage_ints + window_ints<SrcT>(P.W); };
     auto rows = [&](int b) { return taps(b) + F * T; };
     auto recip = [&](int b) { return rows(b) + F; };
     auto live = [&](int b) { return recip(b) + F; };
 
     Tile cur = tiled_tile(P, g, tile, lane_tiles, F, T, row_max);
-    tiled_load_window(P, cur, win(0));
+    tiled_load_window<SrcT, SCAN>(P, cur, win(0));
     cp_async_commit();
     tiled_geometry(P, g, cur, F, T, row_max, taps(0), rows(0), recip(0), live(0));
     for (int b = 0;; b ^= 1) {
@@ -266,10 +448,11 @@ tiled_mac_kernel(const TiledParams P) {
         Tile nxt{};
         if (next < tiles) {
             nxt = tiled_tile(P, g, next, lane_tiles, F, T, row_max);
-            tiled_load_window(P, nxt, win(b ^ 1));
+            tiled_load_window<SrcT, SCAN>(P, nxt, win(b ^ 1));
         }
         cp_async_commit();
-        tiled_compute<TT, OutT>(P, cur, T, win(b), taps(b), rows(b), recip(b), live(b), valid);
+        tiled_compute<TT, OutT, SrcT, SCAN>(P, cur, T, win(b), taps(b), rows(b), recip(b),
+                                            live(b), valid);
         if (next >= tiles) break;
         tiled_geometry(P, g, nxt, F, T, row_max, taps(b ^ 1), rows(b ^ 1), recip(b ^ 1),
                        live(b ^ 1));
@@ -281,30 +464,31 @@ tiled_mac_kernel(const TiledParams P) {
 // Persistent grid: as many blocks as fit on the card at this shared memory
 // size (persistent_grid, mac_common.cuh), at most one per tile of 8 frames
 // (the fewest frames a stage takes; blocks past the tiles exit).
-template <int TT, typename OutT>
+template <int TT, typename OutT, typename SrcT, bool SCAN>
 int launch_tiled(const TiledParams& P, int device, cudaStream_t stream) {
     static PersistentGrid cache;
-    const int smem = 2 * tiled_stage_ints(P.F, TT ? TT : P.T, P.W) * static_cast<int>(sizeof(int));
+    const int smem =
+        2 * tiled_stage_ints<SrcT>(P.F, TT ? TT : P.T, P.W) * static_cast<int>(sizeof(int));
     int blocks = 0;
-    const int err = persistent_grid(cache, tiled_mac_kernel<TT, OutT>, TILED_THREADS, smem,
-                                    device, &blocks);
+    const int err = persistent_grid(cache, tiled_mac_kernel<TT, OutT, SrcT, SCAN>, TILED_THREADS,
+                                    smem, device, &blocks);
     if (err != 0) return err;
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
     const long long tiles = static_cast<long long>(lane_tiles) * ((P.N + 7) / 8);
     const int grid = static_cast<int>(std::min<long long>(tiles, blocks));
-    tiled_mac_kernel<TT, OutT><<<grid, TILED_THREADS, smem, stream>>>(P);
+    tiled_mac_kernel<TT, OutT, SrcT, SCAN><<<grid, TILED_THREADS, smem, stream>>>(P);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename OutT>
+template <typename OutT, typename SrcT = int32_t, bool SCAN = false>
 int launch_tiled_taps(const TiledParams& P, int device, cudaStream_t stream) {
     switch (P.T) {
-        case 8: return launch_tiled<8, OutT>(P, device, stream);
-        case 16: return launch_tiled<16, OutT>(P, device, stream);
-        case 24: return launch_tiled<24, OutT>(P, device, stream);
-        case 32: return launch_tiled<32, OutT>(P, device, stream);
-        case 40: return launch_tiled<40, OutT>(P, device, stream);
-        default: return launch_tiled<0, OutT>(P, device, stream);
+        case 8: return launch_tiled<8, OutT, SrcT, SCAN>(P, device, stream);
+        case 16: return launch_tiled<16, OutT, SrcT, SCAN>(P, device, stream);
+        case 24: return launch_tiled<24, OutT, SrcT, SCAN>(P, device, stream);
+        case 32: return launch_tiled<32, OutT, SrcT, SCAN>(P, device, stream);
+        case 40: return launch_tiled<40, OutT, SrcT, SCAN>(P, device, stream);
+        default: return launch_tiled<0, OutT, SrcT, SCAN>(P, device, stream);
     }
 }
 
@@ -329,6 +513,33 @@ int crt_tiled_mac(const int* x, int S, int L, int lane_offset, int lanes, const 
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return clamp_s16 ? launch_tiled_taps<int16_t>(P, device, s)
                      : launch_tiled_taps<int32_t>(P, device, s);
+}
+
+// One step of the whole-stream scan in scan mode: window row i is row src_first
+// + i of the (K * n_in, L) stream at src (int16 when src_s16, else int32) when
+// that row lies in [0, src_end), else 0; S is the rows of the staged buffer
+// the step stands for (2r + n_in + taps + 8: clamped windows stay put);
+// state_in (2,) is the step's (p, f) and its launch state; the step's frames
+// go to out (N, L) int32, zero from produced on, and produced, over and the
+// next state to their pointers. copy is a SCAN_COPY_* path, vec 1 when out's
+// rows take 16-byte stores. Returns a cudaError_t.
+int crt_tiled_scan(const void* src, int src_s16, long long src_first, long long src_end,
+                   int n_in, int S, int L, int copy, int vec, const int* state_in,
+                   const int* inc_hi, const int* inc_lo, const int* radius, const int* delta,
+                   const int* int_radius, const int* step, const int* table, int table_size,
+                   const int* tstr, int tstr_rows, int N, int T, int frames_per_stage,
+                   int win_rows, void* out, int* produced, int* over, int* state_out,
+                   int device, void* stream) {
+    const DeviceGuard guard(device);
+    if (guard.err != 0) return guard.err;
+    const GeometryArgs geo{state_in, 0, state_in + 1, 0, inc_hi, inc_lo,
+                           radius, delta, int_radius, step};
+    const TiledParams P{nullptr, S, L, 0, L, geo, {table, table_size, tstr, tstr_rows, T},
+                        N, T, frames_per_stage, win_rows, vec, out, nullptr, nullptr, 0,
+                        {src, src_first, src_end, copy, n_in, produced, over, state_out}};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return src_s16 ? launch_tiled_taps<int32_t, int16_t, true>(P, device, s)
+                   : launch_tiled_taps<int32_t, int32_t, true>(P, device, s);
 }
 
 const char* crt_error_string(int err) {

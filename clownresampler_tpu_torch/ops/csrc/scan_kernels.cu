@@ -3,8 +3,10 @@
 // scan_stage_kernel has no Pallas counterpart: it replaces the code XLA
 // compiles around the Pallas kernel inside the JAX package's jitted scan
 // (clownresampler_tpu/lowlevel.py:378-412, resample_scan_fused: `stage`,
-// `run_engine`'s bookkeeping and the halo slice). One launch does, for scan
-// step k:
+// `run_engine`'s bookkeeping and the halo slice) for the strided and wide
+// engines; the tiled and general engines' steps read the chunks in place
+// (tiled_mac_kernel's scan mode, resample_kernels.cu). One launch does, for
+// scan step k:
 //  - Stage. The step's engine input [halo | chunk widened to int32] goes into
 //    rows [0, 2r + n_in) of one of the scan's two buffers; the halo is rows
 //    [n_in, n_in + 2r) of the other buffer, which the step before staged (all

@@ -195,6 +195,25 @@ def stage_plan(max_taps: int, increment: int) -> tuple:
     return TILED_STAGE_FRAMES[-1], 0
 
 
+@functools.lru_cache(maxsize=None)
+def scan_stage_plan(max_taps: int, increment: int, elem_bytes: int) -> tuple:
+    """(frames per stage, window rows) of a scan-mode tiled_mac_kernel launch
+    over chunks of ``elem_bytes``-byte samples. The scan knows its own
+    increment, so each stage holds exactly the window its frames reach
+    (stage_window_rows) and what shared memory is left holds more blocks an
+    SM: the most of TILED_STAGE_FRAMES whose two stages fit
+    TILED_SHARED_BUDGET, else the card's limit; else 8 frames reading the
+    chunks directly (0 rows). At config 7's step (int16, 40 taps) 16 frames
+    of 123 rows; on the H100 that measured 4-5% faster than stages filled
+    with rows as stage_plan fills them (PERF.md)."""
+    for budget in (TILED_SHARED_BUDGET, _build.MAX_SHARED_BYTES):
+        for frames in TILED_STAGE_FRAMES:
+            rows = stage_window_rows(increment, frames, max_taps)
+            if _build.tiled_shared_bytes(frames, rows, max_taps, elem_bytes) <= budget:
+                return frames, rows
+    return TILED_STAGE_FRAMES[-1], 0
+
+
 def _frame_windows(state, n: torch.Tensor) -> tuple:
     """int64 (first window rows, LUT starts, live tap counts) of frames n
     (int64), as mac_common.cuh frame_window computes them: positions in

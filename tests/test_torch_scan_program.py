@@ -1,6 +1,9 @@
 """The port's whole-stream scan as one device program vs the JAX package.
 
-On a card ``resample_scan_fused`` is a ``ScanProgram``: per step one launch of
+On a card ``resample_scan_fused`` is a ``ScanProgram``: per step one
+scan-mode launch of tiled_mac_kernel for the tiled and general engines (the
+window read from the chunks in place, the bookkeeping folded in; its own
+tests are in tests/test_torch_scan_inplace.py), else one launch of
 scan_stage_kernel (stage + bookkeeping) and the engine's launches, which
 mask the frames past ``produced`` in their stores. On the CPU, with inputs
 made from a numpy seed, this file holds against the JAX package's
@@ -350,6 +353,52 @@ def _stage_stand_in(calls):
     return entry
 
 
+def _cfg_at(a):
+    """The ConfigScalars a C entry's arguments ``a`` point at."""
+    scalar = lambda key: _tensor(a[key], ())
+    return ConfigScalars(
+        stretched_kernel_radius=scalar("radius"),
+        integer_stretched_kernel_radius=scalar("int_radius"),
+        stretched_kernel_radius_delta=scalar("delta"), kernel_step_size=scalar("step"),
+        increment=torch.zeros((), dtype=torch.int32), increment_hi=scalar("inc_hi"),
+        increment_lo=scalar("inc_lo"))
+
+
+def _tiled_scan_stand_in(calls):
+    """crt_tiled_scan (tiled_mac_kernel's scan mode) over the same pointers:
+    the window from stream rows [max(src_first, 0), src_end) only -- nothing
+    before the stream or past the step's chunk is read --, zeros elsewhere
+    in its S rows; the bookkeeping in exact integers; the engine's plain
+    version with n_valid, written to the output pointer."""
+    def entry(*args):
+        a = dict(zip(_build.ENTRY_ARGS["crt_tiled_scan"], args))
+        calls.append(("crt_tiled_scan", a))
+        lanes, first, end, n_in = a["L"], a["src_first"], a["src_end"], a["n_in"]
+        elem = np.int16 if a["src_s16"] else np.int32
+        assert a["S"] == end - first + a["T"] + 8 and end % n_in == 0
+        assert _build.tiled_shared_bytes(a["frames_per_stage"], a["win_rows"], a["T"],
+                                         np.dtype(elem).itemsize) <= _build.MAX_SHARED_BYTES
+        x = np.zeros((a["S"], lanes), np.int32)
+        lo = max(first, 0)
+        x[lo - first : end - first] = _view(a["src"], (end, lanes), elem)[lo:end]
+        p, f = (int(v) for v in _view(a["state_in"], (2,)))
+        inc = (int(_view(a["inc_hi"], ())) << 16) + int(_view(a["inc_lo"], ()))
+        produced, over, _, nxt = _bookkeeping_int64(p, f, inc, n_in, a["N"], a["N"])
+        _view(a["produced"], ())[...] = produced
+        _view(a["over"], ())[...] = over
+        _view(a["state_out"], (2,))[...] = nxt
+        st = DeviceState(torch.tensor(p, dtype=torch.int32), torch.tensor(f, dtype=torch.int32),
+                         _cfg_at(a))
+        kw = dict(max_taps=a["T"], n_out=a["N"], n_valid=torch.tensor(produced, dtype=torch.int32))
+        if a["tstr"]:
+            kw["table_strided"] = _tensor(a["tstr"], (a["tstr_rows"], a["T"]))
+        out, _ = rs.resample_uniform_lanes_general_reference(
+            _tensor(a["table"], (a["table_size"],)), torch.from_numpy(x), st, **kw)
+        _tensor(a["out"], (a["N"], lanes)).copy_(out)
+        return 0
+    return entry
+
+
 def _mac_stand_in(name, calls):
     """A MAC entry over the same pointers: its plain version with n_valid,
     written to the output pointer."""
@@ -358,12 +407,7 @@ def _mac_stand_in(name, calls):
         calls.append((name, a))
         assert a["rows_out"] is None and a["clamp_s16"] == 0 and a["lane_offset"] == 0
         scalar = lambda key: _tensor(a[key], ())
-        cfg = ConfigScalars(
-            stretched_kernel_radius=scalar("radius"),
-            integer_stretched_kernel_radius=scalar("int_radius"),
-            stretched_kernel_radius_delta=scalar("delta"), kernel_step_size=scalar("step"),
-            increment=torch.zeros((), dtype=torch.int32), increment_hi=scalar("inc_hi"),
-            increment_lo=scalar("inc_lo"))
+        cfg = _cfg_at(a)
         st = DeviceState(scalar("p0_ptr"), scalar("f0_ptr"), cfg)
         x = _tensor(a["x"], (a["S"], a["L"]))
         table = _tensor(a["table"], (a["table_size"],))
@@ -388,6 +432,7 @@ def _program(c, monkeypatch, chunks=None):
     entries stood in, the calls it made)."""
     calls = []
     entries = {"crt_scan_stage": _stage_stand_in(calls),
+               "crt_tiled_scan": _tiled_scan_stand_in(calls),
                **{name: _mac_stand_in(name, calls)
                   for name in ("crt_tiled_mac", "crt_strided_mac", "crt_wide_mac")}}
     monkeypatch.setattr(_build, "entry_function", entries.__getitem__)
@@ -407,18 +452,29 @@ def _program(c, monkeypatch, chunks=None):
 @pytest.mark.parametrize("dtype", [np.int16, np.int32], ids=["int16", "int32"])
 @pytest.mark.parametrize("engine", list(ENGINES))
 def test_torch_scan_program_argument_flow(monkeypatch, engine, dtype):
-    """The program's launches, stood in, reproduce the plain version; it
-    makes one stage call and one engine call a step and counts them."""
+    """The program's launches, stood in, reproduce the plain version: the
+    tiled and general engines make one scan-mode call a step, each with its
+    window in stream rows, the strided and wide engines one stage call and
+    one engine call a step; the program counts them."""
     c = _case(ENGINES[engine], lanes=12, n_in=96, k=3, seed=86, dtype=dtype, f0=0x4321)
     got, calls, program = _program(c, monkeypatch)
     _assert_same(got, _reference(c), engine)
-    k = c["chunks"].shape[0]
-    entry = {"tiled": "crt_tiled_mac", "general": "crt_tiled_mac",
-             "strided": "crt_strided_mac", "wide": "crt_wide_mac"}[engine]
-    assert [name for name, _ in calls] == ["crt_scan_stage", entry] * k
-    assert program.routes == {("scan_stage", "cuda"): k, (engine, "cuda"): k}
-    assert {a["chunk_s16"] for name, a in calls if name == "crt_scan_stage"} == {
-        int(dtype == np.int16)}
+    k, n_in, _ = c["chunks"].shape
+    s16 = int(dtype == np.int16)
+    if engine in lowlevel.INPLACE_KINDS:
+        assert [name for name, _ in calls] == ["crt_tiled_scan"] * k
+        assert program.routes == {("scan_inplace", "cuda"): k}
+        assert [(a["src_first"], a["src_end"]) for _, a in calls] == [
+            (s * n_in - 2 * c["r"], (s + 1) * n_in) for s in range(k)]
+        assert {(a["src_s16"], a["src"]) for _, a in calls} == {(s16, program.chunks.data_ptr())}
+        # 12 int16 lanes are 24 bytes a row: 4-byte copies; 12 int32 lanes 16-byte ones.
+        assert {a["copy"] for _, a in calls} == {
+            _build.SCAN_COPY_WORDS if s16 else _build.SCAN_COPY_VEC}
+    else:
+        entry = {"strided": "crt_strided_mac", "wide": "crt_wide_mac"}[engine]
+        assert [name for name, _ in calls] == ["crt_scan_stage", entry] * k
+        assert program.routes == {("scan_stage", "cuda"): k, (engine, "cuda"): k}
+        assert {a["chunk_s16"] for name, a in calls if name == "crt_scan_stage"} == {s16}
     assert {a["vec"] for _, a in calls} == {1}
 
 
@@ -452,7 +508,7 @@ def test_torch_scan_program_odd_lanes_short_chunks_single_step(monkeypatch):
     one = _case(ENGINES["tiled"], lanes=4, n_in=64, k=1, flush=False, seed=89)
     got, calls, _ = _program(one, monkeypatch)
     _assert_same(got, _reference(one), "K = 1")
-    assert len(calls) == 2
+    assert [name for name, _ in calls] == ["crt_tiled_scan"]
 
 
 def test_torch_scan_program_backlog_and_checks(monkeypatch):
@@ -530,7 +586,8 @@ def test_torch_cuda_scan_program_matches_reference(cuda_device, engine, dtype):
     chunks = torch.from_numpy(c["chunks"]).to(cuda_device)
     rs.ROUTES.clear()
     got = _plain(resample_scan_fused(c["table"], chunks, c["state"], **_scan_args(c)))
-    assert rs.ROUTES == {("scan_stage", "cuda"): 4, (engine, "cuda"): 4}
+    assert rs.ROUTES == ({("scan_inplace", "cuda"): 4} if engine in lowlevel.INPLACE_KINDS
+                         else {("scan_stage", "cuda"): 4, (engine, "cuda"): 4})
     _assert_same(got, _reference(c), engine)
 
 
