@@ -75,8 +75,8 @@ for name in ("parent1", "change1", "change2", "parent2"):
                                          (old.get("mac_kernel_ms_per_step") or 0)
                                          + (old.get("other_device_ms_per_step") or 0)))
     print(name, "entries ms", {k: round(v["ms"], 5) for k, v in timing.items()})
-    print(name, "scan kernels alone ms", {k: (scan.get(k) or {}).get("ms")
-                                          for k in ("scan_inplace", "scan_stage_kernel")},
+    print(name, "scan modes alone ms", {k: v.get("ms")
+                                        for k, v in (scan.get("scan_modes") or {}).items()},
           "engines' device ms a step", [(lp.get("rates"), lp.get("device_ms_per_step"))
                                          for lp in loops])
 PY

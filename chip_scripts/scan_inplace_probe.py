@@ -12,9 +12,9 @@ TILED_CASES and GENERAL_CASES; --quick stops there. Then config 7's scan
 (chip_smoke.SCAN7: K = 16 and a zero chunk) against the plain scan on every
 lane, the oracle scan and two CPU replays, and N times (--repeat, default 1)
 chip_smoke.time_scan: the K-slope (8 -> 40 chunks) ms a chunk, Msamples/s,
-host us a step, peak memory at K = 40, the scan mode alone at config 7's
-step and scan_stage_kernel at the strided engine's, each beside its bound,
-and each engine's step loop under torch.profiler. --sweep (after the
+host us a step, peak memory at K = 40 (config 7's and the strided scan's),
+each engine's scan mode alone at its step beside its bound, and each
+engine's step loop under torch.profiler. --sweep (after the
 cases, in place of the scan) times the scan mode's C entry at config 7's
 step and at the tiled engine's (48 kHz -> 44.1 kHz, 2048 lanes) for stage
 shapes (frames a stage, window rows) other than the plan's -- each F with
@@ -152,8 +152,9 @@ def main() -> int:
     bad, paths = [], set()
     for case in cs.SCAN_INPLACE_CASES:
         try:
-            err, path = cs.run_scan_inplace_case(case, gen)
-            paths.add(path)
+            err, taken = cs.run_scan_mode_case(case, gen)
+            paths |= taken
+            path = sorted(taken)
         except AssertionError as exc:
             err, path = str(exc), None
             bad.append(case[0])

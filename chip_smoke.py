@@ -11,10 +11,11 @@ the card, drives the public entry points -- the four reference goldens, a
 the wide-kernel paths (44.1 kHz -> 132 Hz, and general ratios of 272 and
 1016 taps), config 7's whole-stream scan (1024 stereo streams, 44.1 kHz ->
 8 kHz) and the scans of the other three engines, each one device program
-run with no host sync (a step of the tiled and general engines one
-tiled_mac_kernel launch in scan mode, which reads the int16 chunks in
-place; of the strided and wide engines a scan_stage_kernel launch and the
-engine's launches), farm checkpoints restored on the card,
+run with no host sync (a step is its engine's kernel in scan mode, which
+reads the int16 chunks in place: one tiled_mac_kernel launch for the tiled
+and general engines, one strided_mac_kernel launch for the strided one, a
+wide_mac_kernel and a wide_fold_kernel launch for the wide one), farm
+checkpoints restored on the card,
 the CLI on the card, and config 5's fleet (1024 stereo streams, 8192 input
 and 16,384 output frames each) as one resample_batch call, one
 batch_mac_kernel launch -- then, with the launch counts reset, the sharded
@@ -35,9 +36,9 @@ fleet's resample_batch beside batch_mac_kernel alone, its plain version and
 its bound (and the same at BATCH and at an oracle-scan step), batched
 beside sharded and (at a quarter of the streams and an eighth of the
 frames) beside a per-stream loop, the output de-interleave
-three ways, and the scan (ms a chunk, the host's time to issue a step,
-the scan mode at config 7's step and scan_stage_kernel at the strided
-engine's, each beside its bound); shows by torch.profiler that each
+three ways, and the scans (config 7's and the strided engine's ms a chunk,
+the host's time to issue a step, peak memory, each engine's scan mode at its
+step beside its bound); shows by torch.profiler that each
 engine's step loop runs no aten op, allocates nothing and puts exactly its
 kernels on the card, and that a steady farm call (unsharded, sharded, mixed)
 runs no aten op and puts on the card one upload, one farm_stage_kernel, the
@@ -235,42 +236,19 @@ WIDE_CASES = (
     ("44.1k->132 n_valid 70 at frame offset 64, clamp_s16", (44100, 132), 64, 1024,
      dict(f0=0x8421, n_valid=70, frame_offset=64, clamp_s16=True)),
 )
-# scan_stage_kernel against its plain version, one launch a case: (label,
-# rates, lanes, n_in, chunk type, options). Options: first (the scan's first
-# step: the other buffer all zeros and the state (radius, 0); else a random
-# other buffer and the state p, f); n_out and launch_step (the engine launches'
-# frame offsets 0, launch_step, ...; one launch by default).
-SCAN_STAGE_CASES = (
-    ("44.1k->8k first step int16 x 2048", (44100, 8000), 2048, 8192, torch.int16,
-     dict(first=True)),
-    ("44.1k->8k int16 x 2048", (44100, 8000), 2048, 8192, torch.int16, dict(p=3, f=0x8421)),
-    ("44.1k->8k int32 x 2048", (44100, 8000), 2048, 8192, torch.int32, dict(p=0, f=0xFFFF)),
-    ("48k->44.1k int16 x 512", (48000, 44100), 512, 8192, torch.int16, dict(p=1, f=12345)),
-    ("96k->48k first step int32 x 512", (96000, 48000), 512, 8192, torch.int32,
-     dict(first=True)),
-    ("44.1k->8k int16 x 6", (44100, 8000), 6, 8192, torch.int16, dict(p=2, f=777)),
-    ("44.1k->8k first step int32 x 6", (44100, 8000), 6, 4000, torch.int32, dict(first=True)),
-    ("44.1k->1000 n_in 128 < 2r int16 x 512", (44100, 1000), 512, 128, torch.int16,
-     dict(p=140, f=0x1111)),
-    ("44.1k->1000 n_in 128 < 2r first step int32 x 6", (44100, 1000), 6, 128, torch.int32,
-     dict(first=True)),
-    ("44.1k->1000 wide engine, launches at 0, 96, 192", (44100, 1000), 512, 8192, torch.int16,
-     dict(p=9, f=0x8421, n_out=256, launch_step=96)),
-    ("8k->44.1k undersized n_out (over)", (8000, 44100), 512, 8192, torch.int16,
-     dict(p=0, f=5, n_out=8192)),
-    ("44.1k->8k state past the chunk (nothing produced)", (44100, 8000), 512, 1024,
-     torch.int16, dict(p=1030, f=1)),
-)
-# tiled_mac_kernel's scan mode against its plain version, one launch of
-# scan_inplace_step a case: (label, rates, lanes, n_in, chunk type, step k,
-# options). The chunks are K random chunks in one tensor (option chunks,
-# default 3), so the rows past step k's chunk hold the next chunk's samples
-# and a window that read them would differ; the step's state is (p + radius,
-# f) (options p and f, default 0). Options: n_out (default as scan_case sizes
-# it); offset (the chunks start that many elements past a 16-byte aligned
-# address); flat (the flat LUT instead of the strided one). Each case's copy
-# path (_build.scan_copy_path) is recorded with its chunk type, and every
-# path of SCAN_INPLACE_PATHS must be taken.
+# A scan mode against its plain version, one scan_inplace_step a case (the
+# engine's launches of one step): (label, rates, lanes, n_in, chunk type,
+# step k, options). The chunks are K random chunks in one tensor (option
+# chunks, default 3), so the rows past step k's chunk hold the next chunk's
+# samples and a window that read them would differ; the step's state is (p +
+# radius, f) (options p and f, default 0). Options: n_out (default as
+# scan_case sizes it); offset (the chunks start that many elements past a
+# 16-byte aligned address); flat (the flat LUT instead of the strided one);
+# taps (a tap reserve other than the radius's); launch_frames (the wide
+# engine's frames a launch, in place of wide_launch_frames: several launches
+# a step). Each case's copy path (_build.scan_copy_path) is recorded with its
+# chunk type, and every path of the table's *_PATHS must be taken.
+# tiled_mac_kernel's scan mode (the tiled and general engines):
 SCAN_INPLACE_CASES = (
     ("44.1k->8k config 7 step 0 int16 x 2048", (44100, 8000), 2048, 8192, torch.int16, 0, {}),
     ("44.1k->8k config 7 step 1 int16 x 2048 p=3 f=0x8421", (44100, 8000), 2048, 8192,
@@ -308,10 +286,93 @@ SCAN_INPLACE_CASES = (
     ("44.1k->8k state past the chunk (nothing produced)", (44100, 8000), 512, 1024,
      torch.int16, 1, dict(p=1030, f=1)),
 )
+# strided_mac_kernel's scan mode (the strided engine; 96k -> 48k: d 2, radius
+# 6, 16 taps of which 12 are live):
+STRIDED_SCAN_CASES = (
+    ("96k->48k step 0 int16 x 2048", (96000, 48000), 2048, 8192, torch.int16, 0, {}),
+    ("96k->48k step 1 int16 x 2048 p=3 f=0x8421", (96000, 48000), 2048, 8192, torch.int16, 1,
+     dict(p=3, f=0x8421)),
+    ("96k->48k last step int32 x 2048", (96000, 48000), 2048, 8192, torch.int32, 2,
+     dict(p=1, f=0xFFFF)),
+    ("96k->48k int16 x 6 (4-byte copies)", (96000, 48000), 6, 4096, torch.int16, 1,
+     dict(p=2, f=777)),
+    ("96k->48k int16 x 5 (element loads)", (96000, 48000), 5, 4096, torch.int16, 1,
+     dict(f=0x1111)),
+    ("96k->48k int16 x 1001 (element loads)", (96000, 48000), 1001, 2048, torch.int16, 1,
+     dict(p=1, f=5)),
+    ("96k->48k int32 x 6 (4-byte copies)", (96000, 48000), 6, 4096, torch.int32, 2,
+     dict(p=4, f=5)),
+    ("96k->48k int16 x 2048, chunks 4 bytes off 16", (96000, 48000), 2048, 2048, torch.int16,
+     1, dict(offset=2, f=0x4321)),
+    ("96k->48k int16 x 512, chunks 2 bytes off 16 (element loads)", (96000, 48000), 512, 2048,
+     torch.int16, 1, dict(offset=1)),
+    ("96k->48k int32 x 512, chunks 4 bytes off 16", (96000, 48000), 512, 2048, torch.int32, 1,
+     dict(offset=1, p=2)),
+    ("96k->48k n_in 5 < 2r, step 0", (96000, 48000), 512, 5, torch.int16, 0, dict(chunks=6)),
+    ("96k->48k n_in 5 < 2r, step 4", (96000, 48000), 512, 5, torch.int16, 4,
+     dict(chunks=6, p=1, f=0x2222)),
+    ("132.3k->44.1k d 3 int16 x 512", (132300, 44100), 512, 4096, torch.int16, 1,
+     dict(p=2, f=0x0F0F)),
+    ("96k->48k 40-tap reserve over 12 live int16 x 2048", (96000, 48000), 2048, 4096,
+     torch.int16, 1, dict(taps=40, f=0x0707)),
+    ("529.2k->44.1k d 12 taps 72 (generic tap loop)", (529200, 44100), 512, 4096, torch.int16,
+     1, dict(p=5, f=0x8421)),
+    ("96k->48k 1024-tap reserve (windows read from the stream) int16 x 512", (96000, 48000),
+     512, 2048, torch.int16, 1, dict(taps=1024, p=3)),
+    ("96k->48k 1024-tap reserve (windows read from the stream) int16 x 5", (96000, 48000), 5,
+     2048, torch.int16, 0, dict(taps=1024)),
+    ("96k->48k undersized n_out (over)", (96000, 48000), 512, 4096, torch.int16, 1,
+     dict(n_out=1024)),
+    ("96k->48k state past the chunk (nothing produced)", (96000, 48000), 512, 1024,
+     torch.int16, 1, dict(p=1030, f=1)),
+)
+# wide_mac_kernel and wide_fold_kernel's scan mode (the wide engine; 44.1k ->
+# 1000: radius 136, 272 taps, d 44):
+WIDE_SCAN_CASES = (
+    ("44.1k->1000 step 0 int16 x 512", (44100, 1000), 512, 8192, torch.int16, 0, {}),
+    ("44.1k->1000 step 1 int16 x 512 p=9 f=0x8421", (44100, 1000), 512, 8192, torch.int16, 1,
+     dict(p=9, f=0x8421)),
+    ("44.1k->1000 last step int32 x 512", (44100, 1000), 512, 8192, torch.int32, 2,
+     dict(p=1, f=0xFFFF)),
+    ("44.1k->1000 int16 x 6 (4-byte copies)", (44100, 1000), 6, 4096, torch.int16, 1,
+     dict(p=2, f=777)),
+    ("44.1k->1000 int16 x 5 (element loads)", (44100, 1000), 5, 4096, torch.int16, 1,
+     dict(f=0x1111)),
+    ("44.1k->1000 int16 x 1001 (element loads)", (44100, 1000), 1001, 2048, torch.int16, 1,
+     dict(p=3, f=9)),
+    ("44.1k->1000 int32 x 6 (4-byte copies)", (44100, 1000), 6, 4096, torch.int32, 2,
+     dict(p=4, f=5)),
+    ("44.1k->1000 int16 x 512, chunks 4 bytes off 16", (44100, 1000), 512, 4096, torch.int16,
+     1, dict(offset=2, f=0x4321)),
+    ("44.1k->1000 int16 x 512, chunks 2 bytes off 16 (element loads)", (44100, 1000), 512,
+     4096, torch.int16, 1, dict(offset=1)),
+    ("44.1k->1000 int32 x 512, chunks 4 bytes off 16", (44100, 1000), 512, 4096, torch.int32,
+     1, dict(offset=1, p=2)),
+    ("44.1k->1000 n_in 128 < 2r, step 0", (44100, 1000), 512, 128, torch.int16, 0,
+     dict(chunks=6)),
+    ("44.1k->1000 n_in 128 < 2r, step 4 int32 x 6", (44100, 1000), 6, 128, torch.int32, 4,
+     dict(chunks=6, p=140, f=0x1111)),
+    ("44.1k->1000 launches at 0, 96, 192", (44100, 1000), 512, 8192, torch.int16, 1,
+     dict(p=9, f=0x8421, n_out=256, launch_frames=96)),
+    ("44.1k->262 taps 1016 int16 x 512", (44100, 262), 512, 8192, torch.int16, 1,
+     dict(p=7, f=0x0F0F)),
+    ("44.1k->1000 undersized n_out (over)", (44100, 1000), 512, 8192, torch.int16, 1,
+     dict(n_out=64)),
+    ("44.1k->1000 state past the chunk (nothing produced)", (44100, 1000), 512, 1024,
+     torch.int16, 1, dict(p=1030, f=1)),
+)
 SCAN_COPY_NAMES = ("element loads", "4-byte copies", "16-byte copies")  # by SCAN_COPY_*
 SCAN_INPLACE_PATHS = frozenset(
     [f"int16 {name}" for name in SCAN_COPY_NAMES]
     + [f"int32 {name}" for name in SCAN_COPY_NAMES[1:]])
+# The strided scan mode also reads windows too wide to stage from the stream;
+# the wide one also cuts a step into several launches.
+STRIDED_SCAN_PATHS = SCAN_INPLACE_PATHS | {"windows read from the stream"}
+WIDE_SCAN_PATHS = SCAN_INPLACE_PATHS | {"several launches a step"}
+# Each scan mode's case table, its copy paths and its kernel's name.
+SCAN_MODE_CASES = (("tiled_mac_kernel/scan", SCAN_INPLACE_CASES, SCAN_INPLACE_PATHS),
+                   ("strided_mac_kernel/scan", STRIDED_SCAN_CASES, STRIDED_SCAN_PATHS),
+                   ("wide_mac_kernel/scan", WIDE_SCAN_CASES, WIDE_SCAN_PATHS))
 # farm_stage_kernel against its plain version, one launch a case: (label,
 # streams, channels, capacity rows, chunk frames n, keep, consumed, options).
 # Rows [0, keep) of the destination come from rows [consumed, consumed +
@@ -512,11 +573,13 @@ KERNELS = {  # name -> (ROUTES kind, source, TPU kernels it replaces)
                               f"{PALLAS}:475, {PALLAS}:201, clownresampler_tpu/lowlevel.py:378"),
     "strided_mac_kernel": ("strided", CSRC + "strided_kernels.cu",
                            f"{PALLAS}:664, {PALLAS}:720"),
+    # Its scan mode: a strided scan step, likewise.
+    "strided_mac_kernel/scan": ("scan_strided", CSRC + "strided_kernels.cu",
+                                f"{PALLAS}:664, {PALLAS}:720, clownresampler_tpu/lowlevel.py:378"),
     "wide_mac_kernel": ("wide", CSRC + "wide_kernels.cu", f"{PALLAS}:1074, {PALLAS}:1158"),
-    # No Pallas kernel: the stage and bookkeeping XLA compiles into the jitted
-    # scan (the strided and wide engines' steps).
-    "scan_stage_kernel": ("scan_stage", CSRC + "scan_kernels.cu",
-                          "clownresampler_tpu/lowlevel.py:378, clownresampler_tpu/lowlevel.py:381"),
+    # Its scan mode with its fold: a launch of a wide scan step, likewise.
+    "wide_mac_kernel/scan": ("scan_wide", CSRC + "wide_kernels.cu",
+                             f"{PALLAS}:1074, {PALLAS}:1158, clownresampler_tpu/lowlevel.py:378"),
     # No Pallas kernels either: the farm's jitted staging programs and the
     # host's de-interleave of the launched lanes.
     "farm_stage_kernel": ("farm_stage", CSRC + "farm_kernels.cu",
@@ -531,8 +594,7 @@ KERNELS = {  # name -> (ROUTES kind, source, TPU kernels it replaces)
                          "clownresampler_tpu/ops/convolve.py:80"),
 }
 # The kernels the sharded paths launch (they run no scan).
-SHARDED_KERNELS = tuple(name for name in KERNELS
-                        if name not in ("scan_stage_kernel", "tiled_mac_kernel/scan"))
+SHARDED_KERNELS = tuple(name for name in KERNELS if not name.endswith("/scan"))
 
 
 def phase(name: str, **fields) -> None:
@@ -712,61 +774,13 @@ def run_wide_case(case, gen) -> tuple:
     return got, want, rows, rows_ref
 
 
-def scan_stage_inputs(rates, lanes: int, n_in: int, dtype, gen, first=False, p=0, f=0,
-                      n_out=None, launch_step=None) -> dict:
-    """One scan step's inputs on the card: the other buffer (zeros for the
-    first step, else random), the chunk, the state (p carries the scan's
-    +radius bias) and the step's geometry, as scan_case sizes it."""
-    from clownresampler_tpu_torch import fixedpoint as fx
-    from clownresampler_tpu_torch.configure import configure
-    from clownresampler_tpu_torch.lowlevel import make_device_state
-
-    dev = torch.device(DEVICE)
-    cfg = configure(*rates, max(rates))
-    inc = fx.calculate_ratio(*rates)
-    r = cfg.integer_stretched_kernel_radius
-    rows = 2 * r + n_in + fx.round_up(2 * r, 8) + 8
-    rand = lambda shape: torch.randint(-32768, 32768, shape, generator=gen, dtype=torch.int32,
-                                       device=dev)
-    prev = torch.zeros((rows, lanes), dtype=torch.int32, device=dev) if first else rand(
-        (rows, lanes))
-    state = torch.tensor([r, 0] if first else [p + r, f], dtype=torch.int32).to(dev)
-    return dict(prev=prev, chunk=rand((n_in, lanes)).to(dtype), state=state,
-                cfg=make_device_state(0, 0, cfg, inc, dev).cfg, radius=r,
-                n_out=n_out or fx.round_up((((n_in + 2 * r) << 16) // inc) + 8, 128),
-                launch_step=launch_step)
-
-
-def run_scan_stage_case(case, gen) -> int:
-    """One SCAN_STAGE_CASES launch of scan_stage_kernel against
-    scan_stage_reference on the same inputs: the staged rows, produced,
-    over, the launch states and the next state, exact; the buffer's rows
-    past the staged ones untouched. Returns the largest difference (0)."""
-    from clownresampler_tpu_torch.lowlevel import scan_stage, scan_stage_reference
-
-    label, rates, lanes, n_in, dtype, opts = case
-    c = scan_stage_inputs(rates, lanes, n_in, dtype, gen, **opts)
-    args = dict(radius=c["radius"], n_out=c["n_out"], launch_step=c["launch_step"])
-    out = torch.full_like(c["prev"], -7)
-    got = scan_stage(c["prev"], c["chunk"], c["state"], c["cfg"], out=out, **args)
-    want = scan_stage_reference(c["prev"], c["chunk"], c["state"], c["cfg"], **args)
-    err = 0
-    for name, g, w in zip(("rows", "produced", "over", "launch_states", "next_state"),
-                          got, want):
-        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
-            raise AssertionError(f"scan_stage_kernel != plain version at {label}: {name}")
-        err = max(err, int((g.long() - w.long()).abs().max()))
-    if not (out[want[0].shape[0]:] == -7).all():
-        raise AssertionError(f"scan_stage_kernel wrote past the staged rows at {label}")
-    return err
-
-
 def scan_inplace_inputs(rates, lanes: int, n_in: int, dtype, gen, chunks=3, p=0, f=0,
-                        n_out=None, offset=0, flat=False) -> dict:
+                        n_out=None, offset=0, flat=False, taps=None) -> dict:
     """One scan step's inputs on the card: ``chunks`` random chunks of the
     given type as one contiguous tensor starting ``offset`` elements past a
     16-byte aligned address, the state (p + radius, f) and the scan's
-    geometry, as scan_case sizes it."""
+    geometry, as scan_case sizes it (``taps`` a reserve other than the
+    radius's)."""
     from clownresampler_tpu_torch import fixedpoint as fx
     from clownresampler_tpu_torch.configure import configure
     from clownresampler_tpu_torch.lowlevel import make_device_state
@@ -776,7 +790,7 @@ def scan_inplace_inputs(rates, lanes: int, n_in: int, dtype, gen, chunks=3, p=0,
     cfg = configure(*rates, max(rates))
     inc = fx.calculate_ratio(*rates)
     r = cfg.integer_stretched_kernel_radius
-    taps = fx.round_up(2 * r, 8)
+    taps = taps or fx.round_up(2 * r, 8)
     count = chunks * n_in * lanes
     flat_buf = torch.randint(-32768, 32768, (count + 8,), generator=gen, dtype=torch.int32,
                              device=dev).to(dtype)
@@ -791,28 +805,61 @@ def scan_inplace_inputs(rates, lanes: int, n_in: int, dtype, gen, chunks=3, p=0,
                       DEFAULT_MODEL.strided_table(cfg.kernel_step_size, taps), dev)))
 
 
-def run_scan_inplace_case(case, gen) -> tuple:
-    """One SCAN_INPLACE_CASES launch of tiled_mac_kernel's scan mode
-    (scan_inplace_step) against scan_inplace_step_reference on the same
-    inputs: the step's frames, produced, over and the next state, exact.
-    Returns the largest difference (0) and the copy path the launch took."""
-    from clownresampler_tpu_torch.lowlevel import scan_inplace_step, scan_inplace_step_reference
+@contextlib.contextmanager
+def wide_launch_frames(frames):
+    """The wide engine's frames a launch set to ``frames`` (None: as
+    ops.resample.wide_launch_frames gives them) for the body: a case's
+    several launches a step."""
+    from clownresampler_tpu_torch import lowlevel
+
+    if frames is None:
+        yield
+        return
+    saved = lowlevel.wide_launch_frames
+    lowlevel.wide_launch_frames = lambda taps: frames
+    try:
+        yield
+    finally:
+        lowlevel.wide_launch_frames = saved
+
+
+def run_scan_mode_case(case, gen) -> tuple:
+    """One case of a SCAN_MODE_CASES table through scan_inplace_step (the
+    engine's scan-mode launches of one step) against
+    scan_inplace_step_reference on the same inputs: the step's frames,
+    produced, over and the next state, exact. Returns the largest difference
+    (0) and the paths the launches took: the copy path with the chunk type,
+    and for the strided engine whether the windows are read from the stream
+    (no stage holds them), for the wide one whether the step is several
+    launches."""
+    from clownresampler_tpu_torch import lowlevel
     from clownresampler_tpu_torch.ops import _build
+    from clownresampler_tpu_torch.ops.resample import strided_stage_plan
 
     label, rates, lanes, n_in, dtype, k, opts = case
-    c = scan_inplace_inputs(rates, lanes, n_in, dtype, gen, **opts)
+    o = dict(opts)
+    launch_frames = o.pop("launch_frames", None)
+    c = scan_inplace_inputs(rates, lanes, n_in, dtype, gen, **o)
     inputs = (c["table"], c["chunks"], k, c["state"], c["cfg"])
-    got = scan_inplace_step(*inputs, **c["args"])
-    want = scan_inplace_step_reference(*inputs, **c["args"])
+    a = c["args"]
+    with wide_launch_frames(launch_frames):
+        kind, d, _, step = lowlevel._scan_engine(a["increment"], a["max_taps"], a["n_out"])
+        got = lowlevel.scan_inplace_step(*inputs, **a)
+        want = lowlevel.scan_inplace_step_reference(*inputs, **a)
     err = 0
     for name, g, w in zip(("frames", "produced", "over", "next_state"), got, want):
         if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
-            raise AssertionError(f"tiled_mac_kernel's scan mode != plain version at {label}: "
+            raise AssertionError(f"the {kind} engine's scan mode != plain version at {label}: "
                                  f"{name}")
         err = max(err, int((g.long() - w.long()).abs().max()))
-    copy = _build.scan_copy_path(elem_bytes=c["chunks"].element_size(), lanes=lanes,
-                                 ptr=c["chunks"].data_ptr())
-    return err, f"{str(dtype)[6:]} {SCAN_COPY_NAMES[copy]}"
+    elem = c["chunks"].element_size()
+    copy = _build.scan_copy_path(elem_bytes=elem, lanes=lanes, ptr=c["chunks"].data_ptr())
+    paths = {f"{str(dtype)[6:]} {SCAN_COPY_NAMES[copy]}"}
+    if kind == "strided" and strided_stage_plan(d, a["max_taps"], elem)[1] == 0:
+        paths.add("windows read from the stream")
+    if kind == "wide" and step < a["n_out"]:
+        paths.add("several launches a step")
+    return err, paths
 
 
 def run_farm_stage_case(case, gen) -> tuple:
@@ -1044,16 +1091,15 @@ def check_kernels(gen) -> dict:
         _compare(results, "strided_mac_kernel", case[0], *run_strided_case(case, gen))
     for case in WIDE_CASES:
         _compare(results, "wide_mac_kernel", case[0], *run_wide_case(case, gen))
-    for case in SCAN_STAGE_CASES:
-        results["scan_stage_kernel"].append((case[0], run_scan_stage_case(case, gen)))
-    scan_paths = set()
-    for case in SCAN_INPLACE_CASES:
-        err, path = run_scan_inplace_case(case, gen)
-        results["tiled_mac_kernel/scan"].append((case[0], err))
-        scan_paths.add(path)
-    if scan_paths != SCAN_INPLACE_PATHS:
-        raise AssertionError(f"SCAN_INPLACE_CASES missed the paths "
-                             f"{sorted(SCAN_INPLACE_PATHS - scan_paths)}")
+    for kernel, cases, want in SCAN_MODE_CASES:
+        scan_paths = set()
+        for case in cases:
+            err, paths = run_scan_mode_case(case, gen)
+            results[kernel].append((case[0], err))
+            scan_paths |= paths
+        if scan_paths != want:
+            raise AssertionError(f"{kernel}'s cases missed the paths "
+                                 f"{sorted(want - scan_paths)}")
     paths = set()
     for case in FARM_STAGE_CASES:
         err, path = run_farm_stage_case(case, gen)
@@ -1596,11 +1642,12 @@ def scan_args(c: dict) -> dict:
 
 def run_scans(gen) -> dict:
     """Config 7's scan and the other engines' scans (main path). Each scan's
-    own launch counts must be its engine's: one scan-mode tiled_mac_kernel
-    launch a step for the tiled and general engines (a scan_stage_kernel
-    launch there fails), scan_stage_kernel and the engine's launches for the
-    strided and wide ones."""
-    from clownresampler_tpu_torch.lowlevel import INPLACE_KINDS, _scan_engine
+    own launch counts must be its engine's scan mode's and nothing else's:
+    one tiled_mac_kernel launch a step for the tiled and general engines,
+    one strided_mac_kernel launch a step for the strided one, a
+    wide_mac_kernel and wide_fold_kernel launch a launch offset for the wide
+    one (any other route, a staging kernel's or an entry's, fails)."""
+    from clownresampler_tpu_torch.lowlevel import SCAN_ROUTES, _scan_engine
     from clownresampler_tpu_torch.ops.resample import ROUTES
 
     runs = {}
@@ -1617,10 +1664,7 @@ def run_scans(gen) -> dict:
         runs[rates] = dict(case=c, result=res, seconds=seconds,
                            launch_counts={"/".join(key): n for key, n in counts.items()})
         kind, _, _, step = _scan_engine(c["increment"], c["max_taps"], c["n_out"])
-        steps = k + 1
-        want = ({("scan_inplace", "cuda"): steps} if kind in INPLACE_KINDS else
-                {("scan_stage", "cuda"): steps,
-                 (kind, "cuda"): steps * -(-c["n_out"] // step)})
+        want = {(SCAN_ROUTES[kind], "cuda"): (k + 1) * -(-c["n_out"] // step)}
         if counts != want:
             raise AssertionError(f"scan {rates} ({kind} engine) launched {counts}, not {want}")
     return runs
@@ -1688,15 +1732,16 @@ def profile_scan_program(c: dict, k: int, attempts: int = 3) -> dict:
     """The step loop of one scan (``ScanProgram.run`` over the first k
     chunks, set up outside) under torch.profiler with memory profiling on:
     fails unless the loop ran no ``aten::`` op, allocated and freed nothing
-    and put exactly its kernels on the card -- a step of the tiled and
-    general engines is one tiled_mac_kernel launch (its scan mode), of the
-    strided and wide engines one scan_stage_kernel and the engine's launches
-    (one device activity each, two for a wide launch). The profiler now and then loses a kernel's
-    record, so a count that is off is taken again with a new program, up to
-    ``attempts`` times; an aten op, a memory event or an activity that is
-    none of the loop's kernels fails at once. Returns the device activities
-    a step, the device time a step by kernel, and the device's busy share of
-    the loop's wall time (profiled: the profiler slows the host's issue)."""
+    and put exactly its kernels on the card -- a step is its engine's
+    scan-mode launches: one tiled_mac_kernel for the tiled and general
+    engines, one strided_mac_kernel for the strided one, a wide_mac_kernel
+    and a wide_fold_kernel a launch offset for the wide one. The profiler now
+    and then loses a kernel's record, so a count that is off is taken again
+    with a new program, up to ``attempts`` times; an aten op, a memory event
+    or an activity that is none of the loop's kernels fails at once. Returns
+    the device activities a step, the device time a step by kernel, and the
+    device's busy share of the loop's wall time (profiled: the profiler slows
+    the host's issue)."""
     from clownresampler_tpu_torch.lowlevel import ScanProgram
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1718,23 +1763,21 @@ def profile_scan_program(c: dict, k: int, attempts: int = 3) -> dict:
                 aten.append(evt.key)
             elif evt.key == "[memory]":
                 memory_events += evt.count
-        stages = () if program.inplace else ("scan_stage_kernel",)
-        kernels = (*stages, *ENTRY_KERNELS[program.kind])
+        kernels = ENTRY_KERNELS[program.kind]
         strangers = [key for key in counts if not any(name in key for name in kernels)]
         if aten or memory_events or strangers:
             raise AssertionError(
                 f"scan {c['rates']}: the step loop ran aten ops {aten}, {memory_events} memory "
                 f"events and device activities other than its kernels: {strangers}")
-        want = len(stages) + program.launches * len(ENTRY_KERNELS[program.kind])
-        stage_launches = sum(n for key, n in counts.items() if "scan_stage_kernel" in key)
-        if sum(counts.values()) == want * k and stage_launches == len(stages) * k:
+        want = program.launches * len(kernels)
+        if sum(counts.values()) == want * k:
             break
         if attempt == attempts:
             raise AssertionError(
                 f"scan {c['rates']}: {counts} device activities over {k} steps in each of "
                 f"{attempts} profiles (wanted {want} a step)")
     total_us = sum(device_us.values())
-    return dict(rates=c["rates"], engine=program.kind, in_place=program.inplace, steps=k,
+    return dict(rates=c["rates"], engine=program.kind, steps=k, lanes=c["chunks"].shape[2],
                 aten_ops=0, memory_events=0,
                 profiles_taken=attempt, device_activities_per_step=want,
                 device_ms_per_step=total_us / 1e3 / k,
@@ -1743,67 +1786,15 @@ def profile_scan_program(c: dict, k: int, attempts: int = 3) -> dict:
                 profiled_wall_ms=wall_ms, profiled_device_busy_share=total_us / 1e3 / wall_ms)
 
 
-def time_scan_stage(c: dict, peaks: dict) -> dict:
-    """scan_stage_kernel at the step of scan case c (the strided engine's,
-    which the main path runs through it): the C entry as the scan calls it
-    (its arguments built once), CUDA events around 20 back-to-back calls
-    after 20 untimed, the result then checked against the plain version;
-    the plain version's time; the bound -- the chunk and the halo read once,
-    the staged rows written once, over the HBM rate (the bookkeeping's few
-    dozen operations do not count)."""
-    from clownresampler_tpu_torch.lowlevel import scan_stage_reference
-    from clownresampler_tpu_torch.ops import _build
-
-    dev = torch.device(DEVICE)
-    r, n_out = c["radius"], c["n_out"]
-    chunk = c["chunks"][0]
-    n_in, lanes = chunk.shape
-    prev = torch.randint(-32768, 32768, (2 * r + n_in + c["max_taps"] + 8, lanes),
-                         dtype=torch.int32, device=dev)
-    cur = torch.zeros_like(prev)
-    state = torch.tensor([r + 2, 0x8421], dtype=torch.int32).to(dev)
-    book = torch.empty(6, dtype=torch.int32, device=dev)
-    args = _build.ordered_args("crt_scan_stage", _build.scan_stage_args(
-        prev, cur, chunk, state, c["state"].cfg, book[0:1], book[1:2], book[4:6].view(1, 2),
-        book[2:4], halo_rows=2 * r, n_out=n_out, launch_step=n_out))
-    entry = _build.entry_function("crt_scan_stage")
-
-    def issue(reps):
-        for _ in range(reps):
-            _build.raise_on_launch(entry(*args), "crt_scan_stage")
-
-    reps = 20
-    issue(reps)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    issue(reps)
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / reps
-    plain = lambda: scan_stage_reference(prev, chunk, state, c["state"].cfg, radius=r,
-                                         n_out=n_out)
-    want = plain()
-    got = (cur[: 2 * r + n_in], book[0], book[1], book[4:6].view(1, 2), book[2:4])
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError("the timed scan_stage_kernel launches != the plain version")
-    nbytes = chunk.nbytes + 4 * 2 * r * lanes + 4 * (2 * r + n_in) * lanes
-    bound_ms = 1e3 * nbytes / peaks["hbm_bytes_per_s"]
-    return dict(ms=ms, plain_ms=cuda_ms(lambda: plain()[0]), bound_ms=bound_ms,
-                bound_by="bytes", bytes=nbytes, bound_share=bound_ms / ms,
-                achieved_bytes_per_s=nbytes / (ms / 1e3),
-                shape=f"chunk ({n_in}, {lanes}) {str(chunk.dtype)[6:]}, halo {2 * r} rows, "
-                      f"n_out {n_out}")
-
-
 def scan_step_bound(c: dict, state, k: int, produced: int, peaks: dict) -> dict:
     """The least time the card could take for step k of scan case c in scan
-    mode from ``state`` (2,): the larger of its bytes -- the stream rows its
-    produced frames' windows reach inside the step's live rows [k*n_in - 2r,
-    (k+1)*n_in), read once at the chunks' width, and the (n_out, L) int32
-    output written once -- over the HBM rate, and OPS_PER_TAP operations
-    for each live tap and lane of the produced frames (the others store
-    zeros) over the int32 rate."""
+    mode from ``state`` (2,), whatever its engine: the larger of its bytes --
+    the stream rows its produced frames' windows reach inside the step's live
+    rows [k*n_in - 2r, (k+1)*n_in), read once at the chunks' width, and the
+    (n_out, L) int32 output written once (the wide engine's partial sums are
+    its own scratch, not the function's) -- over the HBM rate, and
+    OPS_PER_TAP operations for each live tap and lane of the produced frames
+    (the others store zeros) over the int32 rate."""
     from clownresampler_tpu_torch import fixedpoint as fx
     from clownresampler_tpu_torch.ops.convolve import window_geometry
 
@@ -1829,15 +1820,15 @@ def scan_step_bound(c: dict, state, k: int, produced: int, peaks: dict) -> dict:
                 window_rows_read=span, produced=produced)
 
 
-def time_scan_inplace(c: dict, peaks: dict) -> dict:
-    """tiled_mac_kernel's scan mode at config 7's step (step 1 of case c's
-    chunks, from the state (radius + 2, 0x8421)): the C entry as the scan
-    calls it (its arguments built once), CUDA events around 20 back-to-back
-    calls after 20 untimed, the result then checked against the plain
-    version; the plain version's time; the bound (scan_step_bound)."""
-    from clownresampler_tpu_torch.lowlevel import scan_inplace_step_reference
+def time_scan_step(c: dict, peaks: dict) -> dict:
+    """An engine's scan mode alone at the step of scan case c (step 1 of its
+    chunks, from the state (radius + 2, 0x8421)): its C entries as the scan
+    calls them (lowlevel._scan_step_launches, arguments built once), CUDA
+    events around 20 back-to-back steps after 20 untimed, the result then
+    checked against the plain version; the plain version's time; the bound
+    (scan_step_bound)."""
+    from clownresampler_tpu_torch import lowlevel
     from clownresampler_tpu_torch.ops import _build
-    from clownresampler_tpu_torch.ops.resample import scan_stage_plan
 
     dev = torch.device(DEVICE)
     r, n_out, taps, inc, k = c["radius"], c["n_out"], c["max_taps"], c["increment"], 1
@@ -1846,16 +1837,17 @@ def time_scan_inplace(c: dict, peaks: dict) -> dict:
     state = torch.tensor([r + 2, 0x8421], dtype=torch.int32).to(dev)
     out = torch.empty((n_out, lanes), dtype=torch.int32, device=dev)
     book = torch.empty(4, dtype=torch.int32, device=dev)
-    frames, win_rows = scan_stage_plan(taps, inc, chunks.element_size())
-    call = _build.tiled_scan_args(chunks, c["table"], c["table_strided"], state, cfg, out,
-                                  book[0:1], book[1:2], book[2:4], step=k, radius=r,
-                                  max_taps=taps, frames_per_stage=frames, win_rows=win_rows)
-    args = _build.ordered_args("crt_tiled_scan", call)
-    entry = _build.entry_function("crt_tiled_scan")
+    launches = lowlevel._scan_step_launches(
+        c["table"], chunks, state, cfg, out, book[0:1], book[1:2], book[2:4], k=k, radius=r,
+        max_taps=taps, increment=inc, table_strided=c["table_strided"],
+        partial=lowlevel._wide_scratch(chunks, inc, taps, n_out))
+    calls = [(_build.entry_function(entry), entry, _build.ordered_args(entry, args))
+             for entry, args in launches]
 
     def issue(reps):
         for _ in range(reps):
-            _build.raise_on_launch(entry(*args), "crt_tiled_scan")
+            for fn, entry, args in calls:
+                _build.raise_on_launch(fn(*args), entry)
 
     reps = 20
     issue(reps)
@@ -1866,38 +1858,35 @@ def time_scan_inplace(c: dict, peaks: dict) -> dict:
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / reps
-    plain = lambda: scan_inplace_step_reference(
+    plain = lambda: lowlevel.scan_inplace_step_reference(
         c["table"], chunks, k, state, cfg, radius=r, max_taps=taps, n_out=n_out, increment=inc,
         table_strided=c["table_strided"])
     want = plain()
     if not all(torch.equal(g, w) for g, w in zip((out, book[0], book[1], book[2:4]), want)):
-        raise AssertionError("the timed scan-mode launches != the plain version")
+        raise AssertionError(f"the timed scan-mode launches at {c['rates']} != the plain version")
     bound = scan_step_bound(c, state, k, int(want[1]), peaks)
+    first = launches[0][1]
+    stage = {key: first[key] for key in ("frames_per_stage", "frames_per_tile", "win_rows")
+             if key in first}
     return dict(ms=ms, plain_ms=cuda_ms(lambda: plain()[0]), **bound,
                 bound_share=bound["bound_ms"] / ms,
                 achieved_bytes_per_s=bound["bytes"] / (ms / 1e3),
-                stage=dict(most_frames=frames, window_rows=win_rows,
-                           copy=SCAN_COPY_NAMES[call["copy"]]),
+                c_calls_per_step=len(calls), stage=stage, copy=SCAN_COPY_NAMES[first["copy"]],
                 shape=f"chunks {tuple(chunks.shape)} {str(chunks.dtype)[6:]}, step {k}, "
                       f"halo {2 * r} rows, n_out {n_out}, taps {taps}")
 
 
-def time_scan(gen, peaks: dict) -> dict:
-    """Config 7's per-chunk time: the K-slope of the fused scan between
-    SCAN7["timing_k"] chunks (every step's output kept), CUDA events around
-    each run, best of 3 after a warm-up, with the host's time to issue a run
-    (the call's return, before any synchronise) beside it and the step
-    loop's own host time a step (``ScanProgram.run`` alone); the scan mode
-    alone at config 7's step and scan_stage_kernel alone at the strided
-    engine's, each beside its bound; one step's scan_inplace_step (events)
-    beside its device activities and their time (torch.profiler); then,
-    last (a profiler run slows later launches), each engine's step loop
-    under torch.profiler (profile_scan_program)."""
-    from clownresampler_tpu_torch.lowlevel import ScanProgram, scan_inplace_step
+def scan_slope(c: dict) -> dict:
+    """A scan's per-chunk time: the K-slope of the fused scan between
+    SCAN7["timing_k"] chunks of case c (every step's output kept), CUDA
+    events around each run, best of 3 after a warm-up, with the host's time
+    to issue a run (the call's return, before any synchronise) beside it,
+    the peak device memory of one run at the larger K, and the step loop's
+    own host time a step (``ScanProgram.run`` alone)."""
+    from clownresampler_tpu_torch.lowlevel import ScanProgram
 
     k1, k2 = SCAN7["timing_k"]
-    lanes = SCAN7["lanes"]
-    c = scan_case(SCAN7["rates"], lanes, k2 - 1, gen)
+    lanes = c["chunks"].shape[2]
     fused_scan(c, k1)
 
     def timed(k):
@@ -1917,11 +1906,12 @@ def time_scan(gen, peaks: dict) -> dict:
             del res  # one run's outputs alive at a time: the peak is one scan's
         return best, issue, produced
 
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     (t1, i1, p1), (t2, i2, p2) = timed(k1), timed(k2)
     peak = torch.cuda.max_memory_allocated()
     ms_per_chunk = (t2 - t1) / (k2 - k1)
-
     # The step loop alone: set-up outside the clock, no synchronise inside it.
     loop_us = []
     for _ in range(3):
@@ -1932,10 +1922,37 @@ def time_scan(gen, peaks: dict) -> dict:
         loop_us.append(1e6 * (time.perf_counter() - t0) / k2)
         torch.cuda.synchronize()
         del program
-    strided = scan_case(*SCAN_ENGINES[1], 1, gen)
-    stage = time_scan_stage(strided, peaks)
+    return dict(rates=c["rates"], lanes=lanes, n_in=c["chunks"].shape[1], n_out=c["n_out"],
+                taps=c["max_taps"], k=[k1, k2], run_ms=[t1, t2], ms_per_chunk=ms_per_chunk,
+                msamples_per_s=(p2 - p1) * lanes / (ms_per_chunk * (k2 - k1)) / 1e3,
+                produced_frames=[p1, p2], peak_allocated_bytes_k40=peak,
+                peak_over_inputs_bytes_k40=peak - base,
+                host_issue_ms=[i1, i2], host_issue_us_per_chunk=1e3 * (i2 - i1) / (k2 - k1),
+                step_loop_host_us_per_step=min(loop_us), step_loop_host_us_per_step_runs=loop_us)
+
+
+def time_scan(gen, peaks: dict) -> dict:
+    """Config 7's and the strided engine's per-chunk times (scan_slope: the
+    K-slope, the host's issue, peak memory, the step loop's host us a step);
+    each engine's scan mode alone at its step beside its bound
+    (time_scan_step: config 7's general step, the tiled, strided and wide
+    engines' at SCAN_ENGINES); one step's scan_inplace_step (events) beside
+    its device activities and their time (torch.profiler); then, last (a
+    profiler run slows later launches), each engine's step loop under
+    torch.profiler (profile_scan_program)."""
+    from clownresampler_tpu_torch.lowlevel import scan_inplace_step
+
+    k1, k2 = SCAN7["timing_k"]
+    c = scan_case(SCAN7["rates"], SCAN7["lanes"], k2 - 1, gen)
+    config7 = scan_slope(c)
+    strided = scan_case(*SCAN_ENGINES[1], k2 - 1, gen)
+    strided_slope = scan_slope(strided)
     del strided
-    inplace = time_scan_inplace(c, peaks)
+    modes = {"config7": time_scan_step(c, peaks)}
+    for name, (rates, lanes) in zip(("tiled", "strided", "wide"), SCAN_ENGINES):
+        e = scan_case(rates, lanes, 1, gen)
+        modes[name] = time_scan_step(e, peaks)
+        del e
 
     # One step through scan_inplace_step: step 0 from the first step's state.
     r, taps, n_out = c["radius"], c["max_taps"], c["n_out"]
@@ -1953,17 +1970,12 @@ def time_scan(gen, peaks: dict) -> dict:
         e = scan_case(rates, engine_lanes, SCAN_ENGINE_CHUNKS, gen)
         profiles.append(profile_scan_program(e, SCAN_ENGINE_CHUNKS + 1))
         del e
-    device_ms = profiles[0]["device_ms_per_step"]
-    return dict(
-        rates=SCAN7["rates"], lanes=lanes, n_in=SCAN7["n_in"], n_out=n_out, taps=taps,
-        k=[k1, k2], run_ms=[t1, t2], ms_per_chunk=ms_per_chunk,
-        msamples_per_s=(p2 - p1) * lanes / (ms_per_chunk * (k2 - k1)) / 1e3,
-        produced_frames=[p1, p2], peak_allocated_bytes_k40=peak,
-        host_issue_ms=[i1, i2], host_issue_us_per_chunk=1e3 * (i2 - i1) / (k2 - k1),
-        step_loop_host_us_per_step=min(loop_us), step_loop_host_us_per_step_runs=loop_us,
-        device_busy_share=device_ms / ms_per_chunk,
-        host_bound=min(loop_us) / 1e3 > device_ms,
-        scan_inplace=inplace, scan_stage_kernel=stage, step_launch=split, step_loops=profiles)
+    for slope, profile in ((config7, profiles[0]), (strided_slope, profiles[2])):
+        device_ms = profile["device_ms_per_step"]
+        slope.update(device_busy_share=device_ms / slope["ms_per_chunk"],
+                     host_bound=slope["step_loop_host_us_per_step"] / 1e3 > device_ms)
+    return dict(**config7, strided_scan=strided_slope, scan_modes=modes, step_launch=split,
+                step_loops=profiles)
 
 
 def run_checkpoints(rng) -> dict:
@@ -2940,8 +2952,10 @@ def main() -> int:
     scan_timing = time_scan(gen, timing["peaks"])
     phase("scan_timing", nvidia_smi=smi, **scan_timing)
     phase("entry_launches", nvidia_smi=smi, **count_entry_launches(gen))
-    timing["kernels"]["scan_stage_kernel"] = scan_timing["scan_stage_kernel"]
-    timing["kernels"]["tiled_mac_kernel/scan"] = scan_timing["scan_inplace"]
+    modes = scan_timing["scan_modes"]
+    timing["kernels"].update({"tiled_mac_kernel/scan": modes["config7"],
+                              "strided_mac_kernel/scan": modes["strided"],
+                              "wide_mac_kernel/scan": modes["wide"]})
     # A steady farm call under the profiler, beside the unprofiled calls' time.
     profiles = profile_farms(rng, farm)
     steady_ms = statistics.median(t["ms_per_process"] for t in sharded_timing["farm_turns"]
@@ -2960,11 +2974,10 @@ def main() -> int:
             ms=timing["kernels"][name]["ms"], plain_ms=timing["kernels"][name]["plain_ms"],
             bound_ms=timing["kernels"][name]["bound_ms"],
             bound_by=timing["kernels"][name]["bound_by"],
-            # No single PyTorch call computes the MAC launches, the scan mode's
-            # included (each tap term is truncated on its own) or the stages (a cat of a slice and a
-            # widened chunk beside integer bookkeeping; a widen, a transpose,
-            # kept rows and a zero tail); the unstage has ``copy_`` of the
-            # permuted view (PERF.md).
+            # No single PyTorch call computes the MAC launches, the scan modes
+            # included (each tap term is truncated on its own), or the farm's
+            # stage (a widen, a transpose, kept rows and a zero tail); the
+            # unstage has ``copy_`` of the permuted view (PERF.md).
             library_ms=timing["kernels"][name].get("library_ms")))
         if kernels[-1]["launches"] < 1 or (
                 name in SHARDED_KERNELS and kernels[-1]["sharded_launches"] < 1):

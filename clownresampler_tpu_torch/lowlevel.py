@@ -17,10 +17,10 @@ frac(n) = t & 0xFFFF, which turns the loop into one batched launch per tile.
   carried between chunks (clownresampler.h:1143-1154): the oracle scan
   (``resample_chunk`` per step) and the scan whose steps run the ratio
   class's kernel: on a card one device program (``ScanProgram``: per step
-  one scan-mode launch of tiled_mac_kernel, which reads the chunks in place,
-  for the tiled and general engines; a launch of scan_stage_kernel and the
-  engine's launches for the strided and wide ones; nothing else), on the
-  CPU its plain version (``resample_scan_fused_reference``).
+  one scan-mode launch of the engine's kernel -- tiled_mac_kernel for the
+  tiled and general engines, strided_mac_kernel, wide_mac_kernel and its
+  fold --, which reads the chunks in place; nothing else), on the CPU its
+  plain version (``resample_scan_fused_reference``).
 * ``LowLevelResampler`` -- the host streaming class mirroring the C API,
   including the per-frame output-callback contract. Bookkeeping uses exact
   Python ints; the frames are computed on the resampler's ``device``, in
@@ -47,13 +47,15 @@ from clownresampler_tpu_torch.ops import _build
 from clownresampler_tpu_torch.ops.convolve import ConfigScalars, convolve_frames
 from clownresampler_tpu_torch.ops.resample import (
     ROUTES,
-    entry_launch_args,
     multi_resample,
     plan_uniform,
     resample_streams,
+    resample_strided_reference,
     resample_uniform_lanes_general_reference,
     resample_uniform_lanes_tiled_reference,
+    resample_wide_taps_reference,
     scan_stage_plan,
+    strided_stage_plan,
     wide_launch_frames,
 )
 
@@ -69,9 +71,11 @@ MAX_CHUNK_OUTPUT_FRAMES = 1 << 14
 # their host floor up to 352 taps (PERF.md; chip_smoke.py times the two).
 FAST_KERNEL_MAX_TAPS = 1024
 GENERAL_WIDE_MIN_TAPS = 256
-# The fused scan's engines whose steps read the chunks in place
-# (tiled_mac_kernel's scan mode): no staging pass, no staging buffers.
-INPLACE_KINDS = ("tiled", "general")
+# The ROUTES kind a scan-mode launch of each fused scan engine counts as
+# (every engine's steps read the chunks in place; a wide launch is a
+# wide_mac_kernel and a wide_fold_kernel launch).
+SCAN_ROUTES = {"tiled": "scan_inplace", "general": "scan_inplace", "strided": "scan_strided",
+               "wide": "scan_wide"}
 
 Scalar = Union[int, torch.Tensor]
 OutputCallback = Callable[[np.ndarray], bool]
@@ -290,9 +294,9 @@ def resample_scan_fused_reference(table, chunks, state: DeviceState, *, max_taps
     Each step stages [halo | chunk widened to int32 | max_taps + 8 zero
     rows]: the zero rows keep every real frame's launch-width window inside
     the buffer, so ``launch_rows`` never moves it. The buffer is built from
-    the stream of chunks (``scan_stream_rows_reference``), as the tiled and
-    general engines' scan mode reads it. The loop's state stays in 0-dim
-    tensors on the chunks' device.
+    the stream of chunks (``scan_stream_rows_reference``), as the engines'
+    scan modes read it. The loop's state stays in 0-dim tensors on the
+    chunks' device.
     """
     kind, d, cand, step = _scan_engine(increment, max_taps, n_out)
     st = _scan_setup(chunks, state, radius)
@@ -351,118 +355,108 @@ def scan_stream_rows_reference(chunks, k: int, radius: int, extra_rows: int):
 def scan_inplace_step_reference(table, chunks, k: int, state, cfg: ConfigScalars, *,
                                 radius: int, max_taps: int, n_out: int, increment: int,
                                 table_strided=None):
-    """Plain PyTorch version of ``scan_inplace_step``: what one scan-mode
-    launch of tiled_mac_kernel computes for step ``k`` of a tiled or general
-    fused scan over ``chunks`` (K, n_in, L) int16/int32, from ``state`` (2,)
-    int32 -- (position_integer with the scan's +radius bias,
-    position_fractional) --: the window from the stream
-    (``scan_stream_rows_reference`` with max_taps + 8 zero rows), the engine's
-    plain version with the frames from ``produced`` on stored as 0, and the
-    bookkeeping. Returns (out (n_out, L), produced (), over () -- 1 iff more
-    than n_out frames were due --, next_state (2,)), all int32."""
-    kind, d, cand, _ = _scan_engine(increment, max_taps, n_out)
-    if kind not in INPLACE_KINDS:
-        raise ValueError(f"the {kind} engine stages its steps (scan_stage)")
+    """Plain PyTorch version of ``scan_inplace_step``: what the scan-mode
+    launches of step ``k`` of a fused scan over ``chunks`` (K, n_in, L)
+    int16/int32 compute, from ``state`` (2,) int32 -- (position_integer with
+    the scan's +radius bias, position_fractional) --: the window from the
+    stream (``scan_stream_rows_reference`` with max_taps + 8 zero rows), the
+    engine's plain version with the frames from ``produced`` on stored as 0
+    (the wide engine's once per launch offset, each from its launch state),
+    and the bookkeeping. Returns (out (n_out, L), produced (), over () -- 1
+    iff more than n_out frames were due --, next_state (2,)), all int32."""
+    kind, d, cand, step = _scan_engine(increment, max_taps, n_out)
     x = scan_stream_rows_reference(chunks, k, radius, max_taps + 8)
     natural, produced, next_state = _step_scalars(state[0], state[1], cfg, chunks.shape[1], n_out)
-    args = dict(max_taps=max_taps, n_out=n_out, table_strided=table_strided, n_valid=produced)
+    args = dict(max_taps=max_taps, n_valid=produced)
     st = DeviceState(state[0], state[1], cfg)
     if kind == "tiled":
-        out, _ = resample_uniform_lanes_tiled_reference(table, x, st, d=d, cand=cand, **args)
+        out, _ = resample_uniform_lanes_tiled_reference(
+            table, x, st, d=d, cand=cand, n_out=n_out, table_strided=table_strided, **args)
+    elif kind == "general":
+        out, _ = resample_uniform_lanes_general_reference(
+            table, x, st, n_out=n_out, table_strided=table_strided, **args)
+    elif kind == "strided":
+        out, _ = resample_strided_reference(table, x, st, d=d, n_out=n_out, **args)
     else:
-        out, _ = resample_uniform_lanes_general_reference(table, x, st, **args)
+        out = torch.cat([resample_wide_taps_reference(
+            table, x, DeviceState(*fx.positions_from_state(
+                state[0], state[1], cfg.increment_hi, cfg.increment_lo, o), cfg),
+            d=d, n_out=min(step, n_out - o), table_strided=table_strided, frame_offset=o,
+            **args)[0] for o in range(0, n_out, step)])
     return (out, produced.to(torch.int32), (natural > n_out).to(torch.int32),
             next_state.to(torch.int32))
 
 
+def _scan_step_launches(table, chunks, state_in, cfg, out, produced, over, state_out, *,
+                        k: int, radius: int, max_taps: int, increment: int, table_strided,
+                        partial) -> list:
+    """The scan-mode launches of step ``k`` of a fused scan, checked: a list
+    of (C entry, its arguments by name) -- one crt_tiled_scan or
+    crt_strided_scan, or a crt_wide_scan per launch offset of the wide
+    engine, each writing its frames of ``out`` (n_out, L) and reading its
+    launch state from the step's ``state_in``. ``partial`` is the wide
+    engine's scratch (_build.wide_scratch_ints of one launch)."""
+    kind, d, cand, step = _scan_engine(increment, max_taps, out.shape[0])
+    books = (state_in, cfg, out, produced, over, state_out)
+    common = dict(step=k, radius=radius, max_taps=max_taps)
+    elem = chunks.element_size()
+    if kind in ("tiled", "general"):
+        frames, win_rows = scan_stage_plan(max_taps, increment, elem)
+        return [("crt_tiled_scan", _build.tiled_scan_args(
+            chunks, table, table_strided, *books, frames_per_stage=frames, win_rows=win_rows,
+            **common))]
+    if kind == "strided":
+        frames, win_rows = strided_stage_plan(d, max_taps, elem)
+        return [("crt_strided_scan", _build.strided_scan_args(
+            chunks, table, *books, d=d, frames_per_tile=frames, win_rows=win_rows, **common))]
+    n_out = out.shape[0]
+    return [("crt_wide_scan", _build.wide_scan_args(
+        chunks, table, table_strided, state_in, cfg, partial, out[o : o + step], produced, over,
+        state_out, d=d, n_out=n_out, frame_offset=o, **common)) for o in range(0, n_out, step)]
+
+
+def _wide_scratch(chunks, increment: int, max_taps: int, n_out: int):
+    """The scratch a scan's wide launches share (one launch's worth, reused
+    in stream order), or None for the other engines."""
+    kind, _, _, step = _scan_engine(increment, max_taps, n_out)
+    if kind != "wide":
+        return None
+    return torch.empty(_build.wide_scratch_ints(max_taps, step, chunks.shape[2]),
+                       dtype=torch.int32, device=chunks.device)
+
+
 def scan_inplace_step(table, chunks, k: int, state, cfg: ConfigScalars, *, radius: int,
                       max_taps: int, n_out: int, increment: int, table_strided=None):
-    """Step ``k`` of a tiled or general fused scan, read straight from the
-    chunks; arguments and return as ``scan_inplace_step_reference``.
+    """Step ``k`` of a fused scan, read straight from the chunks; arguments
+    and return as ``scan_inplace_step_reference``.
 
-    On a CUDA card this is one scan-mode launch of tiled_mac_kernel
-    (ops/csrc/resample_kernels.cu): its blocks copy their windows' rows from
-    the chunks as they are (int16 or int32) into shared memory and block 0
-    writes the bookkeeping; ``chunks`` must be contiguous. On the CPU the
+    On a CUDA card this is the engine's scan-mode launch
+    (ops/csrc/mac_common.cuh and the engine's source): tiled_mac_kernel for
+    the tiled and general engines, strided_mac_kernel, or wide_mac_kernel
+    and wide_fold_kernel once per launch offset. Their blocks copy their
+    windows' rows from the chunks as they are (int16 or int32) into shared
+    memory and work out the step's bookkeeping from its state; block 0 of
+    the first launch writes it. ``chunks`` must be contiguous. On the CPU the
     plain version runs."""
+    kind = _scan_engine(increment, max_taps, n_out)[0]
     if chunks.device.type == "cpu":
-        ROUTES[("scan_inplace", "reference")] += 1
+        ROUTES[(SCAN_ROUTES[kind], "reference")] += 1
         return scan_inplace_step_reference(
             table, chunks, k, state, cfg, radius=radius, max_taps=max_taps, n_out=n_out,
             increment=increment, table_strided=table_strided)
     if chunks.device.type != "cuda":
         raise ValueError(f"no scan_inplace route for device {chunks.device}")
-    if _scan_engine(increment, max_taps, n_out)[0] not in INPLACE_KINDS:
-        raise ValueError("the strided and wide engines stage their steps (scan_stage)")
-    frames, win_rows = scan_stage_plan(max_taps, increment, chunks.element_size())
     out = torch.empty((n_out, chunks.shape[2]), dtype=torch.int32, device=chunks.device)
     book = torch.empty(4, dtype=torch.int32, device=chunks.device)
-    _build.tiled_scan(chunks, table, table_strided, state, cfg, out, book[0:1], book[1:2],
-                      book[2:4], step=k, radius=radius, max_taps=max_taps,
-                      frames_per_stage=frames, win_rows=win_rows)
-    ROUTES[("scan_inplace", "cuda")] += 1
+    launches = _scan_step_launches(
+        table, chunks, state, cfg, out, book[0:1], book[1:2], book[2:4], k=k, radius=radius,
+        max_taps=max_taps, increment=increment, table_strided=table_strided,
+        partial=_wide_scratch(chunks, increment, max_taps, n_out))
+    for entry, args in launches:
+        _build.raise_on_launch(_build.entry_function(entry)(*_build.ordered_args(entry, args)),
+                               entry)
+    ROUTES[(SCAN_ROUTES[kind], "cuda")] += len(launches)
     return out, book[0], book[1], book[2:4]
-
-
-def scan_stage_reference(prev_buffer, chunk, state, cfg: ConfigScalars, *, radius: int,
-                         n_out: int, launch_step: Optional[int] = None):
-    """Plain PyTorch version of ``scan_stage``: what one launch of
-    scan_stage_kernel writes for one step of the fused scan.
-
-    ``prev_buffer`` (S, L) int32 is the buffer the step before staged (all
-    zeros before the first step), ``chunk`` (n_in, L) int16/int32 the step's
-    input, ``state`` (2,) int32 the step's (position_integer with the scan's
-    +radius bias, position_fractional). Returns
-    (rows (2*radius + n_in, L) int32 = [rows [n_in, n_in + 2*radius) of
-    prev_buffer | chunk widened], produced (), over () -- 1 iff more than
-    n_out frames were due --, launch_states (launches, 2) -- the (p0, f0) of
-    the engine launches at frame offsets 0, launch_step, ... < n_out
-    (launch_step defaults to n_out: one launch) --, next_state (2,)), all
-    int32.
-    """
-    n_in = chunk.shape[0]
-    rows = torch.cat([prev_buffer[n_in : n_in + 2 * radius], chunk.to(torch.int32)])
-    p, f = state[0], state[1]
-    natural, produced, next_state = _step_scalars(p, f, cfg, n_in, n_out)
-    offsets = torch.arange(0, n_out, launch_step or n_out, dtype=torch.int32,
-                           device=chunk.device)
-    launch_states = torch.stack(
-        fx.positions_from_state(p, f, cfg.increment_hi, cfg.increment_lo, offsets), dim=1)
-    return (rows, produced.to(torch.int32), (natural > n_out).to(torch.int32),
-            launch_states.to(torch.int32), next_state.to(torch.int32))
-
-
-def scan_stage(prev_buffer, chunk, state, cfg: ConfigScalars, *, radius: int, n_out: int,
-               launch_step: Optional[int] = None, out=None):
-    """One step's stage and bookkeeping of the fused scan; arguments and
-    return as ``scan_stage_reference``.
-
-    On a CUDA card this is one launch of scan_stage_kernel
-    (ops/csrc/scan_kernels.cu), which writes the rows into ``out`` (a buffer
-    of prev_buffer's shape, not prev_buffer itself; a new zero buffer by
-    default) and returns its first 2*radius + n_in rows; on the CPU the
-    plain version runs (and ``out``, when given, receives the rows)."""
-    n_in = chunk.shape[0]
-    staged = 2 * radius + n_in
-    if prev_buffer.device.type == "cpu":
-        ROUTES[("scan_stage", "reference")] += 1
-        res = scan_stage_reference(prev_buffer, chunk, state, cfg, radius=radius, n_out=n_out,
-                                   launch_step=launch_step)
-        if out is not None:
-            out[:staged] = res[0]
-        return res
-    if prev_buffer.device.type != "cuda":
-        raise ValueError(f"no scan_stage route for device {prev_buffer.device}")
-    if out is None:
-        out = torch.zeros_like(prev_buffer)
-    step = launch_step or n_out
-    book = torch.empty(2 * -(-n_out // step) + 4, dtype=torch.int32, device=chunk.device)
-    produced, over, next_state, launch_states = book[0:1], book[1:2], book[2:4], book[4:]
-    launch_states = launch_states.view(-1, 2)
-    _build.scan_stage(prev_buffer, out, chunk, state, cfg, produced, over, launch_states,
-                      next_state, halo_rows=2 * radius, n_out=n_out, launch_step=step)
-    ROUTES[("scan_stage", "cuda")] += 1
-    return out[:staged], produced[0], over[0], launch_states, next_state
 
 
 class ScanProgram:
@@ -470,107 +464,56 @@ class ScanProgram:
     once, then ``run`` is kernel launches and nothing else.
 
     The constructor validates, plans the engine's launches, allocates (the
-    (K, n_out, L) outputs, one int32 array for produced (K,), over (K,), the
-    launch states (K, launches, 2) and the carried states (K + 1, 2), and for
-    the strided and wide engines two staging buffers of 2*radius + n_in +
-    max_taps + 8 rows whose tail rows stay zero and the wide engine's
-    scratch) and builds every launch's argument list. ``run`` then calls,
-    for each step:
-
-    * tiled and general engines: one scan-mode launch of tiled_mac_kernel
-      (the C entry crt_tiled_scan), which reads the step's window rows
-      straight from the chunks (as the stream rows [k*n_in - 2*radius,
-      (k+1)*n_in), int16 or int32), computes the step's bookkeeping from the
-      step's state, stores the frames past ``produced`` as 0 straight into
-      the outputs and writes produced, over and the next state;
-    * strided and wide engines: the C entry of scan_stage_kernel -- which
-      stages [halo | chunk] into the step's buffer (the halo from the other
-      buffer) and computes the step's bookkeeping on the device -- and the
-      engine's C entry once per launch offset, which reads its launch state
-      and the step's produced count from device memory, stores the frames
-      past it as 0 and writes straight into the outputs.
+    (K, n_out, L) outputs, one int32 array for produced (K,), over (K,) and
+    the carried states (K + 1, 2), and the wide engine's scratch) and builds
+    every launch's argument list. ``run`` then calls, for each step, the
+    engine's scan-mode C entry (``scan_inplace_step``'s launches: one
+    crt_tiled_scan or crt_strided_scan, or a crt_wide_scan per launch
+    offset), which reads the step's window rows straight from the chunks (as
+    the stream rows [k*n_in - 2*radius, (k+1)*n_in), int16 or int32),
+    computes the step's bookkeeping and its launch state from the step's
+    state, stores the frames past ``produced`` as 0 straight into the
+    outputs and (the first launch of the step) writes produced, over and the
+    next state. No staging buffer exists.
 
     No torch op, allocation, argument check or host sync happens between
     the first launch and the last. A program runs once."""
 
     def __init__(self, table, chunks, state: DeviceState, *, max_taps: int, n_out: int,
                  radius: int, increment: int, table_strided=None):
-        kind, d, cand, step = _scan_engine(increment, max_taps, n_out)
+        kind = _scan_engine(increment, max_taps, n_out)[0]
         if chunks.dim() == 3 and chunks.dtype not in (torch.int16, torch.int32):
             chunks = chunks.to(torch.int32)
         st = _scan_setup(chunks, state, radius)
         chunks = chunks.contiguous()
         k, n_in, lanes = chunks.shape
-        dev = chunks.device
-        offsets = range(0, n_out, step)
-        launches = len(offsets)
-        i32 = dict(dtype=torch.int32, device=dev)
+        i32 = dict(dtype=torch.int32, device=chunks.device)
         # Every tensor a launch reads by pointer stays referenced here.
         self.chunks, self.cfg, self.tables = chunks, st.cfg, (table, table_strided)
-        self.radius, self.kind = radius, kind
-        self.inplace = kind in INPLACE_KINDS
-        self.steps, self.launches = k, launches
+        self.radius, self.kind, self.steps = radius, kind, k
         self.outputs = torch.empty((k, n_out, lanes), **i32)
-        book = torch.empty(2 * k + 2 * launches * k + 2 * (k + 1), **i32)
+        book = torch.empty(2 * k + 2 * (k + 1), **i32)
         self.produced, self.over = book[:k], book[k : 2 * k]
-        launch_states = book[2 * k : 2 * k * (1 + launches)].view(k, launches, 2)
-        self.states = book[2 * k * (1 + launches) :].view(k + 1, 2)
+        self.states = book[2 * k :].view(k + 1, 2)
         self.states[0] = torch.stack([st.position_integer, st.position_fractional])
+        self.scratch = _wide_scratch(chunks, increment, max_taps, n_out)
+        # Step 0's launches, checked; the other steps' differ in their window
+        # and pointers only.
+        launches = _scan_step_launches(
+            table, chunks, self.states[0], st.cfg, self.outputs[0], self.produced[:1],
+            self.over[:1], self.states[1], k=0, radius=radius, max_taps=max_taps,
+            increment=increment, table_strided=table_strided, partial=self.scratch)
+        self.launches = len(launches)
         out_bytes = self.outputs[0].nbytes
         self.calls = []
-        if self.inplace:
-            # Step 0's launch, checked; the other steps' differ in their window
-            # and pointers only.
-            frames, win_rows = scan_stage_plan(max_taps, increment, chunks.element_size())
-            args = _build.tiled_scan_args(
-                chunks, table, table_strided, self.states[0], st.cfg, self.outputs[0],
-                self.produced[:1], self.over[:1], self.states[1], step=0, radius=radius,
-                max_taps=max_taps, frames_per_stage=frames, win_rows=win_rows)
-            fn = _build.entry_function("crt_tiled_scan")
-            for s in range(k):
-                self.calls.append((fn, "crt_tiled_scan", _build.ordered_args(
-                    "crt_tiled_scan", dict(
+        for s in range(k):
+            for entry, args in launches:
+                self.calls.append((_build.entry_function(entry), entry, _build.ordered_args(
+                    entry, dict(
                         args, **_build.scan_window(s, n_in, radius),
                         state_in=args["state_in"] + 8 * s, state_out=args["state_out"] + 8 * s,
                         produced=args["produced"] + 4 * s, over=args["over"] + 4 * s,
                         out=args["out"] + s * out_bytes))))
-            return
-        self.buffers = torch.zeros((2, 2 * radius + n_in + max_taps + 8, lanes), **i32)
-        self.scratch = None
-        if kind == "wide":
-            self.scratch = torch.empty(_build.wide_scratch_ints(max_taps, step, lanes), **i32)
-
-        # Step 0's launches, checked; the other steps' differ in pointers only.
-        stage = _build.scan_stage_args(
-            self.buffers[1], self.buffers[0], chunks[0], self.states[0], st.cfg,
-            self.produced[:1], self.over[:1], launch_states[0], self.states[1],
-            halo_rows=2 * radius, n_out=n_out, launch_step=step)
-        macs = []
-        for i, o in enumerate(offsets):
-            frames = min(step, n_out - o)
-            entry, args = entry_launch_args(
-                kind, table, self.buffers[0],
-                DeviceState(launch_states[0, i, 0], launch_states[0, i, 1], st.cfg),
-                d=d, cand=cand, max_taps=max_taps, n_out=frames, table_strided=table_strided,
-                partial=self.scratch)
-            macs.append(dict(args, out=self.outputs[0, o : o + frames].data_ptr(), rows_out=None,
-                             clamp_s16=0, n_valid=self.produced.data_ptr(), frame_offset=o))
-        stage_fn, mac_fn = _build.entry_function("crt_scan_stage"), _build.entry_function(entry)
-        buffer = [self.buffers[0].data_ptr(), self.buffers[1].data_ptr()]
-        chunk_bytes = chunks[0].nbytes
-        for s in range(k):
-            cur, prev = buffer[s % 2], buffer[(s + 1) % 2]
-            self.calls.append((stage_fn, "crt_scan_stage", _build.ordered_args(
-                "crt_scan_stage", dict(
-                    stage, prev=prev, cur=cur, chunk=stage["chunk"] + s * chunk_bytes,
-                    state_in=stage["state_in"] + 8 * s, state_out=stage["state_out"] + 8 * s,
-                    produced=stage["produced"] + 4 * s, over=stage["over"] + 4 * s,
-                    launch_states=stage["launch_states"] + 8 * launches * s))))
-            for args in macs:
-                self.calls.append((mac_fn, entry, _build.ordered_args(entry, dict(
-                    args, x=cur, p0_ptr=args["p0_ptr"] + 8 * launches * s,
-                    f0_ptr=args["f0_ptr"] + 8 * launches * s, out=args["out"] + s * out_bytes,
-                    n_valid=args["n_valid"] + 4 * s))))
 
     def run(self) -> None:
         """Queue every launch of the scan on the stream that was current at
@@ -582,11 +525,7 @@ class ScanProgram:
             err = fn(*args)
             if err:
                 _build.raise_on_launch(err, entry)
-        if self.inplace:
-            ROUTES[("scan_inplace", "cuda")] += self.steps
-        else:
-            ROUTES[("scan_stage", "cuda")] += self.steps
-            ROUTES[(self.kind, "cuda")] += self.steps * self.launches
+        ROUTES[(SCAN_ROUTES[self.kind], "cuda")] += self.steps * self.launches
 
     def result(self):
         """What ``resample_scan_fused`` returns."""
@@ -611,14 +550,13 @@ def resample_scan_fused(table, chunks, state: DeviceState, *, max_taps: int, n_o
     gather into a row take. ``n_out`` must be a multiple of 8.
 
     On a CUDA card the scan is one device program (``ScanProgram``): after
-    one set-up every step of the tiled and general engines is one scan-mode
-    launch of tiled_mac_kernel, which reads its window rows straight from
-    the chunks (no staging pass, no staging buffers) and computes the
-    step's bookkeeping itself; every step of the strided and wide engines is
-    a launch of scan_stage_kernel and the engine's launches, which take the
-    step's state and produced count from device memory. Every launch writes
-    the outputs in place, so the host only queues kernels and never
-    synchronises. On the CPU the plain version runs
+    one set-up every step is the engine's scan-mode launch (tiled_mac_kernel
+    for the tiled and general engines, strided_mac_kernel, or wide_mac_kernel
+    and wide_fold_kernel per launch offset), which reads its window rows
+    straight from the chunks (no staging pass, no staging buffers) and
+    computes the step's bookkeeping itself from the step's state in device
+    memory. Every launch writes the outputs in place, so the host only
+    queues kernels and never synchronises. On the CPU the plain version runs
     (``resample_scan_fused_reference``).
     """
     if chunks.device.type == "cpu":

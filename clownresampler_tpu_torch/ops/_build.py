@@ -49,7 +49,7 @@ MAX_SHARED_BYTES = 227 * 1024
 POINTER_ARGS = frozenset((
     "x", "p0_ptr", "f0_ptr", "inc_hi", "inc_lo", "radius", "delta", "int_radius", "step",
     "table", "tstr", "partial", "tap_sums", "out", "rows_out", "n_valid", "stream",
-    "prev", "cur", "chunk", "state_in", "produced", "over", "launch_states", "state_out",
+    "chunk", "state_in", "produced", "over", "state_out",
     "src", "dst", "totals", "quotas", "consumed", "p_out", "f_out", "exhausted"))
 # The ConfigScalars pointers every MAC entry takes, in order (TILED_CONFIG_FIELDS).
 CONFIG_ARGS = ("inc_hi", "inc_lo", "radius", "delta", "int_radius", "step")
@@ -57,20 +57,23 @@ LONG_ARGS = frozenset(("nbytes", "stride_b", "src_first", "src_end"))   # pass a
 _LAUNCH_INPUT = ("x", "S", "L", "lane_offset", "lanes", "p0_ptr", "p0_val", "f0_ptr", "f0_val",
                  *CONFIG_ARGS, "table", "table_size")
 _LAUNCH_OUTPUT = ("out", "rows_out", "clamp_s16", "n_valid", "frame_offset", "device", "stream")
+# A scan-mode entry's source and state, and its bookkeeping and stream.
+_SCAN_INPUT = ("src", "src_s16", "src_first", "src_end", "n_in", "S", "L", "copy", "vec",
+               "state_in", *CONFIG_ARGS, "table", "table_size")
+_SCAN_OUTPUT = ("produced", "over", "state_out", "device", "stream")
 ENTRY_ARGS = {
     "crt_tiled_mac": (*_LAUNCH_INPUT, "tstr", "tstr_rows", "N", "T", "frames_per_stage",
                       "win_rows", "vec", *_LAUNCH_OUTPUT),
-    "crt_tiled_scan": ("src", "src_s16", "src_first", "src_end", "n_in", "S", "L", "copy", "vec",
-                       "state_in", *CONFIG_ARGS, "table", "table_size", "tstr", "tstr_rows", "N",
-                       "T", "frames_per_stage", "win_rows", "out", "produced", "over",
-                       "state_out", "device", "stream"),
+    "crt_tiled_scan": (*_SCAN_INPUT, "tstr", "tstr_rows", "N", "T", "frames_per_stage",
+                       "win_rows", "out", *_SCAN_OUTPUT),
     "crt_strided_mac": (*_LAUNCH_INPUT, "N", "T", "d", "frames_per_tile", "win_rows", "vec",
                         *_LAUNCH_OUTPUT),
+    "crt_strided_scan": (*_SCAN_INPUT, "N", "T", "d", "frames_per_tile", "win_rows", "out",
+                         *_SCAN_OUTPUT),
     "crt_wide_mac": (*_LAUNCH_INPUT, "tstr", "tstr_rows", "N", "T", "K", "runs_bound", "vec",
                      "partial", "tap_sums", *_LAUNCH_OUTPUT),
-    "crt_scan_stage": ("prev", "cur", "chunk", "chunk_s16", "n_in", "halo_rows", "L", "vec",
-                       "state_in", "inc_hi", "inc_lo", "n_out", "launches", "launch_step",
-                       "produced", "over", "launch_states", "state_out", "device", "stream"),
+    "crt_wide_scan": (*_SCAN_INPUT, "tstr", "tstr_rows", "N", "T", "K", "runs_bound", "n_out",
+                      "frame_offset", "partial", "tap_sums", "out", *_SCAN_OUTPUT),
     "crt_farm_stage": ("src", "dst", "chunk", "streams", "n_in", "channels", "keep", "consumed",
                        "capacity", "tile_streams", "tile_frames", "path", "stages", "slot",
                        "device", "stream"),
@@ -87,9 +90,8 @@ ENTRY_ARGS = {
 # library -> (source file, its C entries).
 LIBRARIES = {
     "resample": ("resample_kernels.cu", ("crt_tiled_mac", "crt_tiled_scan")),
-    "strided": ("strided_kernels.cu", ("crt_strided_mac",)),
-    "wide": ("wide_kernels.cu", ("crt_wide_mac",)),
-    "scan": ("scan_kernels.cu", ("crt_scan_stage",)),
+    "strided": ("strided_kernels.cu", ("crt_strided_mac", "crt_strided_scan")),
+    "wide": ("wide_kernels.cu", ("crt_wide_mac", "crt_wide_scan")),
     "farm": ("farm_kernels.cu", ("crt_farm_stage", "crt_farm_unstage", "crt_farm_copy",
                                  "crt_farm_sync")),
     "batch": ("batch_kernels.cu", ("crt_batch_mac",)),
@@ -98,8 +100,9 @@ LIBRARIES = {
 ENTRIES = {"crt_tiled_mac": ("resample", "tiled_mac_kernel"),
            "crt_tiled_scan": ("resample", "tiled_mac_kernel"),
            "crt_strided_mac": ("strided", "strided_mac_kernel"),
+           "crt_strided_scan": ("strided", "strided_mac_kernel"),
            "crt_wide_mac": ("wide", "wide_mac_kernel"),
-           "crt_scan_stage": ("scan", "scan_stage_kernel"),
+           "crt_wide_scan": ("wide", "wide_mac_kernel"),
            "crt_farm_stage": ("farm", "farm_stage_kernel"),
            "crt_farm_unstage": ("farm", "farm_unstage_kernel"),
            "crt_farm_copy": ("farm", "cudaMemcpyAsync"),
@@ -248,11 +251,12 @@ def tiled_shared_bytes(frames: int, win_rows: int, taps: int, elem_bytes: int = 
     return 2 * (win_rows * TILED_LANES * elem_bytes + 4 * frames * (taps + 3))
 
 
-def strided_shared_bytes(taps: int, win_rows: int) -> int:
+def strided_shared_bytes(taps: int, win_rows: int, elem_bytes: int = 4) -> int:
     """Dynamic shared memory of one strided_mac_kernel block: the tap vector
     k0 (padded to a multiple of 4), its sum and 3 ints of padding, and two
-    stages of win_rows x TILED_LANES ints."""
-    return 4 * (-(-taps // 4) * 4 + 4 + 2 * win_rows * TILED_LANES)
+    stages of win_rows x TILED_LANES samples of ``elem_bytes`` bytes (int32
+    rows; the scan mode's int16 or int32 stream rows)."""
+    return 4 * (-(-taps // 4) * 4 + 4) + 2 * win_rows * TILED_LANES * elem_bytes
 
 
 def wide_slots(taps: int) -> int:
@@ -335,10 +339,7 @@ def tiled_launch_args(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_
     """Check a tiled_mac_kernel launch and return crt_tiled_mac's arguments by
     name, all but the outputs' (out, rows_out, clamp_s16, n_valid,
     frame_offset)."""
-    tables = {"table": (table, 1)}
-    if table_strided is not None:
-        tables["table_strided"] = (table_strided, 2)
-    _check_tensors(x, lanes, lane_offset, **tables)
+    _check_tensors(x, lanes, lane_offset, **_tables(table, table_strided))
     _check_taps(x, max_taps, table_strided)
     if frames_per_stage not in (8, 16, 32, 64) or win_rows < 0:
         raise ValueError(f"bad tiled stage: {frames_per_stage} frames, {win_rows} rows")
@@ -346,10 +347,8 @@ def tiled_launch_args(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"tiled stages of {smem} bytes exceed {MAX_SHARED_BYTES} bytes "
                          f"of shared memory")
-    tstr_ptr, tstr_rows = ((None, 0) if table_strided is None
-                           else (table_strided.data_ptr(), table_strided.shape[0]))
     args = _input_args(x, table, p0, f0, cfg, lanes, lane_offset)
-    args.update(tstr=tstr_ptr, tstr_rows=tstr_rows, N=n_out, T=max_taps,
+    args.update(**_tstr_args(table_strided), N=n_out, T=max_taps,
                 frames_per_stage=frames_per_stage, win_rows=win_rows)
     return args
 
@@ -376,103 +375,6 @@ def tiled_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int
     if n_out:
         _launch("crt_tiled_mac", args)
     return out, rows
-
-
-# How tiled_mac_kernel's scan mode copies a window's stream rows
-# (resample_kernels.cu SCAN_COPY_*): element loads, 4-byte or 16-byte cp.async.
-SCAN_COPY_ELEMENTS, SCAN_COPY_WORDS, SCAN_COPY_VEC = 0, 1, 2
-
-
-def scan_copy_path(*, elem_bytes: int, lanes: int, ptr: int) -> int:
-    """The copy path of a scan-mode launch over a stream of ``lanes`` lanes
-    of ``elem_bytes``-byte samples at address ``ptr``: SCAN_COPY_VEC when
-    every row and the stream start on 16 bytes (8 int16 or 4 int32 lanes a
-    copy), else SCAN_COPY_WORDS when on 4 bytes, else SCAN_COPY_ELEMENTS
-    (an odd int16 lane count, or an int16 stream off 4 bytes)."""
-    row = lanes * elem_bytes
-    if row % 16 == 0 and ptr % 16 == 0:
-        return SCAN_COPY_VEC
-    return SCAN_COPY_WORDS if row % 4 == 0 and ptr % 4 == 0 else SCAN_COPY_ELEMENTS
-
-
-def scan_window(step: int, n_in: int, radius: int) -> dict:
-    """Scan step ``step``'s window in stream rows: window row i is stream row
-    src_first + i while that lies in [0, src_end), else 0 -- the JAX scan's
-    staged [halo | chunk | zeros] (clownresampler_tpu/lowlevel.py:378-412)."""
-    return dict(src_first=step * n_in - 2 * radius, src_end=(step + 1) * n_in)
-
-
-def tiled_scan_args(chunks, table, table_strided, state_in, cfg, out, produced, over,
-                    state_out, *, step: int, radius: int, max_taps: int, frames_per_stage: int,
-                    win_rows: int) -> dict:
-    """Check one scan-mode tiled_mac_kernel launch and return crt_tiled_scan's
-    arguments by name: scan step ``step`` of ``chunks`` (K, n_in, L) int16 or
-    int32, read as one stream, from the state ``state_in`` (2,) -- (p with the
-    scan's +radius bias, f) --, its n_out frames into ``out`` (n_out, L)
-    int32, ``produced`` and ``over`` (1,) and ``state_out`` (2,) int32; the
-    flat LUT ``table`` or its strided form; ``cfg`` ConfigScalars; everything
-    contiguous on the chunks' card."""
-    _check_cuda(chunks)
-    if (chunks.dim() != 3 or chunks.dtype not in (torch.int16, torch.int32)
-            or not chunks.is_contiguous()):
-        raise ValueError(f"chunks must be a contiguous (K, n_in, L) int16 or int32 tensor, got "
-                         f"{chunks.dtype} {tuple(chunks.shape)}")
-    k, n_in, lanes = chunks.shape
-    n_out = out.shape[0] if out.dim() == 2 else -1
-    tables = {"table": (table, 1)}
-    if table_strided is not None:
-        tables["table_strided"] = (table_strided, 2)
-    small = dict(state_in=(state_in, 2), state_out=(state_out, 2), produced=(produced, 1),
-                 over=(over, 1))
-    _check_tensors(out, lanes, 0, **tables, **{name: (t, 1) for name, (t, _) in small.items()})
-    for name, (t, numel) in small.items():
-        if t.numel() != numel:
-            raise ValueError(f"{name} must have {numel} elements, got {t.numel()}")
-    if chunks.device != out.device or not (0 <= step < k and n_out > 0 and radius >= 0):
-        raise ValueError(f"bad scan step {step} of chunks {tuple(chunks.shape)} on "
-                         f"{chunks.device}, radius {radius}, out {tuple(out.shape)} on "
-                         f"{out.device}")
-    if frames_per_stage not in (8, 16, 32, 64) or win_rows < 0:
-        raise ValueError(f"bad tiled stage: {frames_per_stage} frames, {win_rows} rows")
-    elem_bytes = chunks.element_size()
-    smem = tiled_shared_bytes(frames_per_stage, win_rows, max_taps, elem_bytes)
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"tiled stages of {smem} bytes exceed {MAX_SHARED_BYTES} bytes "
-                         f"of shared memory")
-    if max_taps <= 0 or (table_strided is not None and table_strided.shape[1] != max_taps):
-        raise ValueError(f"bad scan taps: {max_taps}, strided table "
-                         f"{None if table_strided is None else tuple(table_strided.shape)}")
-    scalars = [_scalar_arg(getattr(cfg, f), out, f)[0] for f in TILED_CONFIG_FIELDS]
-    if None in scalars:
-        raise ValueError("the kernels read ConfigScalars as tensors on the chunks' device")
-    tstr_ptr, tstr_rows = ((None, 0) if table_strided is None
-                           else (table_strided.data_ptr(), table_strided.shape[0]))
-    ptr = chunks.data_ptr()
-    return dict(src=ptr, src_s16=int(chunks.dtype == torch.int16),
-                # S: the staged buffer the step stands for, [halo | chunk | max_taps + 8
-                # zero rows], by which the padding frames' windows are clamped.
-                **scan_window(step, n_in, radius), n_in=n_in, S=2 * radius + n_in + max_taps + 8,
-                L=lanes,
-                copy=scan_copy_path(elem_bytes=elem_bytes, lanes=lanes, ptr=ptr),
-                vec=int(lanes % 4 == 0 and out.data_ptr() % 16 == 0),
-                state_in=state_in.data_ptr(), **dict(zip(CONFIG_ARGS, scalars)),
-                table=table.data_ptr(), table_size=table.shape[0], tstr=tstr_ptr,
-                tstr_rows=tstr_rows, N=n_out, T=max_taps, frames_per_stage=frames_per_stage,
-                win_rows=win_rows, out=out.data_ptr(), produced=produced.data_ptr(),
-                over=over.data_ptr(), state_out=state_out.data_ptr(),
-                device=out.device.index, stream=_stream(out))
-
-
-def tiled_scan(chunks, table, table_strided, state_in, cfg, out, produced, over, state_out, *,
-               step: int, radius: int, max_taps: int, frames_per_stage: int,
-               win_rows: int) -> None:
-    """Launch tiled_mac_kernel once in scan mode (tiled_scan_args): scan step
-    ``step`` straight from the chunks -- each block copies its tiles' window
-    rows from the stream, as int16 when the chunks are, into shared memory --
-    and its bookkeeping, written in place."""
-    _launch("crt_tiled_scan", tiled_scan_args(
-        chunks, table, table_strided, state_in, cfg, out, produced, over, state_out, step=step,
-        radius=radius, max_taps=max_taps, frames_per_stage=frames_per_stage, win_rows=win_rows))
 
 
 def strided_launch_args(x, table, p0, f0, cfg, *, max_taps: int, n_out: int, d: int,
@@ -526,26 +428,25 @@ def wide_launch_args(x, table, table_strided, p0, f0, cfg, partial, *, max_taps:
     """Check a wide launch (wide_mac_kernel, then wide_fold_kernel) and return
     crt_wide_mac's arguments by name, all but the outputs'; ``partial`` is
     its int32 scratch of at least wide_scratch_ints ints on x's device."""
-    tables = {"table": (table, 1), "partial": (partial, 1)}
-    if table_strided is not None:
-        tables["table_strided"] = (table_strided, 2)
-    _check_tensors(x, lanes, lane_offset, **tables)
+    _check_tensors(x, lanes, lane_offset, partial=(partial, 1), **_tables(table, table_strided))
     _check_taps(x, max_taps, table_strided)
     if n_out > 65535 or d < 0:
         raise ValueError(f"bad wide launch: {n_out} frames, d {d}")
     slots = wide_slots(max_taps)
     if partial.numel() < wide_scratch_ints(max_taps, n_out, lanes):
         raise ValueError(f"wide scratch of {partial.numel()} ints is too small")
-    # Runs the input span can hold: the last frame's window starts at most
-    # (n_out - 1)(d + 1) rows after the first's.
-    runs_bound = -(-(max(n_out - 1, 0) * (d + 1) + max_taps) // WIDE_RUN_ROWS) + 1
-    tstr_ptr, tstr_rows = ((None, 0) if table_strided is None
-                           else (table_strided.data_ptr(), table_strided.shape[0]))
     args = _input_args(x, table, p0, f0, cfg, lanes, lane_offset)
-    args.update(tstr=tstr_ptr, tstr_rows=tstr_rows, N=n_out, T=max_taps, K=slots,
-                runs_bound=runs_bound, partial=partial.data_ptr(),
+    args.update(**_tstr_args(table_strided), N=n_out, T=max_taps, K=slots,
+                runs_bound=_wide_runs_bound(n_out, d, max_taps), partial=partial.data_ptr(),
                 tap_sums=partial.data_ptr() + 4 * n_out * slots * lanes)
     return args
+
+
+def _wide_runs_bound(n_out: int, d: int, max_taps: int) -> int:
+    """Runs of WIDE_RUN_ROWS rows a wide launch's input span can hold: the
+    last frame's window starts at most (n_out - 1)(d + 1) rows after the
+    first's."""
+    return -(-(max(n_out - 1, 0) * (d + 1) + max_taps) // WIDE_RUN_ROWS) + 1
 
 
 def wide_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int, d: int,
@@ -570,56 +471,195 @@ def wide_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int,
     return out, rows
 
 
-def scan_stage_args(prev, cur, chunk, state_in, cfg, produced, over, launch_states, state_out,
-                    *, halo_rows: int, n_out: int, launch_step: int) -> dict:
-    """Check one scan_stage_kernel launch and return crt_scan_stage's
-    arguments by name. ``prev`` and ``cur`` are the scan's two (S, L) int32
-    buffers, S >= halo_rows + n_in; ``chunk`` is (n_in, L) int16 or int32;
-    ``state_in`` and ``state_out`` are (2,), ``produced`` and ``over`` one
-    element, ``launch_states`` (launches, 2), all int32; ``cfg`` is
-    ConfigScalars; everything contiguous on cur's device."""
-    if chunk.dim() != 2 or chunk.dtype not in (torch.int16, torch.int32):
-        raise ValueError(f"chunk must be (n_in, L) int16 or int32, got {chunk.dtype} "
-                         f"{tuple(chunk.shape)}")
-    n_in, lanes = chunk.shape
+# How a scan mode copies a window's stream rows (mac_common.cuh SCAN_COPY_*):
+# element loads, 4-byte or 16-byte cp.async.
+SCAN_COPY_ELEMENTS, SCAN_COPY_WORDS, SCAN_COPY_VEC = 0, 1, 2
+
+
+def scan_copy_path(*, elem_bytes: int, lanes: int, ptr: int) -> int:
+    """The copy path of a scan-mode launch over a stream of ``lanes`` lanes
+    of ``elem_bytes``-byte samples at address ``ptr``: SCAN_COPY_VEC when
+    every row and the stream start on 16 bytes (8 int16 or 4 int32 lanes a
+    copy), else SCAN_COPY_WORDS when on 4 bytes, else SCAN_COPY_ELEMENTS
+    (an odd int16 lane count, or an int16 stream off 4 bytes)."""
+    row = lanes * elem_bytes
+    if row % 16 == 0 and ptr % 16 == 0:
+        return SCAN_COPY_VEC
+    return SCAN_COPY_WORDS if row % 4 == 0 and ptr % 4 == 0 else SCAN_COPY_ELEMENTS
+
+
+def scan_window(step: int, n_in: int, radius: int) -> dict:
+    """Scan step ``step``'s window in stream rows: window row i is stream row
+    src_first + i while that lies in [0, src_end), else 0 -- the JAX scan's
+    staged [halo | chunk | zeros] (clownresampler_tpu/lowlevel.py:378-412)."""
+    return dict(src_first=step * n_in - 2 * radius, src_end=(step + 1) * n_in)
+
+
+def _scan_args(chunks, state_in, cfg, out, produced, over, state_out, *, step: int,
+               radius: int, max_taps: int, **tensors) -> dict:
+    """Check what every scan-mode launch takes and return the arguments its C
+    entry shares with the others (_SCAN_INPUT, out, _SCAN_OUTPUT) by name:
+    scan step ``step`` of ``chunks`` (K, n_in, L) int16 or int32, read as one
+    stream, from the state ``state_in`` (2,) -- (p with the scan's +radius
+    bias, f) --, frames into ``out`` (N, L) int32, ``produced`` and ``over``
+    (1,) and ``state_out`` (2,) int32; ``cfg`` ConfigScalars; ``tensors``
+    (name: (tensor, ndim)) the launch's tables and scratch, int32;
+    everything contiguous on the chunks' card."""
+    _check_cuda(chunks)
+    if (chunks.dim() != 3 or chunks.dtype not in (torch.int16, torch.int32)
+            or not chunks.is_contiguous()):
+        raise ValueError(f"chunks must be a contiguous (K, n_in, L) int16 or int32 tensor, got "
+                         f"{chunks.dtype} {tuple(chunks.shape)}")
+    k, n_in, lanes = chunks.shape
+    n_out = out.shape[0] if out.dim() == 2 else -1
     small = dict(state_in=(state_in, 2), state_out=(state_out, 2), produced=(produced, 1),
                  over=(over, 1))
-    _check_tensors(cur, lanes, 0, prev=(prev, 2), launch_states=(launch_states, 2),
-                   inc_hi=(cfg.increment_hi, 0), inc_lo=(cfg.increment_lo, 0),
-                   **{k: (t, 1) for k, (t, _) in small.items()})
+    _check_tensors(out, lanes, 0, **tensors, **{name: (t, 1) for name, (t, _) in small.items()})
     for name, (t, numel) in small.items():
         if t.numel() != numel:
             raise ValueError(f"{name} must have {numel} elements, got {t.numel()}")
-    if chunk.device != cur.device or not chunk.is_contiguous():
-        raise ValueError(f"chunk must be contiguous on {cur.device}")
-    launches = launch_states.shape[0]
-    if (prev.shape != cur.shape or prev.data_ptr() == cur.data_ptr() or cur.shape[1] != lanes
-            or halo_rows < 0 or cur.shape[0] < halo_rows + n_in
-            or launch_states.shape[1] != 2 or launches < 1 or launch_step < 1):
-        raise ValueError(f"bad scan stage: buffers {tuple(prev.shape)} and {tuple(cur.shape)}, "
-                         f"chunk {tuple(chunk.shape)}, {halo_rows} halo rows, {launches} "
-                         f"launches of {launch_step} frames")
-    vec = int(lanes % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (prev, cur, chunk)))
-    return dict(prev=prev.data_ptr(), cur=cur.data_ptr(), chunk=chunk.data_ptr(),
-                chunk_s16=int(chunk.dtype == torch.int16), n_in=n_in, halo_rows=halo_rows,
-                L=lanes, vec=vec, state_in=state_in.data_ptr(),
-                inc_hi=cfg.increment_hi.data_ptr(), inc_lo=cfg.increment_lo.data_ptr(),
-                n_out=n_out, launches=launches, launch_step=launch_step,
+    if chunks.device != out.device or not (0 <= step < k and n_out > 0 and radius >= 0):
+        raise ValueError(f"bad scan step {step} of chunks {tuple(chunks.shape)} on "
+                         f"{chunks.device}, radius {radius}, out {tuple(out.shape)} on "
+                         f"{out.device}")
+    table_strided = tensors.get("table_strided", (None,))[0]
+    if max_taps <= 0 or (table_strided is not None and table_strided.shape[1] != max_taps):
+        raise ValueError(f"bad scan taps: {max_taps}, strided table "
+                         f"{None if table_strided is None else tuple(table_strided.shape)}")
+    scalars = [_scalar_arg(getattr(cfg, f), out, f)[0] for f in TILED_CONFIG_FIELDS]
+    if None in scalars:
+        raise ValueError("the kernels read ConfigScalars as tensors on the chunks' device")
+    ptr, table = chunks.data_ptr(), tensors["table"][0]
+    return dict(src=ptr, src_s16=int(chunks.dtype == torch.int16),
+                # S: the staged buffer the step stands for, [halo | chunk | max_taps + 8
+                # zero rows], by which the padding frames' windows are clamped.
+                **scan_window(step, n_in, radius), n_in=n_in, S=2 * radius + n_in + max_taps + 8,
+                L=lanes,
+                copy=scan_copy_path(elem_bytes=chunks.element_size(), lanes=lanes, ptr=ptr),
+                vec=int(lanes % 4 == 0 and out.data_ptr() % 16 == 0),
+                state_in=state_in.data_ptr(), **dict(zip(CONFIG_ARGS, scalars)),
+                table=table.data_ptr(), table_size=table.shape[0], out=out.data_ptr(),
                 produced=produced.data_ptr(), over=over.data_ptr(),
-                launch_states=launch_states.data_ptr(), state_out=state_out.data_ptr(),
-                device=cur.device.index, stream=_stream(cur))
+                state_out=state_out.data_ptr(), device=out.device.index, stream=_stream(out))
 
 
-def scan_stage(prev, cur, chunk, state_in, cfg, produced, over, launch_states, state_out, *,
-               halo_rows: int, n_out: int, launch_step: int) -> None:
-    """Launch scan_stage_kernel once: one scan step's stage (rows [0,
-    halo_rows + n_in) of ``cur`` = [rows [n_in, n_in + halo_rows) of ``prev`` |
-    chunk widened to int32]) and bookkeeping (produced, over, the launch
-    states at frame offsets i * launch_step, the next state), written in
+def _tables(table, table_strided) -> dict:
+    """A launch's LUT tensors for _check_tensors / _scan_args: the flat
+    table, and its strided form when given."""
+    tables = {"table": (table, 1)}
+    if table_strided is not None:
+        tables["table_strided"] = (table_strided, 2)
+    return tables
+
+
+def _tstr_args(table_strided) -> dict:
+    return (dict(tstr=None, tstr_rows=0) if table_strided is None
+            else dict(tstr=table_strided.data_ptr(), tstr_rows=table_strided.shape[0]))
+
+
+def tiled_scan_args(chunks, table, table_strided, state_in, cfg, out, produced, over,
+                    state_out, *, step: int, radius: int, max_taps: int, frames_per_stage: int,
+                    win_rows: int) -> dict:
+    """Check one scan-mode tiled_mac_kernel launch (a tiled or general scan
+    step) and return crt_tiled_scan's arguments by name (_scan_args: its n_out
+    frames into ``out`` (n_out, L)); the flat LUT ``table`` or its strided
+    form; stages as for tiled_mac, their rows of the chunks' type."""
+    args = _scan_args(chunks, state_in, cfg, out, produced, over, state_out, step=step,
+                      radius=radius, max_taps=max_taps, **_tables(table, table_strided))
+    if frames_per_stage not in (8, 16, 32, 64) or win_rows < 0:
+        raise ValueError(f"bad tiled stage: {frames_per_stage} frames, {win_rows} rows")
+    smem = tiled_shared_bytes(frames_per_stage, win_rows, max_taps, chunks.element_size())
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"tiled stages of {smem} bytes exceed {MAX_SHARED_BYTES} bytes "
+                         f"of shared memory")
+    args.update(**_tstr_args(table_strided), N=out.shape[0], T=max_taps,
+                frames_per_stage=frames_per_stage, win_rows=win_rows)
+    return args
+
+
+def tiled_scan(chunks, table, table_strided, state_in, cfg, out, produced, over, state_out, *,
+               step: int, radius: int, max_taps: int, frames_per_stage: int,
+               win_rows: int) -> None:
+    """Launch tiled_mac_kernel once in scan mode (tiled_scan_args): scan step
+    ``step`` straight from the chunks -- each block copies its tiles' window
+    rows from the stream, as int16 when the chunks are, into shared memory --
+    and its bookkeeping, written in place."""
+    _launch("crt_tiled_scan", tiled_scan_args(
+        chunks, table, table_strided, state_in, cfg, out, produced, over, state_out, step=step,
+        radius=radius, max_taps=max_taps, frames_per_stage=frames_per_stage, win_rows=win_rows))
+
+
+def strided_scan_args(chunks, table, state_in, cfg, out, produced, over, state_out, *,
+                      step: int, radius: int, max_taps: int, d: int, frames_per_tile: int,
+                      win_rows: int) -> dict:
+    """Check one scan-mode strided_mac_kernel launch (a strided scan step) and
+    return crt_strided_scan's arguments by name (_scan_args: its n_out frames
+    into ``out`` (n_out, L)); frame 0's taps from the flat LUT ``table``;
+    tiles as for strided_mac, their rows of the chunks' type."""
+    args = _scan_args(chunks, state_in, cfg, out, produced, over, state_out, step=step,
+                      radius=radius, max_taps=max_taps, table=(table, 1))
+    if d < 1 or frames_per_tile not in (8, 16, 32, 64) or win_rows < 0:
+        raise ValueError(f"bad strided launch: d {d}, {frames_per_tile} frames, "
+                         f"{win_rows} rows")
+    smem = strided_shared_bytes(max_taps, win_rows, chunks.element_size())
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"strided stages of {smem} bytes exceed {MAX_SHARED_BYTES} bytes "
+                         f"of shared memory")
+    args.update(N=out.shape[0], T=max_taps, d=d, frames_per_tile=frames_per_tile,
+                win_rows=win_rows)
+    return args
+
+
+def strided_scan(chunks, table, state_in, cfg, out, produced, over, state_out, *, step: int,
+                 radius: int, max_taps: int, d: int, frames_per_tile: int,
+                 win_rows: int) -> None:
+    """Launch strided_mac_kernel once in scan mode (strided_scan_args): scan
+    step ``step`` straight from the chunks and its bookkeeping, written in
     place."""
-    _launch("crt_scan_stage", scan_stage_args(
-        prev, cur, chunk, state_in, cfg, produced, over, launch_states, state_out,
-        halo_rows=halo_rows, n_out=n_out, launch_step=launch_step))
+    _launch("crt_strided_scan", strided_scan_args(
+        chunks, table, state_in, cfg, out, produced, over, state_out, step=step, radius=radius,
+        max_taps=max_taps, d=d, frames_per_tile=frames_per_tile, win_rows=win_rows))
+
+
+def wide_scan_args(chunks, table, table_strided, state_in, cfg, partial, out, produced, over,
+                   state_out, *, step: int, radius: int, max_taps: int, d: int, n_out: int,
+                   frame_offset: int) -> dict:
+    """Check one scan-mode wide launch (wide_mac_kernel, then
+    wide_fold_kernel) of a wide scan step and return crt_wide_scan's
+    arguments by name (_scan_args): frames [frame_offset, frame_offset + N)
+    of the step's ``n_out`` into ``out`` (N, L); the kernels derive the
+    launch's state from the step's state and the offset, and the offset-0
+    launch writes the bookkeeping. ``partial`` is the
+    launch's int32 scratch of at least wide_scratch_ints ints; ``d``
+    (increment >> 16) only sizes the grid."""
+    args = _scan_args(chunks, state_in, cfg, out, produced, over, state_out, step=step,
+                      radius=radius, max_taps=max_taps, partial=(partial, 1),
+                      **_tables(table, table_strided))
+    frames, lanes = out.shape
+    if d < 0 or frames > 65535 or frame_offset < 0 or frame_offset + frames > n_out:
+        raise ValueError(f"bad wide scan launch: frames [{frame_offset}, "
+                         f"{frame_offset + frames}) of {n_out}, d {d}")
+    if partial.numel() < wide_scratch_ints(max_taps, frames, lanes):
+        raise ValueError(f"wide scratch of {partial.numel()} ints is too small")
+    slots = wide_slots(max_taps)
+    args.update(**_tstr_args(table_strided), N=frames, T=max_taps, K=slots,
+                runs_bound=_wide_runs_bound(frames, d, max_taps), n_out=n_out,
+                frame_offset=frame_offset, partial=partial.data_ptr(),
+                tap_sums=partial.data_ptr() + 4 * frames * slots * lanes,
+                vec=int(args["vec"] and partial.data_ptr() % 16 == 0))
+    return args
+
+
+def wide_scan(chunks, table, table_strided, state_in, cfg, partial, out, produced, over,
+              state_out, *, step: int, radius: int, max_taps: int, d: int, n_out: int,
+              frame_offset: int) -> None:
+    """Launch wide_mac_kernel and wide_fold_kernel once in scan mode
+    (wide_scan_args): one launch of scan step ``step`` straight from the
+    chunks, written in place."""
+    _launch("crt_wide_scan", wide_scan_args(
+        chunks, table, table_strided, state_in, cfg, partial, out, produced, over, state_out,
+        step=step, radius=radius, max_taps=max_taps, d=d, n_out=n_out,
+        frame_offset=frame_offset))
 
 
 # Samples of a farm tile's row (about 128 lanes) and its frames; the most

@@ -10,7 +10,9 @@
 // masked LUT taps that the launch precompute computes (ops/resample.py), read
 // from the launch state and ConfigScalars by pointer (GeometryArgs), and the
 // staging the kernels share: cp.async copies of 128-lane row tiles into
-// shared memory and 16-byte output stores. Each source that includes this
+// shared memory, the scan mode's copies from the chunks read as one stream
+// and its per-launch bookkeeping (scan_launch), and 16-byte output stores.
+// Each source that includes this
 // header is its own translation unit and shared library (ops/_build.py).
 
 #pragma once
@@ -187,6 +189,170 @@ __device__ __forceinline__ void load_rows_async(const int* x, int L, int lane_of
             cp_async4(dst + 4 * i, i < in_launch ? src + i : x, i < in_launch);
         }
     }
+}
+
+// ---------------------------------------------------------------------------
+// Scan mode: a step of the whole-stream scan read straight from the chunks
+// ---------------------------------------------------------------------------
+//
+// The scan's chunks are one contiguous (K, n_in, L) int16 or int32 tensor,
+// so step k's staged buffer [halo | chunk | zeros] is exactly stream rows
+// [k*n_in - 2r, (k+1)*n_in) with zeros before row 0 and past the chunk (for
+// n_in < 2r too: the halo is the same stream window). The MAC kernels' scan
+// modes (tiled_mac_kernel, strided_mac_kernel, wide_mac_kernel and its fold)
+// copy their windows' rows from there into shared memory as they are, int16
+// when the chunks are, and widen a quad of lanes when a tap reads it; each
+// launch works out the step's bookkeeping itself from the step's state.
+
+// How a window's rows are copied from the stream, picked by the host
+// (_build.scan_copy_path): 16-byte cp.async granules (a row's bytes and the
+// chunks' address multiples of 16), 4-byte cp.async words (multiples of 4),
+// or element loads (cp.async has no 2-byte form: an odd int16 lane count or
+// an address off 4 bytes).
+constexpr int SCAN_COPY_ELEMENTS = 0;
+constexpr int SCAN_COPY_WORDS = 1;
+constexpr int SCAN_COPY_VEC = 2;
+
+// Scan mode's source and bookkeeping. Window row i of the step is stream row
+// first + i of the chunks read as one (K * n_in, L) stream when 0 <= first + i
+// < end, else 0: first = k*n_in - 2r, end = (k+1)*n_in for step k. A launch
+// computes frames [offset, offset + N) of the step's n_out (a step of the
+// wide engine may be several launches; every other step is one, offset 0).
+struct ScanSource {
+    const void* chunks;               // int16 or int32 (SrcT); never offset before it
+    long long first, end;
+    int copy;                         // SCAN_COPY_*
+    int n_in;                         // chunk frames
+    int n_out;                        // the step's output frames, all launches
+    int offset;                       // the launch's first frame in the step
+    int* produced;                    // (1,) written by the step's offset-0 launch
+    int* over;                        // (1,)
+    int* state_out;                   // (2,) the next step's (p, f)
+};
+
+// The bookkeeping of one scan-mode launch. On entry g's position is the
+// step's state (p with the scan's +radius bias, f; read_geometry of the
+// state pointer), in int64 as the scan's plain version computes it
+// (lowlevel._step_scalars): natural = ceil(((n_in - p) * 2^16 - f) / inc)
+// frames are due, produced = min(natural, n_out). `writer` (thread 0 of
+// block 0) of the step's offset-0 launch writes produced, over (natural >
+// n_out) and the next step's state (the position carry,
+// clownresampler.h:1063-1068); a launch at another offset writes nothing. On
+// return g holds the launch's state at frame `offset` of the step: t = f +
+// offset * inc, p0 = p + (t >> 16), f0 = t & 0xFFFF. Returns the launch's
+// frames that keep their values, produced - offset; its stores mask the rest.
+__device__ __forceinline__ int scan_launch(const ScanSource& s, LaunchGeometry& g,
+                                           bool writer) {
+    const long long p = g.p0, f = g.f0;
+    const long long num = (static_cast<long long>(s.n_in) - p) * 65536 - f;
+    const long long natural = num > 0 ? (num + g.inc - 1) / (g.inc > 1 ? g.inc : 1) : 0;
+    const long long produced = natural < s.n_out ? natural : s.n_out;
+    if (writer && s.offset == 0) {
+        *s.produced = static_cast<int>(produced);
+        *s.over = natural > s.n_out ? 1 : 0;
+        const long long t = f + produced * g.inc;
+        const long long p_after = p + (t >> 16);
+        s.state_out[0] = static_cast<int>(p_after - (p_after < s.n_in ? p_after : s.n_in));
+        s.state_out[1] = static_cast<int>(t & 0xFFFF);
+    }
+    const long long t = f + static_cast<long long>(s.offset) * g.inc;
+    g.p0 = p + (t >> 16);
+    g.f0 = t & 0xFFFF;
+    return static_cast<int>(produced) - s.offset;
+}
+
+// Four staged lanes as one shared load (16 bytes of int32, 8 of int16), and
+// widened to int32.
+template <typename SrcT>
+struct Quad;
+
+template <>
+struct Quad<int32_t> {
+    using type = int4;
+    static __device__ __forceinline__ int4 widen(int4 v) { return v; }
+};
+
+template <>
+struct Quad<int16_t> {
+    using type = int2;
+    // Little-endian pairs: the low half sign-extended, the high half shifted down.
+    static __device__ __forceinline__ int4 widen(int2 v) {
+        return make_int4(static_cast<int16_t>(v.x & 0xFFFF), v.x >> 16,
+                         static_cast<int16_t>(v.y & 0xFFFF), v.y >> 16);
+    }
+};
+
+// Ints of a staged window of W rows x TILE_LANES lanes of SrcT.
+template <typename SrcT>
+__host__ __device__ inline int window_ints(int W) {
+    return W * TILE_LANES * static_cast<int>(sizeof(SrcT)) / 4;
+}
+
+// Start the copy of window rows [0, rows) -- stream rows first + r -- x lanes
+// [lane0, lane0 + TILE_LANES) into win, BYTES (16 or 4) a copy, by THREADS
+// threads; rows outside [0, end) and lanes past L are zero-filled (the
+// copy's source is then the stream's base, never an address before it). A
+// thread keeps one column, as load_rows_async does.
+template <int THREADS, int BYTES, typename SrcT>
+__device__ __forceinline__ void copy_stream_rows(const SrcT* x, int L, long long first,
+                                                 long long end, int rows, int lane0, SrcT* win) {
+    constexpr int PER = BYTES / static_cast<int>(sizeof(SrcT));     // lanes a copy
+    constexpr int COLS = TILE_LANES / PER;
+    constexpr int STEP = THREADS / COLS;
+    static_assert(THREADS % COLS == 0, "a thread keeps one column");
+    constexpr unsigned DST_STEP = STEP * TILE_LANES * sizeof(SrcT);
+    const int col = threadIdx.x % COLS;
+    const int lane = lane0 + PER * col;
+    int r = threadIdx.x / COLS;
+    unsigned dst =
+        static_cast<unsigned>(__cvta_generic_to_shared(win + r * TILE_LANES + PER * col));
+    for (; r < rows; r += STEP, dst += DST_STEP) {
+        const long long s = first + r;
+        const bool ok = lane < L && s >= 0 && s < end;
+        const SrcT* src = ok ? x + s * L + lane : x;
+        if constexpr (BYTES == 16) {
+            cp_async16(dst, src, ok);
+        } else {
+            cp_async4(dst, src, ok);
+        }
+    }
+}
+
+// Start the copy of `rows` window rows from stream row `first` on into win
+// by the source's copy path (the element path's plain loads and shared
+// stores are visible after the next barrier, as the cp.async copies are
+// after the wait and the barrier).
+template <int THREADS, typename SrcT>
+__device__ __forceinline__ void load_stream_rows(const ScanSource& s, int L, long long first,
+                                                 int rows, int lane0, SrcT* win) {
+    const SrcT* x = static_cast<const SrcT*>(s.chunks);
+    if (s.copy == SCAN_COPY_VEC) {
+        copy_stream_rows<THREADS, 16>(x, L, first, s.end, rows, lane0, win);
+    } else if (s.copy == SCAN_COPY_WORDS) {
+        copy_stream_rows<THREADS, 4>(x, L, first, s.end, rows, lane0, win);
+    } else {
+        for (int i = threadIdx.x; i < rows * TILE_LANES; i += THREADS) {
+            const long long r = first + i / TILE_LANES;
+            const int lane = lane0 + i % TILE_LANES;
+            win[i] = lane < L && r >= 0 && r < s.end ? __ldg(x + r * L + lane) : SrcT(0);
+        }
+    }
+}
+
+// Four lanes from `lane` on of window row `row` (stream row s.first + row)
+// read from the stream directly, a tap's MACs into a0..a3: rows outside the
+// step's live range [0, end) read as zero, lanes past the launch's `nl` live
+// ones are not read.
+template <typename SrcT>
+__device__ __forceinline__ void stream_tap(const ScanSource& s, int L, long long row, int lane,
+                                           int nl, int k, int& a0, int& a1, int& a2, int& a3) {
+    const long long r = s.first + row;
+    if (r < 0 || r >= s.end) return;
+    const SrcT* xr = static_cast<const SrcT*>(s.chunks) + r * L + lane;
+    a0 = macc_trunc(a0, __ldg(xr), k);
+    if (nl > 1) a1 = macc_trunc(a1, __ldg(xr + 1), k);
+    if (nl > 2) a2 = macc_trunc(a2, __ldg(xr + 2), k);
+    if (nl > 3) a3 = macc_trunc(a3, __ldg(xr + 3), k);
 }
 
 template <typename OutT>

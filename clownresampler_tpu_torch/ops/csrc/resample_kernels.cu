@@ -55,18 +55,18 @@
 // stage to the window its frames reach (ops.resample.scan_stage_plan: at
 // config 7 16 frames of 123 rows, where the int32 entry takes 8 of 79), and
 // the shared memory left holds more blocks an SM. Each block also works out
-// the step's produced count from the state (the same int64 formulas as
-// scan_kernels.cu scan_bookkeeping), masks its stores by it, and block 0
-// writes produced, over and the next step's state, which the next launch
-// reads in stream order.
+// the step's produced count from the state (scan_launch, mac_common.cuh,
+// shared with the strided and wide kernels' scan modes), masks its stores by
+// it, and block 0 writes produced, over and the next step's state, which the
+// next launch reads in stream order.
 //
 // Built by ops/_build.py with nvcc into a shared library with a plain C
 // interface; the Python wrappers check devices, dtypes, shapes and strides
 // before they pass pointers, and every entry returns cudaGetLastError().
 // The tap arithmetic (macc_trunc, mul_shift15, finish), the window
-// geometry, the masked LUT taps, the cp.async staging, the output stores and
-// the persistent grid are in mac_common.cuh, shared with strided_kernels.cu
-// and wide_kernels.cu.
+// geometry, the masked LUT taps, the cp.async staging, the scan mode's
+// stream copies and bookkeeping, the output stores and the persistent grid
+// are in mac_common.cuh, shared with strided_kernels.cu and wide_kernels.cu.
 
 #include <algorithm>
 
@@ -80,28 +80,6 @@ namespace {
 
 constexpr int TILED_THREADS = 256;                // 8 warps
 constexpr int TILED_WARPS = TILED_THREADS / 32;
-
-// Scan mode: how a window's rows are copied from the stream, picked by the
-// host (_build.scan_copy_path): 16-byte cp.async granules (a row's bytes and
-// the chunks' address multiples of 16), 4-byte cp.async words (multiples of
-// 4), or element loads (cp.async has no 2-byte form: an odd int16 lane count
-// or an address off 4 bytes).
-constexpr int SCAN_COPY_ELEMENTS = 0;
-constexpr int SCAN_COPY_WORDS = 1;
-constexpr int SCAN_COPY_VEC = 2;
-
-// Scan mode's source and bookkeeping. Window row i of the step is stream row
-// first + i of the chunks read as one (K * n_in, L) stream when 0 <= first + i
-// < end, else 0: first = k*n_in - 2r, end = (k+1)*n_in for step k.
-struct ScanSource {
-    const void* chunks;               // int16 or int32 (SrcT); never offset before it
-    long long first, end;
-    int copy;                         // SCAN_COPY_*
-    int n_in;                         // chunk frames
-    int* produced;                    // (1,) written by block 0
-    int* over;                        // (1,)
-    int* state_out;                   // (2,) the next step's (p, f)
-};
 
 struct TiledParams {
     const int* x;
@@ -118,11 +96,17 @@ struct TiledParams {
     ScanSource scan;                  // scan mode only (x null, S the staged buffer's rows)
 };
 
-// Ints of a stage's window of W rows of SrcT (int32 staged buffers, or the
-// scan's int16 or int32 stream rows).
-template <typename SrcT>
-__host__ __device__ inline int window_ints(int W) {
-    return W * TILE_LANES * static_cast<int>(sizeof(SrcT)) / 4;
+// The frames of the launch that keep their values (valid_frames; in scan
+// mode the step's produced count, scan_launch, which also puts the step's
+// state into g as the launch state and whose block 0 writes the step's
+// bookkeeping).
+template <bool SCAN>
+__device__ __forceinline__ int launch_valid(const TiledParams& P, LaunchGeometry& g) {
+    if constexpr (SCAN) {
+        return scan_launch(P.scan, g, blockIdx.x == 0 && threadIdx.x == 0);
+    } else {
+        return valid_frames(P.n_valid, P.frame_offset);
+    }
 }
 
 // One stage of a block's shared memory, in ints: the staged window
@@ -131,108 +115,6 @@ __host__ __device__ inline int window_ints(int W) {
 template <typename SrcT>
 __host__ __device__ inline int tiled_stage_ints(int F, int T, int W) {
     return window_ints<SrcT>(W) + F * (T + 3);
-}
-
-// Four staged lanes as one shared load (16 bytes of int32, 8 of int16), and
-// widened to int32.
-template <typename SrcT>
-struct Quad;
-
-template <>
-struct Quad<int32_t> {
-    using type = int4;
-    static __device__ __forceinline__ int4 widen(int4 v) { return v; }
-};
-
-template <>
-struct Quad<int16_t> {
-    using type = int2;
-    // Little-endian pairs: the low half sign-extended, the high half shifted down.
-    static __device__ __forceinline__ int4 widen(int2 v) {
-        return make_int4(static_cast<int16_t>(v.x & 0xFFFF), v.x >> 16,
-                         static_cast<int16_t>(v.y & 0xFFFF), v.y >> 16);
-    }
-};
-
-// Scan mode: the step's frames that keep their values, from the step's
-// state (the launch state: p with the scan's +radius bias, f) and the
-// increment, in int64 as scan_kernels.cu scan_bookkeeping computes them for
-// one launch: natural = ceil(((n_in - p) * 2^16 - f) / inc) frames are due,
-// produced = min(natural, N). Thread 0 of block 0 writes produced, over
-// (natural > N) and the next step's state (the position carry,
-// clownresampler.h:1063-1068); every block masks its stores by produced.
-__device__ __forceinline__ int scan_step(const TiledParams& P, const LaunchGeometry& g) {
-    const ScanSource& s = P.scan;
-    const long long num = (static_cast<long long>(s.n_in) - g.p0) * 65536 - g.f0;
-    const long long natural = num > 0 ? (num + g.inc - 1) / (g.inc > 1 ? g.inc : 1) : 0;
-    const long long produced = natural < P.N ? natural : P.N;
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
-        *s.produced = static_cast<int>(produced);
-        *s.over = natural > P.N ? 1 : 0;
-        const long long t = g.f0 + produced * g.inc;
-        const long long p_after = g.p0 + (t >> 16);
-        s.state_out[0] = static_cast<int>(p_after - (p_after < s.n_in ? p_after : s.n_in));
-        s.state_out[1] = static_cast<int>(t & 0xFFFF);
-    }
-    return static_cast<int>(produced);
-}
-
-// The frames of the launch that keep their values (valid_frames; in scan
-// mode the step's produced count, scan_step).
-template <bool SCAN>
-__device__ __forceinline__ int launch_valid(const TiledParams& P, const LaunchGeometry& g) {
-    if constexpr (SCAN) {
-        return scan_step(P, g);
-    } else {
-        return valid_frames(P.n_valid, P.frame_offset);
-    }
-}
-
-// Scan mode: start the copy of window rows [0, rows) -- stream rows first +
-// r -- x lanes [lane0, lane0 + TILE_LANES) into win, BYTES (16 or 4) a copy,
-// by THREADS threads; rows outside [0, end) and lanes past L are
-// zero-filled (the copy's source is then the stream's base, never an
-// address before it). A thread keeps one column, as load_rows_async does.
-template <int THREADS, int BYTES, typename SrcT>
-__device__ __forceinline__ void copy_stream_rows(const SrcT* x, int L, long long first,
-                                                 long long end, int rows, int lane0, SrcT* win) {
-    constexpr int PER = BYTES / static_cast<int>(sizeof(SrcT));     // lanes a copy
-    constexpr int COLS = TILE_LANES / PER;
-    constexpr int STEP = THREADS / COLS;
-    static_assert(THREADS % COLS == 0, "a thread keeps one column");
-    constexpr unsigned DST_STEP = STEP * TILE_LANES * sizeof(SrcT);
-    const int col = threadIdx.x % COLS;
-    const int lane = lane0 + PER * col;
-    int r = threadIdx.x / COLS;
-    unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(win + r * TILE_LANES + PER * col));
-    for (; r < rows; r += STEP, dst += DST_STEP) {
-        const long long s = first + r;
-        const bool ok = lane < L && s >= 0 && s < end;
-        const SrcT* src = ok ? x + s * L + lane : x;
-        if constexpr (BYTES == 16) {
-            cp_async16(dst, src, ok);
-        } else {
-            cp_async4(dst, src, ok);
-        }
-    }
-}
-
-template <int THREADS, typename SrcT>
-__device__ __forceinline__ void load_stream_rows(const ScanSource& s, int L, long long first,
-                                                 int rows, int lane0, SrcT* win) {
-    const SrcT* x = static_cast<const SrcT*>(s.chunks);
-    if (s.copy == SCAN_COPY_VEC) {
-        copy_stream_rows<THREADS, 16>(x, L, first, s.end, rows, lane0, win);
-    } else if (s.copy == SCAN_COPY_WORDS) {
-        copy_stream_rows<THREADS, 4>(x, L, first, s.end, rows, lane0, win);
-    } else {
-        // Plain loads and shared stores, visible after the next barrier.
-        for (int i = threadIdx.x; i < rows * TILE_LANES; i += THREADS) {
-            const long long r = first + i / TILE_LANES;
-            const int lane = lane0 + i % TILE_LANES;
-            win[i] = lane < L && r >= 0 && r < s.end ? __ldg(x + r * L + lane) : SrcT(0);
-        }
-    }
 }
 
 // Frames per stage: the most of F, F/2, ..., 8 whose window -- at most
@@ -367,17 +249,9 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
         } else if constexpr (SCAN) {
             // A window past the stage's rows, read from the stream a row at a
             // time; rows outside the step's live range read as zero.
-            const SrcT* xs = static_cast<const SrcT*>(P.scan.chunks);
             const int nl = min(4, P.lanes - lane);
-            long long s = P.scan.first + rl[f];
-            for (int j = 0; j < live; ++j, ++s) {
-                if (s < 0 || s >= P.scan.end) continue;
-                const SrcT* xr = xs + s * P.L + lane;
-                const int kj = k[j];
-                a0 = macc_trunc(a0, __ldg(xr), kj);
-                if (nl > 1) a1 = macc_trunc(a1, __ldg(xr + 1), kj);
-                if (nl > 2) a2 = macc_trunc(a2, __ldg(xr + 2), kj);
-                if (nl > 3) a3 = macc_trunc(a3, __ldg(xr + 3), kj);
+            for (int j = 0; j < live; ++j) {
+                stream_tap<SrcT>(P.scan, P.L, rl[f] + j, lane, nl, k[j], a0, a1, a2, a3);
             }
         } else if (P.vec) {
             // A window past the stage's rows (taps too wide to stage, or an
@@ -420,11 +294,11 @@ tiled_mac_kernel(const TiledParams P) {
     extern __shared__ int4 smem4[];
     int* const smem = reinterpret_cast<int*>(smem4);
     const int T = TT ? TT : P.T;
-    const LaunchGeometry g = read_geometry(P.geo);
+    LaunchGeometry g = read_geometry(P.geo);
+    const int valid = launch_valid<SCAN>(P, g);
     const int F = stage_frames(g, P.F, T, P.W);
     const int stage_ints = tiled_stage_ints<SrcT>(F, T, P.W);
     const int row_max = max(P.S - T, 0);
-    const int valid = launch_valid<SCAN>(P, g);
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
     const int tiles = lane_tiles * ((P.N + F - 1) / F);
     int tile = blockIdx.x;
@@ -536,7 +410,7 @@ int crt_tiled_scan(const void* src, int src_s16, long long src_first, long long 
                            radius, delta, int_radius, step};
     const TiledParams P{nullptr, S, L, 0, L, geo, {table, table_size, tstr, tstr_rows, T},
                         N, T, frames_per_stage, win_rows, vec, out, nullptr, nullptr, 0,
-                        {src, src_first, src_end, copy, n_in, produced, over, state_out}};
+                        {src, src_first, src_end, copy, n_in, N, 0, produced, over, state_out}};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return src_s16 ? launch_tiled_taps<int32_t, int16_t, true>(P, device, s)
                    : launch_tiled_taps<int32_t, int32_t, true>(P, device, s);

@@ -37,6 +37,22 @@
 //    does not fit shared memory (taps up to lowlevel.FAST_KERNEL_MAX_TAPS)
 //    reads x directly.
 //
+// Scan mode (SCAN, the C entry crt_strided_scan): a step of the whole-stream
+// scan with the strided engine (lowlevel.ScanProgram), as one launch. It
+// replaces the engine's Pallas kernel together with the staging, bookkeeping
+// and halo slice XLA compiles around it in the JAX scan
+// (clownresampler_tpu/lowlevel.py:378-412). A staged tile copies its window
+// from the (K, n_in, L) chunks read as one stream (mac_common.cuh
+// load_stream_rows), still int16 when they are, so a stage takes half the
+// shared memory; strided_taps widens a quad of lanes as a tap reads it; a
+// window too wide to stage reads the stream directly, zero outside the step's
+// live rows. Every block works out the step's produced count from its state
+// (scan_launch) and masks its stores by it, and block 0 writes produced,
+// over and the next step's state. At the 96k -> 48k step (2048 lanes, 12 of
+// 16 taps live) that reads 33.6 MB of int16 rows and writes no staging
+// buffer, where the stage pass read them, wrote 67.4 MB of int32 rows and
+// this kernel read those back.
+//
 // Padding frames (past the caller's natural count, results discarded) have
 // their window start clamped into the buffer, row(n) = clamp(r0 + n*d, 0,
 // S - T), exactly as ops/resample.launch_rows clamps the other classes'
@@ -65,15 +81,18 @@ struct StridedParams {
     int* rows_out;                    // null: the rows are not written
     const int* n_valid;               // frames from *n_valid - frame_offset on are stored
     int frame_offset;                 // as 0 (valid_frames); null: every frame is kept
+    ScanSource scan;                  // scan mode only (x null, S the staged buffer's rows)
 };
 
 // Shared memory, in ints: k0 padded to a multiple of 4, the tap sum (and 3
 // ints of padding, keeping what follows 16-byte aligned), two stages of W
-// rows x TILE_LANES.
+// rows x TILE_LANES of SrcT (int32 rows of x; the scan's int16 or int32
+// stream rows).
 __host__ __device__ inline int strided_header_ints(int T) { return (T + 3) / 4 * 4 + 4; }
 
+template <typename SrcT>
 __host__ __device__ inline int strided_shared_ints(int T, int W) {
-    return strided_header_ints(T) + 2 * W * TILE_LANES;
+    return strided_header_ints(T) + 2 * window_ints<SrcT>(W);
 }
 
 // The launch-wide geometry every block computes (frame 0's window).
@@ -109,17 +128,19 @@ __device__ __forceinline__ StridedTile strided_tile(const StridedParams& P,
     return t;
 }
 
-// One frame's four lanes from its window, `reads` rows from w0 (16-byte
-// columns, `stride` columns a row): taps from registers (TT > 0, unrolled)
-// or from shared memory (TT == 0, `reads` = live).
-template <int TT>
-__device__ __forceinline__ void strided_taps(const int4* w0, int stride,
+// One frame's four lanes from its window, `reads` rows from w0 (quads of
+// SrcT, `stride` quads a row, widened as a tap reads them): taps from
+// registers (TT > 0, unrolled) or from shared memory (TT == 0, `reads` =
+// live).
+template <int TT, typename SrcT>
+__device__ __forceinline__ void strided_taps(const typename Quad<SrcT>::type* w0, int stride,
                                              const int (&k)[TT ? TT : 1], const int* s_k,
                                              int reads, int& a0, int& a1, int& a2, int& a3) {
+    using Q = Quad<SrcT>;
     if (TT) {
 #pragma unroll
         for (int j = 0; j < TT; ++j) {
-            const int4 v = w0[j * stride];
+            const int4 v = Q::widen(w0[j * stride]);
             a0 = macc_trunc(a0, v.x, k[j]);
             a1 = macc_trunc(a1, v.y, k[j]);
             a2 = macc_trunc(a2, v.z, k[j]);
@@ -133,7 +154,7 @@ __device__ __forceinline__ void strided_taps(const int4* w0, int stride,
         const int kj[4] = {kk.x, kk.y, kk.z, kk.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-            const int4 v = w0[(j + i) * stride];
+            const int4 v = Q::widen(w0[(j + i) * stride]);
             a0 = macc_trunc(a0, v.x, kj[i]);
             a1 = macc_trunc(a1, v.y, kj[i]);
             a2 = macc_trunc(a2, v.z, kj[i]);
@@ -141,7 +162,7 @@ __device__ __forceinline__ void strided_taps(const int4* w0, int stride,
         }
     }
     for (; j < reads; ++j) {
-        const int4 v = w0[j * stride];
+        const int4 v = Q::widen(w0[j * stride]);
         a0 = macc_trunc(a0, v.x, s_k[j]);
         a1 = macc_trunc(a1, v.y, s_k[j]);
         a2 = macc_trunc(a2, v.z, s_k[j]);
@@ -152,11 +173,12 @@ __device__ __forceinline__ void strided_taps(const int4* w0, int stride,
 // The MACs of one tile: warp w takes frames w, w + 8, ...; thread tx of a
 // warp takes lanes lane0 + 4tx .. + 3. The blocks of lane tile 0 write the
 // unclamped rows (when the caller wants them). A frame from `valid` on
-// (valid_frames) skips its taps and is stored as 0.
-template <int TT, typename OutT>
+// (valid_frames; in scan mode the step's produced count) skips its taps and
+// is stored as 0.
+template <int TT, typename OutT, typename SrcT, bool SCAN>
 __device__ __forceinline__ void strided_compute(const StridedParams& P, const StridedLaunch& s,
                                                 const StridedTile& t, const int (&k)[TT ? TT : 1],
-                                                const int* s_k, const int* win, int valid) {
+                                                const int* s_k, const SrcT* win, int valid) {
     const int tx = threadIdx.x & 31;
     const int lane = t.lane0 + 4 * tx;
     if (lane >= P.lanes) return;
@@ -170,8 +192,16 @@ __device__ __forceinline__ void strided_compute(const StridedParams& P, const St
         if (n >= valid) {
             // masked: the zeros are stored below
         } else if (t.staged) {
-            const int4* w0 = reinterpret_cast<const int4*>(win) + (row - t.first) * TILE_COLS + tx;
-            strided_taps<TT>(w0, TILE_COLS, k, s_k, s.live, a0, a1, a2, a3);
+            const auto* w0 = reinterpret_cast<const typename Quad<SrcT>::type*>(win) +
+                             (row - t.first) * TILE_COLS + tx;
+            strided_taps<TT, SrcT>(w0, TILE_COLS, k, s_k, s.live, a0, a1, a2, a3);
+        } else if constexpr (SCAN) {
+            // A window too wide to stage, read from the stream a row at a
+            // time; rows outside the step's live range read as zero.
+            const int nl = min(4, P.lanes - lane);
+            for (int j = 0; j < s.live; ++j) {
+                stream_tap<SrcT>(P.scan, P.L, row + j, lane, nl, s_k[j], a0, a1, a2, a3);
+            }
         } else {
             // A window too wide to stage: device memory, k0 from shared memory.
             const int* xr = P.x + static_cast<size_t>(row) * P.L + P.lane_offset + lane;
@@ -198,10 +228,12 @@ __device__ __forceinline__ void strided_compute(const StridedParams& P, const St
 
 // A persistent block's walk over the tiles with TT register taps (0: the
 // generic loop). Two stages: while a block computes one tile, the copy of
-// its next tile's window is in flight (cp.async). One barrier per tile.
-template <int TT, typename OutT>
+// its next tile's window is in flight (cp.async; in scan mode from the
+// stream, window row r being stream row scan.first + r). One barrier per
+// tile.
+template <int TT, typename OutT, typename SrcT, bool SCAN>
 __device__ __forceinline__ void strided_run(const StridedParams& P, const StridedLaunch& s,
-                                            const int* s_k, int* stages) {
+                                            const int* s_k, int* stages, int valid) {
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
     const int tiles = lane_tiles * ((P.N + P.F - 1) / P.F);
     int tile = blockIdx.x;
@@ -210,10 +242,13 @@ __device__ __forceinline__ void strided_run(const StridedParams& P, const Stride
 #pragma unroll
     for (int j = 0; j < (TT ? TT : 1); ++j) k[j] = TT ? s_k[j] : 0;
     const int reads = TT ? TT : s.live;
-    const int valid = valid_frames(P.n_valid, P.frame_offset);
-    auto win = [&](int b) { return stages + b * P.W * TILE_LANES; };
-    auto load = [&](const StridedTile& t, int* w) {
-        if (t.staged) {
+    auto win = [&](int b) { return reinterpret_cast<SrcT*>(stages + b * window_ints<SrcT>(P.W)); };
+    auto load = [&](const StridedTile& t, SrcT* w) {
+        if (!t.staged) return;
+        if constexpr (SCAN) {
+            load_stream_rows<STRIDED_THREADS>(P.scan, P.L, P.scan.first + t.first, t.rows,
+                                              t.lane0, w);
+        } else {
             load_rows_async<STRIDED_THREADS>(P.x, P.L, P.lane_offset, P.lanes, P.vec, t.first,
                                              t.rows, t.lane0, w);
         }
@@ -232,14 +267,18 @@ __device__ __forceinline__ void strided_run(const StridedParams& P, const Stride
             load(nxt, win(b ^ 1));
         }
         cp_async_commit();
-        strided_compute<TT, OutT>(P, s, cur, k, s_k, win(b), valid);
+        strided_compute<TT, OutT, SrcT, SCAN>(P, s, cur, k, s_k, win(b), valid);
         if (next >= tiles) break;
         cur = nxt;
         tile = next;
     }
 }
 
-template <typename OutT>
+// SrcT and SCAN: the window's rows are int32 rows of x (SCAN false: the
+// strided entry), or the scan's int16 or int32 stream rows (a strided scan
+// step, whose launch state is the step's state and whose block 0 writes the
+// step's bookkeeping: scan_launch).
+template <typename OutT, typename SrcT, bool SCAN>
 __global__ void __launch_bounds__(STRIDED_THREADS, 2)
 strided_mac_kernel(const StridedParams P) {
     extern __shared__ int4 smem4[];
@@ -251,7 +290,9 @@ strided_mac_kernel(const StridedParams P) {
 
     // The launch's geometry: frame 0's window, k0 (zero past the live taps
     // and up to kpad) and its sum, reduced by shuffles and a shared add.
-    const LaunchGeometry g = read_geometry(P.geo);
+    LaunchGeometry g = read_geometry(P.geo);
+    const int valid = SCAN ? scan_launch(P.scan, g, blockIdx.x == 0 && threadIdx.x == 0)
+                           : valid_frames(P.n_valid, P.frame_offset);
     const FrameWindow w0 = frame_window(g, 0);
     StridedLaunch s;
     s.r0 = static_cast<long long>(w0.row);
@@ -274,33 +315,34 @@ strided_mac_kernel(const StridedParams P) {
     // reserved width (the rounding's rows must lie inside x).
     const int rounded = (s.live + 3) / 4 * 4;
     switch (rounded <= P.T ? rounded : 0) {
-        case 4: return strided_run<4, OutT>(P, s, s_k, stages);
-        case 8: return strided_run<8, OutT>(P, s, s_k, stages);
-        case 12: return strided_run<12, OutT>(P, s, s_k, stages);
-        case 16: return strided_run<16, OutT>(P, s, s_k, stages);
-        case 20: return strided_run<20, OutT>(P, s, s_k, stages);
-        case 24: return strided_run<24, OutT>(P, s, s_k, stages);
-        case 28: return strided_run<28, OutT>(P, s, s_k, stages);
-        case 32: return strided_run<32, OutT>(P, s, s_k, stages);
-        case 36: return strided_run<36, OutT>(P, s, s_k, stages);
-        case STRIDED_MAX_UNROLL: return strided_run<STRIDED_MAX_UNROLL, OutT>(P, s, s_k, stages);
-        default: return strided_run<0, OutT>(P, s, s_k, stages);
+        case 4: return strided_run<4, OutT, SrcT, SCAN>(P, s, s_k, stages, valid);
+        case 8: return strided_run<8, OutT, SrcT, SCAN>(P, s, s_k, stages, valid);
+        case 12: return strided_run<12, OutT, SrcT, SCAN>(P, s, s_k, stages, valid);
+        case 16: return strided_run<16, OutT, SrcT, SCAN>(P, s, s_k, stages, valid);
+        case 20: return strided_run<20, OutT, SrcT, SCAN>(P, s, s_k, stages, valid);
+        case 24: return strided_run<24, OutT, SrcT, SCAN>(P, s, s_k, stages, valid);
+        case 28: return strided_run<28, OutT, SrcT, SCAN>(P, s, s_k, stages, valid);
+        case 32: return strided_run<32, OutT, SrcT, SCAN>(P, s, s_k, stages, valid);
+        case 36: return strided_run<36, OutT, SrcT, SCAN>(P, s, s_k, stages, valid);
+        case STRIDED_MAX_UNROLL:
+            return strided_run<STRIDED_MAX_UNROLL, OutT, SrcT, SCAN>(P, s, s_k, stages, valid);
+        default: return strided_run<0, OutT, SrcT, SCAN>(P, s, s_k, stages, valid);
     }
 }
 
 // Persistent grid (persistent_grid, mac_common.cuh), at most one block per tile.
-template <typename OutT>
+template <typename OutT, typename SrcT = int32_t, bool SCAN = false>
 int launch_strided(const StridedParams& P, int device, cudaStream_t stream) {
     static PersistentGrid cache;
-    const int smem = strided_shared_ints(P.T, P.W) * static_cast<int>(sizeof(int));
+    const int smem = strided_shared_ints<SrcT>(P.T, P.W) * static_cast<int>(sizeof(int));
     int blocks = 0;
-    const int err = persistent_grid(cache, strided_mac_kernel<OutT>, STRIDED_THREADS, smem,
-                                    device, &blocks);
+    const int err = persistent_grid(cache, strided_mac_kernel<OutT, SrcT, SCAN>, STRIDED_THREADS,
+                                    smem, device, &blocks);
     if (err != 0) return err;
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
     const long long tiles = static_cast<long long>(lane_tiles) * ((P.N + P.F - 1) / P.F);
     const int grid = static_cast<int>(std::min<long long>(tiles, blocks));
-    strided_mac_kernel<OutT><<<grid, STRIDED_THREADS, smem, stream>>>(P);
+    strided_mac_kernel<OutT, SrcT, SCAN><<<grid, STRIDED_THREADS, smem, stream>>>(P);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -325,6 +367,33 @@ int crt_strided_mac(const int* x, int S, int L, int lane_offset, int lanes, cons
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return clamp_s16 ? launch_strided<int16_t>(P, device, s)
                      : launch_strided<int32_t>(P, device, s);
+}
+
+// One step of the whole-stream scan with the strided engine, in scan mode:
+// window row i is row src_first + i of the (K * n_in, L) stream at src
+// (int16 when src_s16, else int32) when that row lies in [0, src_end), else
+// 0; S is the rows of the staged buffer the step stands for (2r + n_in +
+// taps + 8: clamped windows stay put); state_in (2,) is the step's (p, f)
+// and its launch state; the step's N frames go to out (N, L) int32, zero
+// from produced on, and produced, over and the next state to their
+// pointers. copy is a SCAN_COPY_* path, vec 1 when out's rows take 16-byte
+// stores. Returns a cudaError_t.
+int crt_strided_scan(const void* src, int src_s16, long long src_first, long long src_end,
+                     int n_in, int S, int L, int copy, int vec, const int* state_in,
+                     const int* inc_hi, const int* inc_lo, const int* radius, const int* delta,
+                     const int* int_radius, const int* step, const int* table, int table_size,
+                     int N, int T, int d, int frames_per_tile, int win_rows, void* out,
+                     int* produced, int* over, int* state_out, int device, void* stream) {
+    const DeviceGuard guard(device);
+    if (guard.err != 0) return guard.err;
+    const GeometryArgs geo{state_in, 0, state_in + 1, 0, inc_hi, inc_lo,
+                           radius, delta, int_radius, step};
+    const StridedParams P{nullptr, S, L, 0, L, geo, {table, table_size, nullptr, 0, T},
+                          N, T, d, frames_per_tile, win_rows, vec, out, nullptr, nullptr, 0,
+                          {src, src_first, src_end, copy, n_in, N, 0, produced, over, state_out}};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return src_s16 ? launch_strided<int32_t, int16_t, true>(P, device, s)
+                   : launch_strided<int32_t, int32_t, true>(P, device, s);
 }
 
 }  // extern "C"

@@ -44,6 +44,19 @@
 // Geometry (read_geometry, frame_window, the masked LUT taps) is computed
 // inside both kernels from the launch state and ConfigScalars by pointer: no
 // host sync and no precompute launch.
+//
+// Scan mode (SCAN, the C entry crt_wide_scan): a launch of a step of the
+// whole-stream scan with the wide engine (lowlevel.ScanProgram; one launch a
+// step unless n_out passes wide_launch_frames), in place of the engine's
+// Pallas kernels and the staging, bookkeeping and halo slice XLA compiles
+// around them in the JAX scan (clownresampler_tpu/lowlevel.py:378-412). Each
+// run's rows come from the (K, n_in, L) chunks read as one stream
+// (mac_common.cuh load_stream_rows), int16 when the chunks are, so a run
+// takes 16 KB of shared memory; wide_compute widens them at the tap. Both
+// kernels derive the launch's state from the step's state and the launch's
+// frame offset and the step's produced count (scan_launch), so no launch
+// reads a count that another block of it writes, and no staged buffer or
+// launch-state array exists.
 
 #include <algorithm>
 
@@ -69,6 +82,7 @@ struct WideParams {
     int* rows_out;                    // null: the rows are not written
     const int* n_valid;               // frames from *n_valid - frame_offset on are stored
     int frame_offset;                 // as 0 (valid_frames); null: every frame is kept
+    ScanSource scan;                  // scan mode only (x null, S the staged buffer's rows)
 };
 
 // The launch's input span: runs of WIDE_RUN_ROWS rows from a0, the first
@@ -112,15 +126,19 @@ __device__ __forceinline__ int2 wide_run_frames(const WideParams& P, const Launc
 }
 
 // The MACs of one item: run `run` (rows [b0, b0 + WIDE_RUN_ROWS)) x lanes
-// [lane0, lane0 + TILE_LANES), its rows staged in `win`. Warp w takes the
+// [lane0, lane0 + TILE_LANES), its rows staged in `win` (int32 rows of x, or
+// the scan's int16 or int32 stream rows, widened a quad at a time as a tap
+// reads them). Warp w takes the
 // frames n_lo + w, n_lo + w + 8, ... < n_hi; its 32 threads read the frame's
 // taps j0 .. j1 - 1 from the LUT at once into the warp's `warp_taps` row,
 // and the tap loop reads them 4 at a time as a broadcast. The items of lane
 // tile 0 also write each slot's sum of taps. Frames from `valid` on
-// (valid_frames) are left out: the fold stores them as 0 and reads no slot.
+// (valid_frames; in scan mode the step's produced count) are left out: the
+// fold stores them as 0 and reads no slot.
+template <typename SrcT>
 __device__ __forceinline__ void wide_compute(const WideParams& P, const LaunchGeometry& g,
                                              const WideSpan& s, int run, int lane0,
-                                             int2 frames, const int* win, int* warp_taps,
+                                             int2 frames, const SrcT* win, int* warp_taps,
                                              int valid) {
     const int tx = threadIdx.x & 31;
     const int lane = lane0 + 4 * tx;
@@ -142,10 +160,11 @@ __device__ __forceinline__ void wide_compute(const WideParams& P, const LaunchGe
             tsum += k;
         }
         __syncwarp();
-        const int4* wp = reinterpret_cast<const int4*>(win) + (row + j0 - b0) * TILE_COLS + tx;
+        const auto* wp = reinterpret_cast<const typename Quad<SrcT>::type*>(win) +
+                         (row + j0 - b0) * TILE_COLS + tx;
         int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
         const auto tap = [&](int t, int k) {
-            const int4 v = wp[t * TILE_COLS];
+            const int4 v = Quad<SrcT>::widen(wp[t * TILE_COLS]);
             a0 = macc_trunc(a0, v.x, k);
             a1 = macc_trunc(a1, v.y, k);
             a2 = macc_trunc(a2, v.z, k);
@@ -184,27 +203,40 @@ __device__ __forceinline__ void wide_compute(const WideParams& P, const LaunchGe
 // stages: while a block computes one run, the copy of its next run's rows is
 // in flight (cp.async), and one thread of the last warp (the warp least
 // often given a frame) finds the next run's frames. One barrier per item.
+// SrcT and SCAN: the runs' rows are int32 rows of x (SCAN false: the wide
+// entry), or the scan's int16 or int32 stream rows (a launch of a wide scan
+// step: its launch state comes from the step's state and its frame offset,
+// and block 0 of the step's offset-0 launch writes the step's bookkeeping;
+// scan_launch).
+template <typename SrcT, bool SCAN>
 __global__ void __launch_bounds__(WIDE_THREADS)
 wide_mac_kernel(const WideParams P) {
     extern __shared__ int4 smem4[];
     __shared__ int2 s_frames[2];
     __shared__ __align__(16) int s_taps[WIDE_WARPS * WIDE_RUN_ROWS];
     int* const smem = reinterpret_cast<int*>(smem4);
-    const LaunchGeometry g = read_geometry(P.geo);
+    LaunchGeometry g = read_geometry(P.geo);
+    const int valid = SCAN ? scan_launch(P.scan, g, blockIdx.x == 0 && threadIdx.x == 0)
+                           : valid_frames(P.n_valid, P.frame_offset);
     const WideSpan s = wide_span(P, g);
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
     const int items = s.runs * lane_tiles;
     const bool finder = threadIdx.x == WIDE_THREADS - 32;
-    const int valid = valid_frames(P.n_valid, P.frame_offset);
     int item = blockIdx.x;
     if (item >= items) return;
-    auto win = [&](int b) { return smem + b * WIDE_RUN_ROWS * TILE_LANES; };
-    auto load = [&](int it, int* w) {
+    auto win = [&](int b) {
+        return reinterpret_cast<SrcT*>(smem + b * window_ints<SrcT>(WIDE_RUN_ROWS));
+    };
+    auto load = [&](int it, SrcT* w) {
         const int run = it / lane_tiles;
         const int b0 = s.a0 + run * WIDE_RUN_ROWS;
-        load_rows_async<WIDE_THREADS>(P.x, P.L, P.lane_offset, P.lanes, P.vec, b0,
-                                      min(WIDE_RUN_ROWS, P.S - b0),
-                                      (it - run * lane_tiles) * TILE_LANES, w);
+        const int rows = min(WIDE_RUN_ROWS, P.S - b0), lane0 = (it - run * lane_tiles) * TILE_LANES;
+        if constexpr (SCAN) {
+            load_stream_rows<WIDE_THREADS>(P.scan, P.L, P.scan.first + b0, rows, lane0, w);
+        } else {
+            load_rows_async<WIDE_THREADS>(P.x, P.L, P.lane_offset, P.lanes, P.vec, b0, rows,
+                                          lane0, w);
+        }
     };
 
     load(item, win(0));
@@ -230,20 +262,23 @@ wide_mac_kernel(const WideParams P) {
 // grid (ceil(lanes / WIDE_FOLD_THREADS), N): out[n][l] = finish(mul_shift15(
 // sum of frame n's slots, q[n])), q[n] the reciprocal of the sum of its
 // slots' tap sums (its live taps); rows_out[n] its unclamped row (when the
-// caller wants it). A frame from valid_frames on is stored as 0, its slots
-// unread.
-template <typename OutT>
+// caller wants it). A frame from valid_frames on (in scan mode the step's
+// produced count, which the fold works out as the MAC kernel does) is stored
+// as 0, its slots unread.
+template <typename OutT, bool SCAN>
 __global__ void __launch_bounds__(WIDE_FOLD_THREADS)
 wide_fold_kernel(const WideParams P) {
     const int n = blockIdx.y;
     const int l = blockIdx.x * WIDE_FOLD_THREADS + threadIdx.x;
-    const LaunchGeometry g = read_geometry(P.geo);
+    LaunchGeometry g = read_geometry(P.geo);
+    const int valid = SCAN ? scan_launch(P.scan, g, false)
+                           : valid_frames(P.n_valid, P.frame_offset);
     const WideSpan s = wide_span(P, g);
     const FrameWindow w = frame_window(g, n);
     if (blockIdx.x == 0 && threadIdx.x == 0 && P.rows_out) P.rows_out[n] = w.row;
     if (l >= P.lanes) return;
     OutT* const o = static_cast<OutT*>(P.out) + static_cast<size_t>(n) * P.lanes + l;
-    if (n >= valid_frames(P.n_valid, P.frame_offset)) {
+    if (n >= valid) {
         *o = 0;
         return;
     }
@@ -280,21 +315,22 @@ wide_fold_kernel(const WideParams P) {
 // The MAC kernel on a persistent grid (persistent_grid, mac_common.cuh), at
 // most one block per item of the span bound `runs_bound` (the kernel walks
 // the span it computes, whatever the bound), then the fold.
-template <typename OutT>
+template <typename OutT, typename SrcT = int32_t, bool SCAN = false>
 int launch_wide(const WideParams& P, int runs_bound, int device, cudaStream_t stream) {
     static PersistentGrid cache;
-    const int smem = 2 * WIDE_RUN_ROWS * TILE_LANES * static_cast<int>(sizeof(int));
+    const int smem = 2 * window_ints<SrcT>(WIDE_RUN_ROWS) * static_cast<int>(sizeof(int));
     int blocks = 0;
-    int err = persistent_grid(cache, wide_mac_kernel, WIDE_THREADS, smem, device, &blocks);
+    int err = persistent_grid(cache, wide_mac_kernel<SrcT, SCAN>, WIDE_THREADS, smem, device,
+                              &blocks);
     if (err != 0) return err;
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
     const long long items = static_cast<long long>(lane_tiles) * runs_bound;
     const int grid = static_cast<int>(std::max<long long>(1, std::min<long long>(items, blocks)));
-    wide_mac_kernel<<<grid, WIDE_THREADS, smem, stream>>>(P);
+    wide_mac_kernel<SrcT, SCAN><<<grid, WIDE_THREADS, smem, stream>>>(P);
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
     const dim3 fold_grid((P.lanes + WIDE_FOLD_THREADS - 1) / WIDE_FOLD_THREADS, P.N);
-    wide_fold_kernel<OutT><<<fold_grid, WIDE_FOLD_THREADS, 0, stream>>>(P);
+    wide_fold_kernel<OutT, SCAN><<<fold_grid, WIDE_FOLD_THREADS, 0, stream>>>(P);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -319,6 +355,37 @@ int crt_wide_mac(const int* x, int S, int L, int lane_offset, int lanes, const i
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return clamp_s16 ? launch_wide<int16_t>(P, runs_bound, device, s)
                      : launch_wide<int32_t>(P, runs_bound, device, s);
+}
+
+// One launch of a step of the whole-stream scan with the wide engine, in scan
+// mode: frames [frame_offset, frame_offset + N) of the step's n_out. Window
+// row i is row src_first + i of the (K * n_in, L) stream at src (int16 when
+// src_s16, else int32) when that row lies in [0, src_end), else 0; S is the
+// rows of the staged buffer the step stands for (2r + n_in + taps + 8);
+// state_in (2,) is the step's (p, f), from which each kernel derives the
+// launch's state at frame_offset; the launch's frames go to out (N, L)
+// int32, zero from the step's produced count on, and the offset-0 launch
+// writes produced, over and the next state. partial and tap_sums as for
+// crt_wide_mac; copy is a SCAN_COPY_* path, vec 1 when L is a multiple of 4
+// and partial 16-byte aligned. Returns a cudaError_t.
+int crt_wide_scan(const void* src, int src_s16, long long src_first, long long src_end,
+                  int n_in, int S, int L, int copy, int vec, const int* state_in,
+                  const int* inc_hi, const int* inc_lo, const int* radius, const int* delta,
+                  const int* int_radius, const int* step, const int* table, int table_size,
+                  const int* tstr, int tstr_rows, int N, int T, int K, int runs_bound,
+                  int n_out, int frame_offset, int* partial, int* tap_sums, void* out,
+                  int* produced, int* over, int* state_out, int device, void* stream) {
+    const DeviceGuard guard(device);
+    if (guard.err != 0) return guard.err;
+    const GeometryArgs geo{state_in, 0, state_in + 1, 0, inc_hi, inc_lo,
+                           radius, delta, int_radius, step};
+    const WideParams P{nullptr, S, L, 0, L, geo, {table, table_size, tstr, tstr_rows, T},
+                       N, T, K, vec, partial, tap_sums, out, nullptr, nullptr, 0,
+                       {src, src_first, src_end, copy, n_in, n_out, frame_offset, produced, over,
+                        state_out}};
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return src_s16 ? launch_wide<int32_t, int16_t, true>(P, runs_bound, device, s)
+                   : launch_wide<int32_t, int32_t, true>(P, runs_bound, device, s);
 }
 
 }  // extern "C"

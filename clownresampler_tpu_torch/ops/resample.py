@@ -467,15 +467,17 @@ def strided_frame_geometry(table, state, *, max_taps: int, n_out: int, d: int, s
 
 
 @functools.lru_cache(maxsize=None)
-def strided_stage_plan(d: int, max_taps: int) -> tuple:
-    """(frames per tile, staged window rows) of a strided launch: the first
-    of STRIDED_STAGE_FRAMES whose window of (F - 1)*d + max_taps rows fits
-    two stages in STRIDED_SHARED_BUDGET, else the first within the card's
-    limit, else 8 frames reading x directly (0 rows)."""
+def strided_stage_plan(d: int, max_taps: int, elem_bytes: int = 4) -> tuple:
+    """(frames per tile, staged window rows) of a strided launch whose
+    window rows are ``elem_bytes``-byte samples (int32 rows of x; a scan
+    step's int16 or int32 stream rows, which take that much shared memory):
+    the first of STRIDED_STAGE_FRAMES whose window of (F - 1)*d + max_taps
+    rows fits two stages in STRIDED_SHARED_BUDGET, else the first within the
+    card's limit, else 8 frames reading x directly (0 rows)."""
     for budget in (STRIDED_SHARED_BUDGET, _build.MAX_SHARED_BYTES):
         for frames in STRIDED_STAGE_FRAMES:
             rows = (frames - 1) * d + max_taps
-            if _build.strided_shared_bytes(max_taps, rows) <= budget:
+            if _build.strided_shared_bytes(max_taps, rows, elem_bytes) <= budget:
                 return frames, rows
     return STRIDED_STAGE_FRAMES[-1], 0
 
@@ -675,8 +677,8 @@ def entry_launch_args(kind: str, table, x, state, *, d: int, cand, max_taps: int
     """(C entry, its arguments by name without the outputs') of the launch
     that the ``kind`` entry ("tiled", "general", "strided" or "wide") makes
     on a card over all of x's lanes, checked as the entry checks it, for a
-    caller that repeats the launch with other pointers (the whole-stream
-    scan). ``partial`` is the wide launch's scratch
+    caller that repeats the launch with other pointers (a farm's program).
+    ``partial`` is the wide launch's scratch
     (_build.wide_scratch_ints)."""
     _check_x(x)
     if n_out % FRAMES_PER_TILE:

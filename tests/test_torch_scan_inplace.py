@@ -9,9 +9,11 @@ numpy seed, this file holds the plain versions of that step
 (``scan_stream_rows_reference``, ``scan_inplace_step_reference``) and the
 program with its C entry stood in against the JAX package's
 ``resample_scan_fused`` (Pallas in interpret mode) and the staged plain
-version (``scan_stage_reference`` + the engine), with exact equality of
-outputs, produced, backlog and the final state. The ``cuda`` tests run the
-kernel against its plain version on a card.
+version (a staged [halo | chunk] buffer + the engine), with exact equality
+of outputs, produced, backlog and the final state. The ``cuda`` tests run
+the kernel against its plain version on a card. The strided and wide
+engines' scan modes have theirs in
+tests/test_torch_scan_inplace_strided_wide.py.
 """
 
 import numpy as np
@@ -27,7 +29,6 @@ from clownresampler_tpu_torch.lowlevel import (
     resample_scan_fused,
     scan_inplace_step,
     scan_inplace_step_reference,
-    scan_stage_reference,
     scan_stream_rows_reference,
 )
 from clownresampler_tpu_torch.models import DEFAULT_MODEL, table_tensor
@@ -178,8 +179,8 @@ def test_torch_scan_stream_rows_are_the_staged_buffer():
 
 
 def _kernel_step_int64(p, f, inc, n_in, n_out):
-    """resample_kernels.cu scan_step in exact integers, C truncating
-    division: (produced, over, next state)."""
+    """mac_common.cuh scan_launch's bookkeeping in exact integers, C
+    truncating division: (produced, over, next state)."""
     num = (n_in - p) * 65536 - f
     natural = (num + inc - 1) // max(inc, 1) if num > 0 else 0   # num, inc > 0: floor = trunc
     produced = min(natural, n_out)
@@ -191,8 +192,9 @@ def _kernel_step_int64(p, f, inc, n_in, n_out):
 @pytest.mark.parametrize("seed", range(5))
 def test_torch_scan_inplace_bookkeeping_equals_int64_form(seed):
     """100 random states a seed over the domain the scan admits: the
-    kernel's folded bookkeeping (int64) equals scan_stage_reference's and
-    the int64 form of scan_stage_kernel's, and the plain step returns it."""
+    kernel's folded bookkeeping (int64) equals the staged plain version's
+    int64 form and the port's int32 step scalars (lowlevel._step_scalars,
+    which the plain step returns)."""
     rng = np.random.default_rng(950 + seed)
     for trial in range(100):
         n_in = int(rng.integers(1, 1 << 14))
@@ -206,11 +208,12 @@ def test_torch_scan_inplace_bookkeeping_equals_int64_form(seed):
         assert want == (staged[0], staged[1], staged[3])
         cfg = ConfigScalars.from_fields((0, 0, 0, 0, inc & 0x7FFFFFFF, *fx.split_increment(inc)),
                                         "cpu")
-        _, produced, over, _, nxt = scan_stage_reference(
-            torch.zeros((n_in + 2, 1), dtype=torch.int32),
-            torch.zeros((n_in, 1), dtype=torch.int16),
-            torch.tensor([p, f], dtype=torch.int32), cfg, radius=1, n_out=n_out)
-        assert (int(produced), int(over), nxt.tolist()) == want, (p, f, inc, n_in, n_out)
+        natural, produced, nxt = lowlevel._step_scalars(
+            torch.tensor(p, dtype=torch.int32), torch.tensor(f, dtype=torch.int32), cfg, n_in,
+            n_out)
+        assert all(t.dtype == torch.int32 for t in (natural, produced, nxt))
+        assert (int(produced), int(natural > n_out), nxt.tolist()) == want, (p, f, inc, n_in,
+                                                                             n_out)
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +308,7 @@ def test_torch_scan_stage_plan_sizes_each_stage_to_its_window(engine):
 
 def test_torch_scan_inplace_step_on_the_cpu_is_the_plain_version():
     """On CPU tensors scan_inplace_step is its plain version, counted as
-    such; a strided or wide engine is refused."""
+    such under its engine's scan route, for every engine."""
     c = _case(ENGINES["general"], lanes=4, n_in=64, k=2, seed=307)
     chunks = torch.from_numpy(c["chunks"])
     state = torch.tensor([c["r"] + 1, 0x4444], dtype=torch.int32)
@@ -316,11 +319,16 @@ def test_torch_scan_inplace_step_on_the_cpu_is_the_plain_version():
     want = scan_inplace_step_reference(c["table"], chunks, 1, state, c["state"].cfg, **kw)
     for g, w in zip(got, want):
         assert g.dtype == torch.int32 and torch.equal(g, w)
-    s = _case(ENGINES["strided"], lanes=4, n_in=64, k=1)
-    with pytest.raises(ValueError, match="stages its steps"):
-        scan_inplace_step_reference(s["table"], torch.from_numpy(s["chunks"]), 0, state,
-                                    s["state"].cfg, radius=s["r"], max_taps=s["taps"],
-                                    n_out=s["n_out"], increment=s["inc"])
+    for engine in ("strided", "wide"):
+        s = _case(ENGINES[engine], lanes=4, n_in=512, k=1)
+        kw = dict(radius=s["r"], max_taps=s["taps"], n_out=s["n_out"], increment=s["inc"])
+        args = (s["table"], torch.from_numpy(s["chunks"]), 1,
+                torch.tensor([s["r"] + 3, 0x1357], dtype=torch.int32), s["state"].cfg)
+        rs.ROUTES.clear()
+        got = scan_inplace_step(*args, **kw)
+        assert rs.ROUTES == {(lowlevel.SCAN_ROUTES[engine], "reference"): 1}
+        for g, w in zip(got, scan_inplace_step_reference(*args, **kw)):
+            assert g.dtype == torch.int32 and torch.equal(g, w)
 
 
 def test_torch_tiled_scan_launcher_refuses_what_the_kernel_cannot_take():
@@ -410,4 +418,4 @@ def test_torch_cuda_scan_inplace_program_matches_reference(cuda_device, engine):
     _assert_same(got, _reference(c), engine)
     program = ScanProgram(c["table"], chunks, c["state"], max_taps=c["taps"], n_out=c["n_out"],
                           radius=c["r"], increment=c["inc"], table_strided=c["tstr"])
-    assert program.inplace and not hasattr(program, "buffers")
+    assert program.kind == engine and not hasattr(program, "buffers")

@@ -1,25 +1,25 @@
 """The port's whole-stream scan as one device program vs the JAX package.
 
-On a card ``resample_scan_fused`` is a ``ScanProgram``: per step one
-scan-mode launch of tiled_mac_kernel for the tiled and general engines (the
-window read from the chunks in place, the bookkeeping folded in; its own
-tests are in tests/test_torch_scan_inplace.py), else one launch of
-scan_stage_kernel (stage + bookkeeping) and the engine's launches, which
-mask the frames past ``produced`` in their stores. On the CPU, with inputs
-made from a numpy seed, this file holds against the JAX package's
+On a card ``resample_scan_fused`` is a ``ScanProgram``: per step the
+engine's scan-mode launch -- tiled_mac_kernel for the tiled and general
+engines, strided_mac_kernel, wide_mac_kernel and its fold once per launch
+offset --, which reads its window from the chunks in place, works out the
+step's bookkeeping and masks the frames past ``produced`` in its stores (the
+scan modes' own tests are in tests/test_torch_scan_inplace.py and
+tests/test_torch_scan_inplace_strided_wide.py). On the CPU, with inputs made
+from a numpy seed, this file holds against the JAX package's
 ``resample_scan_fused`` (Pallas in interpret mode, as tests/test_scan.py runs
 it), with exact equality of outputs, produced, state and backlog:
 
 * ``resample_scan_fused_reference`` (the plain version, a loop of torch ops);
-* a step-by-step composition of ``scan_stage_reference`` and the engines'
-  plain versions with ``n_valid`` -- what the kernels compute, piece by piece;
+* a step-by-step composition of a staged [halo | chunk] buffer, the
+  bookkeeping in exact integers and the engines' plain versions with
+  ``n_valid`` -- what the kernels compute, piece by piece;
 * ``ScanProgram`` itself with its C entries stood in by functions that read
   and write the same pointers, so the argument lists it builds (every
   per-step pointer) are exercised without a card.
 
-The bookkeeping alone (an int64 form, as the kernel computes it) is held
-against the port's int32 functions on seeded random states. The ``cuda``
-tests run the kernels against the plain versions on a card.
+The ``cuda`` tests run the kernels against the plain versions on a card.
 """
 
 import ctypes
@@ -44,8 +44,6 @@ from clownresampler_tpu_torch.lowlevel import (
     resample_scan_fused,
     resample_scan_fused_reference,
     resample_scan_tiled,
-    scan_stage,
-    scan_stage_reference,
 )
 from clownresampler_tpu_torch.models import DEFAULT_MODEL, table_tensor
 from clownresampler_tpu_torch.ops import _build
@@ -57,16 +55,16 @@ ENGINES = {"tiled": (48000, 44100), "strided": (96000, 48000), "general": (44100
 
 
 def _case(rates, *, lanes=128, n_in=256, k=2, seed=81, dtype=np.int16, f0=0, flush=True,
-          n_out=None, device="cpu"):
+          n_out=None, device="cpu", taps=None):
     """K random chunks (and a zero chunk, the flush), the geometry, and both
-    packages' initial states."""
+    packages' initial states; ``taps`` a reserve other than the radius's."""
     cfg = configure(*rates, max(rates))
     inc = fx.calculate_ratio(*rates)
     r = cfg.integer_stretched_kernel_radius
     data = np.random.default_rng(seed).integers(-32768, 32768, size=(k, n_in, lanes))
     if flush:
         data = np.concatenate([data, np.zeros((1, n_in, lanes), data.dtype)])
-    taps = fx.round_up(2 * r, 8)
+    taps = taps or fx.round_up(2 * r, 8)
     dev = torch.device(device)
     return dict(
         rates=rates, chunks=data.astype(dtype), inc=inc, r=r, taps=taps, cfg=cfg,
@@ -119,34 +117,37 @@ ENGINE_REFERENCES = {
 }
 
 
-def _composed(c, stage=scan_stage_reference):
-    """The scan as the device program runs it, in plain versions: per step
-    ``stage`` into one of two buffers whose tail rows stay zero, then the
-    engine's plain version per launch offset with ``n_valid``."""
+def _composed(c):
+    """The scan as the device program's kernels compute it, piece by piece,
+    in plain versions: per step [halo | chunk widened] staged into one of two
+    buffers whose tail rows stay zero (the halo from the other buffer, as the
+    JAX scan slices it), the bookkeeping and each launch's state in exact
+    integers (_bookkeeping_int64), then the engine's plain version per launch
+    offset with ``n_valid``."""
     kind, d, cand, step = lowlevel._scan_engine(c["inc"], c["taps"], c["n_out"])
     chunks = torch.from_numpy(c["chunks"]).to(c["device"])
     k, n_in, lanes = chunks.shape
     r, n_out, cfg = c["r"], c["n_out"], c["state"].cfg
     buffers = torch.zeros((2, 2 * r + n_in + c["taps"] + 8, lanes), dtype=torch.int32,
                           device=c["device"])
-    state = torch.stack([c["state"].position_integer + r, c["state"].position_fractional])
+    p, f = int(c["state"].position_integer) + r, int(c["state"].position_fractional)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=c["device"])
     outs, produced, over = [], [], []
     for s in range(k):
         cur, prev = buffers[s % 2], buffers[(s + 1) % 2]
-        rows, prod, ov, launch_states, state = stage(
-            prev, chunks[s], state, cfg, radius=r, n_out=n_out, launch_step=step)
-        cur[: 2 * r + n_in] = rows
+        cur[: 2 * r + n_in] = torch.cat([prev[n_in : n_in + 2 * r], chunks[s].to(torch.int32)])
         assert not cur[2 * r + n_in :].any()
+        prod, ov, launch_states, (p, f) = _bookkeeping_int64(p, f, c["inc"], n_in, n_out, step)
         outs.append(torch.cat([
             ENGINE_REFERENCES[kind](
-                c["table"], cur, DeviceState(launch_states[i, 0], launch_states[i, 1], cfg),
-                d, cand, c["tstr"], max_taps=c["taps"], n_out=min(step, n_out - o),
-                n_valid=prod, frame_offset=o)[0]
-            for i, o in enumerate(range(0, n_out, step))]))
-        produced.append(prod)
-        over.append(ov)
+                c["table"], cur, DeviceState(i32(p0), i32(f0), cfg), d, cand, c["tstr"],
+                max_taps=c["taps"], n_out=min(step, n_out - o), n_valid=i32(prod),
+                frame_offset=o)[0]
+            for (p0, f0), o in zip(launch_states, range(0, n_out, step))]))
+        produced.append(i32(prod))
+        over.append(bool(ov))
     return _plain((torch.stack(outs), torch.stack(produced),
-                   DeviceState(state[0] - r, state[1], cfg), torch.stack(over).any()))
+                   DeviceState(i32(p - r), i32(f), cfg), any(over)))
 
 
 def _assert_same(got, want, what):
@@ -220,8 +221,9 @@ def test_torch_scan_program_chunks_shorter_than_the_halo_match_jax_fused(engine,
 # ---------------------------------------------------------------------------
 
 def _bookkeeping_int64(p, f, inc, n_in, n_out, step):
-    """scan_kernels.cu scan_bookkeeping in exact integers: (produced, over,
-    launch states, next state)."""
+    """A scan step's bookkeeping in exact integers, as the scan-mode kernels
+    compute it (mac_common.cuh scan_launch) for launches at frame offsets 0,
+    step, ...: (produced, over, the launches' states, next state)."""
     num = ((n_in - p) << 16) - f
     natural = (num + inc - 1) // max(inc, 1) if num > 0 else 0
     produced = min(natural, n_out)
@@ -237,56 +239,6 @@ def _bookkeeping_int64(p, f, inc, n_in, n_out, step):
 
 RATIOS = [(48000, 44100), (44100, 48000), (8000, 44100), (96000, 48000), (44100, 8000),
           (44100, 1000), (192000, 44100), (44100, 262)]
-
-
-@pytest.mark.parametrize("seed", range(5))
-def test_torch_scan_stage_reference_bookkeeping_equals_int64_form(seed):
-    """100 random states a seed over the domain the scan admits (n_in < 2^14,
-    n_out <= 2^14, fractions below 2^16, real and random increments): the
-    port's int32 functions equal the int64 form bit for bit."""
-    rng = np.random.default_rng(900 + seed)
-    for trial in range(100):
-        n_in = int(rng.integers(1, 1 << 14))
-        n_out = 8 * int(rng.integers(1, (1 << 14) // 8 + 1))
-        step = n_out if trial % 3 else 8 * int(rng.integers(1, n_out // 8 + 1))
-        inc = (fx.calculate_ratio(*RATIOS[trial % len(RATIOS)]) if trial % 2
-               else int(rng.integers(1, 1 << 28)))
-        p = int(rng.integers(0, 2 * n_in + 40)) if trial % 5 else int(rng.integers(0, 40))
-        f = int(rng.integers(0, 1 << 16))
-        cfg = ConfigScalars.from_fields((0, 0, 0, 0, inc & 0x7FFFFFFF, *fx.split_increment(inc)),
-                                        "cpu")
-        _, produced, over, launch_states, nxt = scan_stage_reference(
-            torch.zeros((n_in + 2, 1), dtype=torch.int32),
-            torch.zeros((n_in, 1), dtype=torch.int16),
-            torch.tensor([p, f], dtype=torch.int32), cfg, radius=1, n_out=n_out,
-            launch_step=step)
-        want = _bookkeeping_int64(p, f, inc, n_in, n_out, step)
-        got = (int(produced), int(over), launch_states.tolist(), nxt.tolist())
-        assert got == want, (p, f, inc, n_in, n_out, step)
-        assert all(t.dtype == torch.int32 for t in (produced, over, launch_states, nxt))
-
-
-def test_torch_scan_stage_reference_rows_and_route():
-    """The staged rows are [rows [n_in, n_in + 2r) of the previous buffer |
-    chunk widened]; on the CPU ``scan_stage`` is the plain version, counted
-    as such, and writes into ``out`` when given."""
-    rng = np.random.default_rng(7)
-    r, n_in, lanes = 5, 6, 3
-    prev = torch.from_numpy(rng.integers(-9, 9, size=(2 * r + n_in + 4, lanes)).astype(np.int32))
-    chunk = torch.from_numpy(rng.integers(-32768, 32768, size=(n_in, lanes)).astype(np.int16))
-    cfg = make_device_state(0, 0, configure(44100, 8000, 44100),
-                            fx.calculate_ratio(44100, 8000), "cpu").cfg
-    state = torch.tensor([r, 77], dtype=torch.int32)
-    rs.ROUTES.clear()
-    out = torch.full_like(prev, -1)
-    got = scan_stage(prev, chunk, state, cfg, radius=r, n_out=8, out=out)
-    want = scan_stage_reference(prev, chunk, state, cfg, radius=r, n_out=8)
-    assert rs.ROUTES == {("scan_stage", "reference"): 1}
-    for g, w in zip(got, want):
-        assert g.dtype == torch.int32 and torch.equal(g, w)
-    assert torch.equal(got[0][: 2 * r], prev[n_in : n_in + 2 * r])
-    assert torch.equal(got[0][2 * r :], chunk.to(torch.int32))
-    assert torch.equal(out[: 2 * r + n_in], got[0]) and (out[2 * r + n_in :] == -1).all()
 
 
 @pytest.mark.parametrize("engine", list(ENGINES))
@@ -330,29 +282,6 @@ def _tensor(ptr, shape, dtype=np.int32):
     return torch.from_numpy(_view(ptr, shape, dtype))
 
 
-def _stage_stand_in(calls):
-    """crt_scan_stage over the same pointers: the copy in numpy, the
-    bookkeeping in exact integers."""
-    def entry(*args):
-        a = dict(zip(_build.ENTRY_ARGS["crt_scan_stage"], args))
-        calls.append(("crt_scan_stage", a))
-        n_in, halo, lanes = a["n_in"], a["halo_rows"], a["L"]
-        cur = _view(a["cur"], (halo + n_in, lanes))
-        cur[:halo] = _view(a["prev"], (halo + n_in, lanes))[n_in:]
-        cur[halo:] = _view(a["chunk"], (n_in, lanes), np.int16 if a["chunk_s16"] else np.int32)
-        p, f = (int(v) for v in _view(a["state_in"], (2,)))
-        inc = (int(_view(a["inc_hi"], ())) << 16) + int(_view(a["inc_lo"], ()))
-        produced, over, launch_states, nxt = _bookkeeping_int64(
-            p, f, inc, n_in, a["n_out"], a["launch_step"])
-        assert len(launch_states) == a["launches"]
-        _view(a["produced"], ())[...] = produced
-        _view(a["over"], ())[...] = over
-        _view(a["launch_states"], (a["launches"], 2))[...] = launch_states
-        _view(a["state_out"], (2,))[...] = nxt
-        return 0
-    return entry
-
-
 def _cfg_at(a):
     """The ConfigScalars a C entry's arguments ``a`` point at."""
     scalar = lambda key: _tensor(a[key], ())
@@ -364,65 +293,54 @@ def _cfg_at(a):
         increment_lo=scalar("inc_lo"))
 
 
-def _tiled_scan_stand_in(calls):
-    """crt_tiled_scan (tiled_mac_kernel's scan mode) over the same pointers:
-    the window from stream rows [max(src_first, 0), src_end) only -- nothing
-    before the stream or past the step's chunk is read --, zeros elsewhere
-    in its S rows; the bookkeeping in exact integers; the engine's plain
-    version with n_valid, written to the output pointer."""
+SCAN_ENTRIES = ("crt_tiled_scan", "crt_strided_scan", "crt_wide_scan")
+
+
+def _scan_stand_in(name, calls):
+    """A scan-mode C entry over the same pointers: the window from stream
+    rows [max(src_first, 0), src_end) only -- nothing before the stream or
+    past the step's chunk is read --, zeros elsewhere in its S rows; the
+    bookkeeping in exact integers, written by the step's offset-0 launch
+    only; the launch's state at its frame offset; the engine's plain version
+    with n_valid, written to the output pointer."""
     def entry(*args):
-        a = dict(zip(_build.ENTRY_ARGS["crt_tiled_scan"], args))
-        calls.append(("crt_tiled_scan", a))
+        a = dict(zip(_build.ENTRY_ARGS[name], args))
+        calls.append((name, a))
         lanes, first, end, n_in = a["L"], a["src_first"], a["src_end"], a["n_in"]
         elem = np.int16 if a["src_s16"] else np.int32
         assert a["S"] == end - first + a["T"] + 8 and end % n_in == 0
-        assert _build.tiled_shared_bytes(a["frames_per_stage"], a["win_rows"], a["T"],
-                                         np.dtype(elem).itemsize) <= _build.MAX_SHARED_BYTES
         x = np.zeros((a["S"], lanes), np.int32)
         lo = max(first, 0)
         x[lo - first : end - first] = _view(a["src"], (end, lanes), elem)[lo:end]
         p, f = (int(v) for v in _view(a["state_in"], (2,)))
         inc = (int(_view(a["inc_hi"], ())) << 16) + int(_view(a["inc_lo"], ()))
-        produced, over, _, nxt = _bookkeeping_int64(p, f, inc, n_in, a["N"], a["N"])
-        _view(a["produced"], ())[...] = produced
-        _view(a["over"], ())[...] = over
-        _view(a["state_out"], (2,))[...] = nxt
-        st = DeviceState(torch.tensor(p, dtype=torch.int32), torch.tensor(f, dtype=torch.int32),
-                         _cfg_at(a))
-        kw = dict(max_taps=a["T"], n_out=a["N"], n_valid=torch.tensor(produced, dtype=torch.int32))
-        if a["tstr"]:
-            kw["table_strided"] = _tensor(a["tstr"], (a["tstr_rows"], a["T"]))
-        out, _ = rs.resample_uniform_lanes_general_reference(
-            _tensor(a["table"], (a["table_size"],)), torch.from_numpy(x), st, **kw)
-        _tensor(a["out"], (a["N"], lanes)).copy_(out)
-        return 0
-    return entry
-
-
-def _mac_stand_in(name, calls):
-    """A MAC entry over the same pointers: its plain version with n_valid,
-    written to the output pointer."""
-    def entry(*args):
-        a = dict(zip(_build.ENTRY_ARGS[name], args))
-        calls.append((name, a))
-        assert a["rows_out"] is None and a["clamp_s16"] == 0 and a["lane_offset"] == 0
-        scalar = lambda key: _tensor(a[key], ())
-        cfg = _cfg_at(a)
-        st = DeviceState(scalar("p0_ptr"), scalar("f0_ptr"), cfg)
-        x = _tensor(a["x"], (a["S"], a["L"]))
+        offset = a.get("frame_offset", 0)
+        n_out = a.get("n_out", a["N"])
+        produced, over, _, nxt = _bookkeeping_int64(p, f, inc, n_in, n_out, n_out)
+        if offset == 0:
+            _view(a["produced"], ())[...] = produced
+            _view(a["over"], ())[...] = over
+            _view(a["state_out"], (2,))[...] = nxt
+        t = f + offset * inc
+        i32 = lambda v: torch.tensor(v, dtype=torch.int32)
+        st = DeviceState(i32(p + (t >> 16)), i32(t & 0xFFFF), _cfg_at(a))
         table = _tensor(a["table"], (a["table_size"],))
-        kw = dict(max_taps=a["T"], n_out=a["N"], n_valid=scalar("n_valid"),
-                  frame_offset=a["frame_offset"])
+        kw = dict(max_taps=a["T"], n_out=a["N"], n_valid=i32(produced), frame_offset=offset)
         if a.get("tstr"):
             kw["table_strided"] = _tensor(a["tstr"], (a["tstr_rows"], a["T"]))
-        if name == "crt_strided_mac":
-            out, _ = rs.resample_strided_reference(table, x, st, d=a["d"], **kw)
-        elif name == "crt_wide_mac":
-            assert a["partial"] and a["tap_sums"] > a["partial"]
-            out, _ = rs.resample_wide_taps_reference(table, x, st, d=0, **kw)
+        if name == "crt_tiled_scan":
+            assert _build.tiled_shared_bytes(a["frames_per_stage"], a["win_rows"], a["T"],
+                                             np.dtype(elem).itemsize) <= _build.MAX_SHARED_BYTES
+            out, _ = rs.resample_uniform_lanes_general_reference(table, torch.from_numpy(x), st,
+                                                                 **kw)
+        elif name == "crt_strided_scan":
+            assert _build.strided_shared_bytes(a["T"], a["win_rows"], np.dtype(elem).itemsize) \
+                <= _build.MAX_SHARED_BYTES
+            out, _ = rs.resample_strided_reference(table, torch.from_numpy(x), st, d=a["d"], **kw)
         else:
-            out, _ = rs.resample_uniform_lanes_general_reference(table, x, st, **kw)
-        _tensor(a["out"], (a["N"], a["lanes"])).copy_(out)
+            assert a["partial"] and a["tap_sums"] == a["partial"] + 4 * a["N"] * a["K"] * lanes
+            out, _ = rs.resample_wide_taps_reference(table, torch.from_numpy(x), st, d=0, **kw)
+        _tensor(a["out"], (a["N"], lanes)).copy_(out)
         return 0
     return entry
 
@@ -431,10 +349,7 @@ def _program(c, monkeypatch, chunks=None):
     """(result of a ScanProgram over the case on CPU tensors with the C
     entries stood in, the calls it made)."""
     calls = []
-    entries = {"crt_scan_stage": _stage_stand_in(calls),
-               "crt_tiled_scan": _tiled_scan_stand_in(calls),
-               **{name: _mac_stand_in(name, calls)
-                  for name in ("crt_tiled_mac", "crt_strided_mac", "crt_wide_mac")}}
+    entries = {name: _scan_stand_in(name, calls) for name in SCAN_ENTRIES}
     monkeypatch.setattr(_build, "entry_function", entries.__getitem__)
     monkeypatch.setattr(_build, "_check_cuda", lambda x: None)
     monkeypatch.setattr(_build, "_stream", lambda x: 0)
@@ -452,30 +367,27 @@ def _program(c, monkeypatch, chunks=None):
 @pytest.mark.parametrize("dtype", [np.int16, np.int32], ids=["int16", "int32"])
 @pytest.mark.parametrize("engine", list(ENGINES))
 def test_torch_scan_program_argument_flow(monkeypatch, engine, dtype):
-    """The program's launches, stood in, reproduce the plain version: the
-    tiled and general engines make one scan-mode call a step, each with its
-    window in stream rows, the strided and wide engines one stage call and
-    one engine call a step; the program counts them."""
+    """The program's launches, stood in, reproduce the plain version: every
+    engine makes one scan-mode call a step (here one wide launch a step),
+    each with its window in stream rows at the chunks' own address and type,
+    and no staging buffer; the program counts them."""
     c = _case(ENGINES[engine], lanes=12, n_in=96, k=3, seed=86, dtype=dtype, f0=0x4321)
     got, calls, program = _program(c, monkeypatch)
     _assert_same(got, _reference(c), engine)
     k, n_in, _ = c["chunks"].shape
     s16 = int(dtype == np.int16)
-    if engine in lowlevel.INPLACE_KINDS:
-        assert [name for name, _ in calls] == ["crt_tiled_scan"] * k
-        assert program.routes == {("scan_inplace", "cuda"): k}
-        assert [(a["src_first"], a["src_end"]) for _, a in calls] == [
-            (s * n_in - 2 * c["r"], (s + 1) * n_in) for s in range(k)]
-        assert {(a["src_s16"], a["src"]) for _, a in calls} == {(s16, program.chunks.data_ptr())}
-        # 12 int16 lanes are 24 bytes a row: 4-byte copies; 12 int32 lanes 16-byte ones.
-        assert {a["copy"] for _, a in calls} == {
-            _build.SCAN_COPY_WORDS if s16 else _build.SCAN_COPY_VEC}
-    else:
-        entry = {"strided": "crt_strided_mac", "wide": "crt_wide_mac"}[engine]
-        assert [name for name, _ in calls] == ["crt_scan_stage", entry] * k
-        assert program.routes == {("scan_stage", "cuda"): k, (engine, "cuda"): k}
-        assert {a["chunk_s16"] for name, a in calls if name == "crt_scan_stage"} == {s16}
+    entry = {"tiled": "crt_tiled_scan", "general": "crt_tiled_scan",
+             "strided": "crt_strided_scan", "wide": "crt_wide_scan"}[engine]
+    assert [name for name, _ in calls] == [entry] * k
+    assert program.routes == {(lowlevel.SCAN_ROUTES[engine], "cuda"): k}
+    assert [(a["src_first"], a["src_end"]) for _, a in calls] == [
+        (s * n_in - 2 * c["r"], (s + 1) * n_in) for s in range(k)]
+    assert {(a["src_s16"], a["src"]) for _, a in calls} == {(s16, program.chunks.data_ptr())}
+    # 12 int16 lanes are 24 bytes a row: 4-byte copies; 12 int32 lanes 16-byte ones.
+    assert {a["copy"] for _, a in calls} == {
+        _build.SCAN_COPY_WORDS if s16 else _build.SCAN_COPY_VEC}
     assert {a["vec"] for _, a in calls} == {1}
+    assert not hasattr(program, "buffers") and (program.scratch is None) == (engine != "wide")
 
 
 def test_torch_scan_program_several_wide_launches_a_step(monkeypatch):
@@ -488,10 +400,18 @@ def test_torch_scan_program_several_wide_launches_a_step(monkeypatch):
     _assert_same(_composed(c), want, "composed")
     got, calls, program = _program(c, monkeypatch)
     _assert_same(got, want, "program")
-    assert program.launches == 3 and len(calls) == 3 * 4
-    assert [a["frame_offset"] for name, a in calls[1:4]] == [0, 48, 96]
-    assert [a["N"] for name, a in calls[1:4]] == [48, 48, 32]
-    assert program.routes == {("scan_stage", "cuda"): 3, ("wide", "cuda"): 9}
+    assert program.launches == 3 and [name for name, _ in calls] == ["crt_wide_scan"] * 9
+    assert [a["frame_offset"] for name, a in calls[:3]] == [0, 48, 96]
+    assert [a["N"] for name, a in calls[:3]] == [48, 48, 32]
+    assert {a["n_out"] for _, a in calls} == {128}
+    # Each launch reads the step's state and writes its own frames; all three
+    # get the step's bookkeeping pointers (the offset-0 launch writes them).
+    book, out = program.states.data_ptr(), program.outputs.data_ptr()
+    assert [(a["state_in"] - book, a["state_out"] - book, a["out"] - out) for _, a in calls] == [
+        (8 * s, 8 * (s + 1), s * program.outputs[0].nbytes + o * 8 * 4)
+        for s in range(3) for o in (0, 48, 96)]
+    assert len({a["partial"] for _, a in calls}) == 1
+    assert program.routes == {("scan_wide", "cuda"): 9}
     assert want[1].max() > 48        # some step's frames reach past the first launch
 
 
@@ -542,30 +462,6 @@ def test_torch_scan_fused_on_the_cpu_is_the_plain_version():
     _assert_same(_plain(alias), got, "alias")
 
 
-def test_torch_scan_stage_launcher_refuses_what_the_kernel_cannot_take():
-    """The stage launcher never falls back: CPU tensors are refused before
-    any build; with the device check stood aside, so are a chunk of another
-    type, one buffer given twice and a buffer too short."""
-    cfg = make_device_state(0, 0, configure(48000, 44100, 48000),
-                            fx.calculate_ratio(48000, 44100), "cpu").cfg
-    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32)
-    prev, cur, chunk = i32(40, 4), i32(40, 4), torch.zeros((16, 4), dtype=torch.int16)
-    small = (i32(2), cfg, i32(1), i32(1), i32(1, 2), i32(2))
-    kw = dict(halo_rows=10, n_out=64, launch_step=64)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _build.scan_stage(prev, cur, chunk, *small, **kw)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(_build, "_check_cuda", lambda x: None)
-        mp.setattr(_build, "_stream", lambda x: 0)
-        assert _build.scan_stage_args(prev, cur, chunk, *small, **kw)["launches"] == 1
-        with pytest.raises(ValueError, match="int16 or int32"):
-            _build.scan_stage_args(prev, cur, chunk.to(torch.int64), *small, **kw)
-        with pytest.raises(ValueError, match="bad scan stage"):
-            _build.scan_stage_args(prev, prev, chunk, *small, **kw)
-        with pytest.raises(ValueError, match="bad scan stage"):
-            _build.scan_stage_args(prev[:20], cur[:20], chunk, *small, **kw)
-
-
 # ---------------------------------------------------------------------------
 # On a card: the kernels against the plain versions
 # ---------------------------------------------------------------------------
@@ -586,8 +482,7 @@ def test_torch_cuda_scan_program_matches_reference(cuda_device, engine, dtype):
     chunks = torch.from_numpy(c["chunks"]).to(cuda_device)
     rs.ROUTES.clear()
     got = _plain(resample_scan_fused(c["table"], chunks, c["state"], **_scan_args(c)))
-    assert rs.ROUTES == ({("scan_inplace", "cuda"): 4} if engine in lowlevel.INPLACE_KINDS
-                         else {("scan_stage", "cuda"): 4, (engine, "cuda"): 4})
+    assert rs.ROUTES == {(lowlevel.SCAN_ROUTES[engine], "cuda"): 4}
     _assert_same(got, _reference(c), engine)
 
 
@@ -598,27 +493,6 @@ def test_torch_cuda_scan_program_odd_shapes_match_reference(cuda_device, lanes, 
     chunks = torch.from_numpy(c["chunks"]).to(cuda_device)
     got = _plain(resample_scan_fused(c["table"], chunks, c["state"], **_scan_args(c)))
     _assert_same(got, _reference(c), (lanes, n_in))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.int16, torch.int32], ids=["int16", "int32"])
-@pytest.mark.parametrize("lanes", [6, 512])
-def test_torch_cuda_scan_stage_matches_reference(cuda_device, lanes, dtype):
-    gen = torch.Generator(device="cuda").manual_seed(94)
-    cfg = make_device_state(0, 0, configure(44100, 1000, 44100),
-                            fx.calculate_ratio(44100, 1000), cuda_device).cfg
-    r, n_in = 136, 200
-    prev = torch.randint(-32768, 32768, (2 * r + n_in + 280, lanes), generator=gen,
-                         dtype=torch.int32, device=cuda_device)
-    chunk = torch.randint(-32768, 32768, (n_in, lanes), generator=gen, dtype=torch.int32,
-                          device=cuda_device).to(dtype)
-    state = torch.tensor([r + 3, 0x8421], dtype=torch.int32, device=cuda_device)
-    out = torch.full_like(prev, -1)
-    got = scan_stage(prev, chunk, state, cfg, radius=r, n_out=64, launch_step=24, out=out)
-    want = scan_stage_reference(prev, chunk, state, cfg, radius=r, n_out=64, launch_step=24)
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
-    assert (out[2 * r + n_in :] == -1).all()
 
 
 @pytest.mark.cuda
