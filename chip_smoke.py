@@ -235,6 +235,23 @@ WIDE_CASES = (
      dict(p0=136, n_valid=186)),
     ("44.1k->132 n_valid 70 at frame offset 64, clamp_s16", (44100, 132), 64, 1024,
      dict(f0=0x8421, n_valid=70, frame_offset=64, clamp_s16=True)),
+    # Edges of the frames a run meets and their taps gathered ahead: N off
+    # a multiple of 8 (the plain version, which takes whole 8-frame tiles,
+    # sliced to the kernel's N), a lane tile cut short (and lanes off 4: no
+    # 16-byte path), 24 frames clamped at row_max, n_valid off a tile, one
+    # lane tile of 1024 frames at 6016 taps, the flat LUT at 6016 taps, and
+    # a 1024-tap reserve at 44.1k -> 1000: up to 25 frames a run, past the
+    # 16 gathered with the run's rows (each warp fetches the rest itself).
+    ("44.1k->132 60 of 64 frames", (44100, 132), 64, 1024, dict(f0=0x8421, frames=60)),
+    ("44.1k->132 1000 lanes (a lane tile cut short)", (44100, 132), 64, 1000, dict(p0=3)),
+    ("44.1k->132 1001 lanes, clamp_s16 (no 16-byte path)", (44100, 132), 64, 1001,
+     dict(f0=0x1234, clamp_s16=True)),
+    ("44.1k->132 24 frames clamped at row_max", (44100, 132), 64, 1024, dict(cut=24)),
+    ("44.1k->132 n_valid 37", (44100, 132), 64, 1024, dict(f0=0x8421, n_valid=37)),
+    ("44.1k->44 taps 6016 1024 frames x 16", (44100, 44), 1024, 16, dict(p0=1, f0=0x7777)),
+    ("44.1k->44 taps 6016 flat LUT", (44100, 44), 64, 256, dict(f0=0xFFFF, flat=True)),
+    ("44.1k->1000 taps 272 in a 1024-tap reserve (frames past those gathered ahead)",
+     (44100, 1000), 256, 512, dict(p0=9, f0=0x0F0F, max_taps=1024)),
 )
 # A scan mode against its plain version, one scan_inplace_step a case (the
 # engine's launches of one step): (label, rates, lanes, n_in, chunk type,
@@ -360,6 +377,17 @@ WIDE_SCAN_CASES = (
      dict(n_out=64)),
     ("44.1k->1000 state past the chunk (nothing produced)", (44100, 1000), 512, 1024,
      torch.int16, 1, dict(p=1030, f=1)),
+    # Edges as WIDE_CASES': a lane tile cut short, the flat LUT, 16 lane
+    # tiles at 1016 taps, and a 1024-tap reserve (frames a run past those
+    # gathered ahead).
+    ("44.1k->1000 int16 x 200 (a lane tile cut short)", (44100, 1000), 200, 4096,
+     torch.int16, 1, dict(p=5, f=0x2468)),
+    ("44.1k->1000 flat LUT int32 x 512", (44100, 1000), 512, 4096, torch.int32, 1,
+     dict(p=6, f=0x0ABC, flat=True)),
+    ("44.1k->262 taps 1016 int16 x 2048", (44100, 262), 2048, 8192, torch.int16, 1,
+     dict(p=2, f=0x0F0F)),
+    ("44.1k->1000 int16 x 512, 1024-tap reserve (frames past those gathered ahead)",
+     (44100, 1000), 512, 8192, torch.int16, 1, dict(p=4, f=0x3C3C, taps=1024)),
 )
 SCAN_COPY_NAMES = ("element loads", "4-byte copies", "16-byte copies")  # by SCAN_COPY_*
 SCAN_INPLACE_PATHS = frozenset(
@@ -737,7 +765,10 @@ def _case_launch(case, gen, kind: str) -> tuple:
     if kind == "strided" and c["plan"]["kernel"] != "strided":
         raise AssertionError(f"{label} is not a strided launch")
     cut = o.pop("cut", 0)
-    cut = cut * c["d"] if kind == "strided" else (8 * c["d"] + 8 if cut else 0)
+    if kind == "strided":
+        cut *= c["d"]
+    elif cut:       # wide: rows for `cut` frames (True: 8), and 8 more
+        cut = (8 if cut is True else cut) * c["d"] + 8
     x = c["x"][: c["x"].shape[0] - cut]
     state = c["state"]
     if o.pop("ints", False):
@@ -764,14 +795,16 @@ def run_strided_case(case, gen) -> tuple:
 
 def run_wide_case(case, gen) -> tuple:
     """(got, want, rows, rows_ref): one WIDE_CASES launch through the wide
-    entry (the kernels) and its plain version, on the same inputs."""
+    entry (the kernels) and its plain version, on the same inputs (option
+    frames: the kernels' N, the plain version's frames sliced to it)."""
     from clownresampler_tpu_torch.ops import resample as rs
 
     c, x, state, args = _case_launch(case, gen, "wide")
+    frames = args.pop("frames", args["n_out"])
     with shard_stream(case):
-        got, rows = rs.resample_wide_taps(c["table"], x, state, **args)
+        got, rows = rs.resample_wide_taps(c["table"], x, state, **dict(args, n_out=frames))
     want, rows_ref = rs.resample_wide_taps_reference(c["table"], x, state, **args)
-    return got, want, rows, rows_ref
+    return got, want[:frames], rows, rows_ref[:frames]
 
 
 def scan_inplace_inputs(rates, lanes: int, n_in: int, dtype, gen, chunks=3, p=0, f=0,

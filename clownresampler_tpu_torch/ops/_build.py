@@ -265,6 +265,48 @@ def wide_slots(taps: int) -> int:
     return (taps + WIDE_RUN_ROWS - 2) // WIDE_RUN_ROWS + 1
 
 
+# wide_mac_kernel (wide_kernels.cu): its threads, and the frames of an item
+# whose taps it gathers with the item's rows (WIDE_AHEAD_FRAMES; a warp
+# fetches a further frame's taps itself); its static shared memory (those
+# taps, two stages of WIDE_AHEAD_FRAMES x WIDE_RUN_ROWS ints, and a row of
+# WIDE_RUN_ROWS taps a warp).
+WIDE_THREADS = 256
+WIDE_AHEAD_FRAMES = 16
+WIDE_STATIC_SHARED_BYTES = 4 * WIDE_RUN_ROWS * (2 * WIDE_AHEAD_FRAMES + WIDE_THREADS // 32)
+
+
+def wide_first_frame(*, p0: int, f0: int, inc: int, delta: int, n_frames: int, row_max: int,
+                     bound: int) -> int:
+    """The first frame in [0, n_frames] whose window row, clamped into [0,
+    row_max], exceeds ``bound`` (wide_kernels.cu wide_first_frame): frame
+    n's row p0 + (t >> 16) + min_rel, t = f0 + n*inc, is p0 + ceil((t +
+    delta) / 2^16), so for 0 <= bound < row_max it passes bound from n =
+    x // inc + 1 on, x = (bound - p0) * 2^16 - f0 - delta (from 0 if x <
+    0)."""
+    if bound < 0:
+        return 0
+    if bound >= row_max:
+        return n_frames
+    x = (bound - p0) * 65536 - f0 - delta
+    n = 0 if x < 0 else (x // inc + 1 if inc > 0 else n_frames)
+    return min(n, n_frames)
+
+
+def wide_plan(n_out: int, lanes: int, d: int, max_taps: int, elem_bytes: int = 4) -> dict:
+    """wide_mac_kernel's launch, from its shape: the runs of WIDE_RUN_ROWS
+    rows its input span can hold at most (d = increment >> 16), its lane
+    tiles of TILED_LANES and the items (run x lane tile) the persistent
+    blocks walk at most, a frame's partial-sum slots and the scratch they
+    take (wide_scratch_ints), and a block's shared memory: two staged runs
+    of ``elem_bytes``-byte samples and the static taps."""
+    runs = _wide_runs_bound(n_out, d, max_taps)
+    lane_tiles = -(-lanes // TILED_LANES)
+    return dict(runs_bound=runs, lane_tiles=lane_tiles, items_bound=runs * lane_tiles,
+                slots=wide_slots(max_taps), scratch_ints=wide_scratch_ints(max_taps, n_out, lanes),
+                shared_bytes=(2 * WIDE_RUN_ROWS * TILED_LANES * elem_bytes
+                              + WIDE_STATIC_SHARED_BYTES))
+
+
 def _scalar_arg(v, x, name: str) -> tuple:
     """(pointer, value) of a launch scalar: a one-element int32 tensor on x's
     device goes by pointer (no host sync), a Python int by value."""

@@ -13,25 +13,27 @@
 // every partial and total sum under 2^28).
 //
 // What bounds it on the H100: at the 44.1k -> 132 launch (64 frames x 1024
-// lanes, 2008 taps, d = increment >> 16 = 334) the integer work, ~5
-// operations a live tap and lane (0.039 ms at the card's int32 rate, 0.028
-// for the bytes), over about 94 MB of input that each row feeds ~T/d = 6
-// frames of. Read per frame, those rows cross L2 six times;
-// a per-frame tap matrix adds N*T*4 bytes and a load a tap. So the work is
-// cut by input rows instead of by frames:
+// lanes, 2008 taps, d = increment >> 16 = 334) both the integer work, 4
+// operations a live tap and lane (0.031 ms at the card's int32 rate), and
+// the ~94 MB of input (0.028 ms), each row of which ~T/d = 6 frames read.
+// Read per frame, those rows would cross L2 six times; a per-frame tap
+// matrix adds N*T*4 bytes and a load a tap. So the work is cut by input rows
+// instead of by frames:
 //  - Runs: the launch's input span, from frame 0's window to the last
 //    frame's, is cut into runs of WIDE_RUN_ROWS consecutive rows. A work
 //    item is one run x 128 lanes. Persistent blocks walk the items (lane
 //    tile fastest) and double-buffer each run's rows (32 KB) in shared
 //    memory with cp.async, so each input row is read from device memory
 //    once, and the next run's copy runs under this run's MACs.
-//  - Every frame whose window meets the run (a binary search over the
-//    monotone window rows, by one thread while the block computes the run
-//    before) takes the meeting taps from the staged rows, one warp a frame,
-//    4 lanes a thread, one 16-byte shared load a tap. The warp's 32 threads
-//    read the frame's 64 tap values from the LUT at once (flat,
-//    kernel_start + j*step, or the strided table's row) into a shared row
-//    that the tap loop reads 4 at a time; no (N, T) tap matrix exists.
+//  - Every frame whose window meets the run (worked out in closed form,
+//    wide_first_frame) takes the meeting taps from the staged rows, one warp
+//    a frame, 4 lanes a thread, one 16-byte shared load a tap. The taps of
+//    the run's first WIDE_AHEAD_FRAMES frames are gathered from the LUT
+//    (flat, kernel_start + j*step, or the strided table's row) by cp.async
+//    with the run's rows, a stage ahead (wide_gather_taps), so no LUT load is
+//    on the MAC loop's path (it was 0.013 of the 0.063 ms MAC launch at
+//    44.1k -> 132 on the H100, PERF.md); a further frame's taps the warp
+//    reads itself. No (N, T) tap matrix exists.
 //  - The frame's partial sum for the run goes to slot k = run - (the
 //    frame's first run) of an (N, K, lanes) int32 scratch, and the sum of
 //    the taps it used to an (N, K) one: each (frame, run) pair that meets
@@ -41,6 +43,13 @@
 //  - wide_fold_kernel sums each frame's slots and tap sums, takes q from
 //    the tap total (reciprocal_q31) and writes the normalised (and, for
 //    int16, clamped) output and the frame's unclamped row.
+// One launch with the fold inside -- thread block clusters of blocks, each
+// a piece of a frame group's union window, their sums met through
+// distributed shared memory -- measured slower on the H100 at both the
+// entry's and the wide scan step's shapes (PERF.md, PR 15): a group's union
+// window is read again by the next group (1.16-1.63x the bytes), and a
+// cluster's fixed costs (its geometry, a pipeline fill, two cluster
+// barriers) outweigh the fold's launch at the scan step's 0.006 ms of work.
 // Geometry (read_geometry, frame_window, the masked LUT taps) is computed
 // inside both kernels from the launch state and ConfigScalars by pointer: no
 // host sync and no precompute launch.
@@ -104,16 +113,18 @@ __device__ __forceinline__ WideSpan wide_span(const WideParams& P, const LaunchG
     return s;
 }
 
-// First frame in [0, N] whose clamped window row exceeds `bound` (the rows
-// are monotone in n).
+// First frame in [0, N] whose clamped window row exceeds `bound`, in closed
+// form (ops/_build.wide_first_frame): frame n's row, p0 + (t >> 16) +
+// min_rel with t = f0 + n*inc (frame_window), is p0 + ceil((t + delta) /
+// 2^16), so for 0 <= bound < row_max the row passes bound from n = floor(x
+// / inc) + 1 on, x = (bound - p0) * 2^16 - f0 - delta (from 0 if x < 0).
 __device__ __forceinline__ int wide_first_frame(const WideParams& P, const LaunchGeometry& g,
                                                 const WideSpan& s, long long bound) {
-    int lo = 0, hi = P.N;
-    while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (wide_row(g, s, mid) > bound) hi = mid; else lo = mid + 1;
-    }
-    return lo;
+    if (bound < 0) return 0;
+    if (bound >= s.row_max) return P.N;
+    const long long x = (bound - g.p0) * 65536 - g.f0 - g.delta;
+    const long long n = x < 0 ? 0 : (g.inc > 0 ? x / g.inc + 1 : P.N);
+    return static_cast<int>(n < P.N ? n : P.N);
 }
 
 // The frames [n_lo, n_hi) that may meet run `run`: row + T > b0 (a superset
@@ -125,21 +136,60 @@ __device__ __forceinline__ int2 wide_run_frames(const WideParams& P, const Launc
                      wide_first_frame(P, g, s, b0 + WIDE_RUN_ROWS - 1));
 }
 
+// Frames of an item whose taps are gathered ahead into shared memory
+// (ops/_build.WIDE_AHEAD_FRAMES; a run meets about (WIDE_RUN_ROWS + T) / d
+// of them: 7 at 44.1k -> 132, 8 at 44.1k -> 1000); a warp fetches the taps
+// of any further frame itself.
+constexpr int WIDE_AHEAD_FRAMES = 16;
+
+// Start the gather of item `run`'s frames' taps into `taps`
+// (WIDE_AHEAD_FRAMES rows of WIDE_RUN_ROWS), by cp.async, with the run's
+// rows: row f, entry i is frame frames.x + f's tap for run row b0 + i (j =
+// b0 + i - row), zero where j is not a live tap; warp w fills the rows of
+// frames frames.x + w, + 8, ... before frames.y and `valid` (the only rows
+// wide_compute reads).
+__device__ __forceinline__ void wide_gather_taps(const WideParams& P, const LaunchGeometry& g,
+                                                 const WideSpan& s, int run, int2 frames,
+                                                 int valid, int* taps) {
+    const int b0 = s.a0 + run * WIDE_RUN_ROWS, tx = threadIdx.x & 31;
+    const int n_end = min(min(frames.y, valid), frames.x + WIDE_AHEAD_FRAMES);
+    for (int n = frames.x + (threadIdx.x >> 5); n < n_end; n += WIDE_WARPS) {
+        const FrameWindow w = frame_window(g, n);
+        const int row = clamp_row(w.row, s.row_max);
+        const int live = min(max(w.taps, 0), P.T);
+        const int* srow = tap_row(P.tt, w.kernel_start);
+        for (int i = tx; i < WIDE_RUN_ROWS; i += 32) {
+            const int j = b0 + i - row;
+            const bool ok = j >= 0 && j < live;
+            const int* src = P.tt.table;
+            if (ok) {
+                src = srow ? srow + j
+                           : P.tt.table + min(max(w.kernel_start + j * g.step, 0),
+                                              P.tt.table_size - 1);
+            }
+            cp_async4(static_cast<unsigned>(__cvta_generic_to_shared(
+                          taps + (n - frames.x) * WIDE_RUN_ROWS + i)),
+                      src, ok);
+        }
+    }
+}
+
 // The MACs of one item: run `run` (rows [b0, b0 + WIDE_RUN_ROWS)) x lanes
 // [lane0, lane0 + TILE_LANES), its rows staged in `win` (int32 rows of x, or
 // the scan's int16 or int32 stream rows, widened a quad at a time as a tap
-// reads them). Warp w takes the
-// frames n_lo + w, n_lo + w + 8, ... < n_hi; its 32 threads read the frame's
-// taps j0 .. j1 - 1 from the LUT at once into the warp's `warp_taps` row,
-// and the tap loop reads them 4 at a time as a broadcast. The items of lane
-// tile 0 also write each slot's sum of taps. Frames from `valid` on
-// (valid_frames; in scan mode the step's produced count) are left out: the
-// fold stores them as 0 and reads no slot.
+// reads them). Warp w takes the frames n_lo + w, n_lo + w + 8, ... < n_hi;
+// the first WIDE_AHEAD_FRAMES frames' taps arrived with the rows (`taps`,
+// wide_gather_taps), a further frame's the warp's 32 threads read from the
+// LUT at once into the warp's `warp_taps` row. The tap loop reads them 4 at
+// a time as a broadcast. The items of lane tile 0 also write each slot's
+// sum of taps. Frames from `valid` on (valid_frames; in scan mode the step's
+// produced count) are left out: the fold stores them as 0 and reads no
+// slot.
 template <typename SrcT>
 __device__ __forceinline__ void wide_compute(const WideParams& P, const LaunchGeometry& g,
                                              const WideSpan& s, int run, int lane0,
-                                             int2 frames, const SrcT* win, int* warp_taps,
-                                             int valid) {
+                                             int2 frames, const SrcT* win, const int* taps,
+                                             int* warp_taps, int valid) {
     const int tx = threadIdx.x & 31;
     const int lane = lane0 + 4 * tx;
     const int b0 = s.a0 + run * WIDE_RUN_ROWS;
@@ -152,34 +202,43 @@ __device__ __forceinline__ void wide_compute(const WideParams& P, const LaunchGe
         const int j0 = max(0, b0 - row);
         const int j1 = min(live, b0 + WIDE_RUN_ROWS - row);
         if (j0 >= j1) continue;   // warp-uniform
-        const int* srow = tap_row(P.tt, w.kernel_start);
+        // k[t]: the tap for run row t (zero outside the frame's live taps);
+        // the MACs take rows [t0, t1), whole quads from an aligned t0.
+        const int* k;
         int tsum = 0;
-        for (int j = tx; j < WIDE_RUN_ROWS; j += 32) {
-            const int k = lut_tap(P.tt, srow, w.kernel_start, g.step, j0 + j, j1);
-            kw[j] = k;
-            tsum += k;
+        if (n < frames.x + WIDE_AHEAD_FRAMES) {
+            k = taps + (n - frames.x) * WIDE_RUN_ROWS;
+            if (lane0 == 0) tsum = k[tx] + k[tx + 32];
+        } else {
+            const int* srow = tap_row(P.tt, w.kernel_start);
+            for (int i = tx; i < WIDE_RUN_ROWS; i += 32) {
+                const int j = b0 + i - row;
+                const int v = j >= 0 ? lut_tap(P.tt, srow, w.kernel_start, g.step, j, live) : 0;
+                kw[i] = v;
+                tsum += v;
+            }
+            __syncwarp();
+            k = kw;
         }
-        __syncwarp();
-        const auto* wp = reinterpret_cast<const typename Quad<SrcT>::type*>(win) +
-                         (row + j0 - b0) * TILE_COLS + tx;
+        const int t0 = (row + j0 - b0) & ~3, t1 = row + j1 - b0;
+        const auto* wp = reinterpret_cast<const typename Quad<SrcT>::type*>(win) + tx;
         int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-        const auto tap = [&](int t, int k) {
+        const auto tap = [&](int t, int kt) {
             const int4 v = Quad<SrcT>::widen(wp[t * TILE_COLS]);
-            a0 = macc_trunc(a0, v.x, k);
-            a1 = macc_trunc(a1, v.y, k);
-            a2 = macc_trunc(a2, v.z, k);
-            a3 = macc_trunc(a3, v.w, k);
+            a0 = macc_trunc(a0, v.x, kt);
+            a1 = macc_trunc(a1, v.y, kt);
+            a2 = macc_trunc(a2, v.z, kt);
+            a3 = macc_trunc(a3, v.w, kt);
         };
-        const int c = j1 - j0;
-        int t = 0;
-        for (; t + 4 <= c; t += 4) {
-            const int4 kk = *reinterpret_cast<const int4*>(kw + t);
+        int t = t0;
+        for (; t + 4 <= t1; t += 4) {
+            const int4 kk = *reinterpret_cast<const int4*>(k + t);
             tap(t, kk.x);
             tap(t + 1, kk.y);
             tap(t + 2, kk.z);
             tap(t + 3, kk.w);
         }
-        for (; t < c; ++t) tap(t, kw[t]);
+        for (; t < t1; ++t) tap(t, k[t]);
         __syncwarp();   // the next frame rewrites kw
         const int slot = run - (row - s.a0) / WIDE_RUN_ROWS;
         if (lane0 == 0) {
@@ -200,19 +259,19 @@ __device__ __forceinline__ void wide_compute(const WideParams& P, const LaunchGe
 }
 
 // Persistent blocks walk the items (run x lane tile, lane tile fastest). Two
-// stages: while a block computes one run, the copy of its next run's rows is
-// in flight (cp.async), and one thread of the last warp (the warp least
-// often given a frame) finds the next run's frames. One barrier per item.
-// SrcT and SCAN: the runs' rows are int32 rows of x (SCAN false: the wide
-// entry), or the scan's int16 or int32 stream rows (a launch of a wide scan
-// step: its launch state comes from the step's state and its frame offset,
-// and block 0 of the step's offset-0 launch writes the step's bookkeeping;
-// scan_launch).
+// stages: while a block computes one run, the copy of its next run's rows
+// and of its first frames' taps is in flight (cp.async); each thread works
+// out a run's frames itself (wide_run_frames, closed form). One barrier per
+// item. SrcT and SCAN: the runs' rows are int32 rows of x (SCAN
+// false: the wide entry), or the scan's int16 or int32 stream rows (a launch
+// of a wide scan step: its launch state comes from the step's state and its
+// frame offset, and block 0 of the step's offset-0 launch writes the step's
+// bookkeeping; scan_launch).
 template <typename SrcT, bool SCAN>
 __global__ void __launch_bounds__(WIDE_THREADS)
 wide_mac_kernel(const WideParams P) {
     extern __shared__ int4 smem4[];
-    __shared__ int2 s_frames[2];
+    __shared__ __align__(16) int s_ahead[2][WIDE_AHEAD_FRAMES * WIDE_RUN_ROWS];
     __shared__ __align__(16) int s_taps[WIDE_WARPS * WIDE_RUN_ROWS];
     int* const smem = reinterpret_cast<int*>(smem4);
     LaunchGeometry g = read_geometry(P.geo);
@@ -221,41 +280,41 @@ wide_mac_kernel(const WideParams P) {
     const WideSpan s = wide_span(P, g);
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
     const int items = s.runs * lane_tiles;
-    const bool finder = threadIdx.x == WIDE_THREADS - 32;
     int item = blockIdx.x;
     if (item >= items) return;
     auto win = [&](int b) {
         return reinterpret_cast<SrcT*>(smem + b * window_ints<SrcT>(WIDE_RUN_ROWS));
     };
-    auto load = [&](int it, SrcT* w) {
+    // Start item it's copies into stage b; returns its run's frames.
+    auto load = [&](int it, int b) {
         const int run = it / lane_tiles;
+        const int2 frames = wide_run_frames(P, g, s, run);
         const int b0 = s.a0 + run * WIDE_RUN_ROWS;
         const int rows = min(WIDE_RUN_ROWS, P.S - b0), lane0 = (it - run * lane_tiles) * TILE_LANES;
         if constexpr (SCAN) {
-            load_stream_rows<WIDE_THREADS>(P.scan, P.L, P.scan.first + b0, rows, lane0, w);
+            load_stream_rows<WIDE_THREADS>(P.scan, P.L, P.scan.first + b0, rows, lane0, win(b));
         } else {
             load_rows_async<WIDE_THREADS>(P.x, P.L, P.lane_offset, P.lanes, P.vec, b0, rows,
-                                          lane0, w);
+                                          lane0, win(b));
         }
+        wide_gather_taps(P, g, s, run, frames, valid, s_ahead[b]);
+        return frames;
     };
 
-    load(item, win(0));
+    int2 frames = load(item, 0);
     cp_async_commit();
-    if (finder) s_frames[0] = wide_run_frames(P, g, s, item / lane_tiles);
     for (int b = 0;; b ^= 1) {
         cp_async_wait_all();
         __syncthreads();
         const int next = item + gridDim.x;
-        if (next < items) load(next, win(b ^ 1));
+        const int2 next_frames = next < items ? load(next, b ^ 1) : frames;
         cp_async_commit();
-        if (finder && next < items) {
-            s_frames[b ^ 1] = wide_run_frames(P, g, s, next / lane_tiles);
-        }
         const int run = item / lane_tiles;
-        wide_compute(P, g, s, run, (item - run * lane_tiles) * TILE_LANES, s_frames[b],
-                     win(b), s_taps, valid);
+        wide_compute(P, g, s, run, (item - run * lane_tiles) * TILE_LANES, frames, win(b),
+                     s_ahead[b], s_taps, valid);
         if (next >= items) break;
         item = next;
+        frames = next_frames;
     }
 }
 
