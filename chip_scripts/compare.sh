@@ -12,11 +12,13 @@
 # in the process, as chip_smoke.py does before its farms. Each farm runs
 # three times in its process: the caller keeps every output, then drops each
 # as a consumer does, then drops each with a synchronise after the staging
-# (drop_waited: the wait for the upload and the stage, timed). Every farm
-# call is split into staging (the host's pass into the pinned input and the
-# issue of the upload and the stage launch), the launch's host issue, the launch on the
-# device's clock (CUDA events from the end of staging) and the device-to-host
-# copy;
+# (drop_waited: the wait for the upload and the stage, timed), and config
+# 5's mixed farm (chip_smoke.MIXED) keeping and dropping. Every farm call is
+# split into staging (the host's pass into the pinned input, the upload --
+# the host threads' copy and the pieces' uploads where the tree has
+# FarmProgram.upload -- and the stage launch's issue), the launch's host
+# issue, the launch on the device's clock (CUDA events from the end of
+# staging) and the device-to-host copy;
 # one JSON line a farm run into chiprun_out/farm_ab.jsonl, and the medians
 # printed at the end. Before the farms: the four runs' scan and entry times
 # side by side (the scan's kernels alone and each engine's device ms a
@@ -47,7 +49,8 @@ JAX_PLATFORMS=cpu python3 -m pytest tests/test_torch_resample_ops.py tests/test_
   tests/test_torch_scan.py tests/test_torch_tiled_kernel.py tests/test_torch_strided_wide_kernel.py \
   tests/test_torch_general_kernel.py tests/test_torch_scan_program.py \
   tests/test_torch_scan_inplace.py tests/test_torch_farm_program.py tests/test_torch_farm_stage_ring.py \
-  tests/test_torch_batch_kernel.py -q -m cuda -p no:cacheprovider \
+  tests/test_torch_batch_kernel.py tests/test_torch_cuda_farm_host_path.py -q -m cuda \
+  -p no:cacheprovider \
   > chiprun_out/cuda_tests.log 2>&1
 echo "cuda tests rc=$? seconds=$(( SECONDS - t0 ))"
 tail -n 2 chiprun_out/cuda_tests.log
@@ -169,23 +172,68 @@ def timed(name, fn, events=False, wait=None):
 
 
 def opened(fn):
+    """A farm call opens a record; the calls a mixed farm makes of its
+    groups' flush belong to its own."""
     def wrap(self, *a, **k):
-        calls.append({})
+        if inside[0]:
+            return fn(self, *a, **k)
+        call = {}
+        calls.append(call)
+        inside[0] = True
         t0 = time.perf_counter()
-        out = fn(self, *a, **k)
-        calls[-1]["call_ms"] = 1e3 * (time.perf_counter() - t0)
+        try:
+            out = fn(self, *a, **k)
+        finally:
+            inside[0] = False
+        call["call_ms"] = 1e3 * (time.perf_counter() - t0)
         return out
     return wrap
 
 
+inside = [False]
+
+
 waiting = [False]
 U._stage = timed("stage_ms", U._stage, wait=waiting)
+if hasattr(U, "_stage_streams"):      # a mixed farm's group (this PR's tree on)
+    U._stage_streams = timed("stage_ms", U._stage_streams)
 U._launch = timed("launch_issue_ms", U._launch, events=True)
 U._to_host = timed("to_host_ms", U._to_host)
-# Inside the staging: the upload and the stage launch issued; the rest is the
-# host's pass into the pinned input.
+# Inside the staging: the upload and the stage launch issued, and inside that
+# the upload (the host threads' copy and its pieces' uploads, where the tree
+# has FarmProgram.upload); the rest is the host's pass into the pinned input.
 fm.FarmProgram.stage = timed("stage_issue_ms", fm.FarmProgram.stage)
+if hasattr(fm.FarmProgram, "upload"):
+    fm.FarmProgram.upload = timed("upload_ms", fm.FarmProgram.upload)
 U.process, U.flush = opened(U.process), opened(U.flush)
+M = fm.MixedStreamFarm
+M.process, M.flush = opened(M.process), opened(M.flush)
+
+
+def run(name, farm, chunks, mode, feed):
+    kept, sizes, checksum = [], [], 0
+    for chunk in chunks:
+        torch.cuda.synchronize()
+        out = feed(farm, chunk)
+        parts = out if isinstance(out, list) else [out]
+        sizes.append(sum(o.size for o in parts))
+        checksum += sum(int(o.reshape(-1)[0]) + int(o.reshape(-1)[-1]) for o in parts if o.size)
+        if mode == "keep":
+            kept.append(out)
+        del out, parts
+    farm.flush()
+    torch.cuda.synchronize()
+    for c in calls:
+        ev = c.pop("events", None)
+        c["launch_device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
+        c["host_pass_ms"] = c.get("stage_ms", 0.0) - c.get("stage_issue_ms", 0.0)
+        c["host_ms"] = c["host_pass_ms"] + c.get("upload_ms", 0.0)
+    steady_s = sum(c["call_ms"] for c in calls[1:-1]) / 1e3
+    print(json.dumps(dict(tree=tree, pre=pre, farm=name, mode=mode, checksum=checksum,
+                          msamples_per_s=sum(sizes[1:]) / steady_s / 1e6,
+                          calls=calls[:-1])), flush=True)
+
+
 for name, spec in (("headline", cs.FARM), ("strided", cs.STRIDED_FARM)):
     rng = np.random.default_rng(cs.SEED)
     chunks = [rng.integers(-32768, 32768, size=(spec["streams"], spec["chunk"], spec["channels"]),
@@ -195,26 +243,21 @@ for name, spec in (("headline", cs.FARM), ("strided", cs.STRIDED_FARM)):
         calls.clear()
         farm = U(spec["streams"], spec["channels"], *spec["rates"], chunk_frames=spec["chunk"],
                  device="cuda")
-        kept, sizes, checksum = [], [], 0
-        for chunk in chunks:
-            torch.cuda.synchronize()
-            out = farm.process(chunk)
-            sizes.append(out.size)
-            checksum += int(out[-1, -1, -1]) + int(out[0, 0, 0])
-            if mode == "keep":
-                kept.append(out)
-            del out
-        farm.flush()
-        torch.cuda.synchronize()
-        for c in calls:
-            ev = c.pop("events", None)
-            c["launch_device_ms"] = ev[0].elapsed_time(ev[1]) if ev else None
-            c["host_pass_ms"] = c.get("stage_ms", 0.0) - c.get("stage_issue_ms", 0.0)
-        steady_s = sum(c["call_ms"] for c in calls[1:-1]) / 1e3
-        print(json.dumps(dict(tree=tree, pre=pre, farm=name, mode=mode, checksum=checksum,
-                              msamples_per_s=sum(sizes[1:]) / steady_s / 1e6,
-                              calls=calls[:-1])), flush=True)
-        del kept, farm
+        run(name, farm, chunks, mode, lambda farm, chunk: farm.process(chunk))
+        del farm
+# Config 5's mixed farm (cs.MIXED, no adjust), each call's chunks per stream.
+m = cs.MIXED
+specs = [rates for rates in m["groups"] for _ in range(m["per_group"])]
+rng = np.random.default_rng(cs.SEED)
+chunks = [rng.integers(-32768, 32768, size=(len(specs), m["chunk"], m["channels"]),
+                       dtype=np.int16) for _ in range(m["chunks"])]
+for mode in ("keep", "drop"):
+    waiting[0] = False
+    calls.clear()
+    farm = M(specs, m["channels"], chunk_frames=m["chunk"], max_radius=m["max_radius"],
+             device="cuda")
+    run("mixed", farm, chunks, mode, lambda farm, chunk: farm.process(list(chunk)))
+    del farm
 PY
   ) >> chiprun_out/farm_ab.jsonl
 }
@@ -233,10 +276,10 @@ import json
 import statistics as st
 
 runs = [json.loads(ln) for ln in open("chiprun_out/farm_ab.jsonl")]
-keys = ("call_ms", "stage_ms", "host_pass_ms", "stage_issue_ms", "launch_issue_ms",
-        "launch_device_ms", "to_host_ms")
+keys = ("call_ms", "stage_ms", "host_pass_ms", "stage_issue_ms", "upload_ms", "host_ms",
+        "launch_issue_ms", "launch_device_ms", "to_host_ms")
 modes = ("keep", "drop", "drop_waited")
-for farm, mode in ((f, m) for f in ("headline", "strided") for m in modes):
+for farm, mode in ((f, m) for f in ("headline", "strided", "mixed") for m in modes):
     for pre in ("none", "checks"):
         for tree in ("parent", "change"):
             rs = [r for r in runs
@@ -246,8 +289,11 @@ for farm, mode in ((f, m) for f in ("headline", "strided") for m in modes):
             if len({r["checksum"] for r in runs if (r["farm"], r["mode"]) == (farm, mode)}) != 1:
                 print(farm, mode, "CHECKSUMS DIFFER between runs")
             steady = [c for r in rs for c in r["calls"][1:]]
-            med = {k: round(st.median(c[k] for c in steady), 3)
+            med = {k: round(st.median(c.get(k) or 0.0 for c in steady), 3)
                    for k in keys + (("stage_wait_ms",) if mode == "drop_waited" else ())}
+            if mode == "drop_waited":
+                med["chunk_to_card_ms"] = round(st.median(
+                    c["stage_ms"] + c["stage_wait_ms"] for c in steady), 3)
             print(farm, mode, pre, tree, "Msamples/s",
                   [round(r["msamples_per_s"], 1) for r in rs],
                   "median", round(st.median(r["msamples_per_s"] for r in rs), 1),

@@ -18,8 +18,10 @@ each C call of a steady headline call on the host's clock; the headline
 farm's steady call split into staging (the host's pass into the pinned input
 and the issue of the upload and the stage launch), launch issue and copy out
 with the caller keeping every output and dropping each, unsharded and
-sharded, and once with a synchronise after the staging, timed; and a steady
-call of each farm kind under torch.profiler (chip_smoke.profile_farms).
+sharded, and once with a synchronise after the staging, timed; a steady
+call of each farm kind under torch.profiler (chip_smoke.profile_farms); and
+last the ways a chunk may reach the card, each as the headline farm's
+``_write_rows`` in a fresh process (chip_scripts/farm_host_probe.py --fresh).
 ``--quick`` stops after the cases.
 """
 import json
@@ -170,4 +172,16 @@ del kept
 profiles = cs.profile_farms(rng, dict(chunks=chunks))
 show("farm_profiles", calls=profiles,
      headline_device_idle_share=1 - profiles[0]["device_ms_total"] / steady)
+
+# The ways a headline chunk may reach the card (farm_host_probe.CANDIDATES:
+# the parent's torch copy into the pinned input, (a) the pageable upload, (b)
+# the registered array, (c) the farm's own route, the farm library's host
+# threads), each the farm's _write_rows in a fresh process, in turns; one line
+# each, also into chiprun_out/farm_host_probe.jsonl.
+host_probe = os.path.join(os.path.dirname(os.path.abspath(__file__)), "farm_host_probe.py")
+names = ("torch_copy", "direct", "registered", "shipped")
+for name in names + names[::-1]:
+    rc = subprocess.run([sys.executable, host_probe, "--fresh", name]).returncode
+    if rc:
+        print(f"fresh {name} rc={rc}", flush=True)
 print("seconds", round(time.time() - t0, 1))

@@ -41,8 +41,13 @@ the host's time to issue a step, peak memory, each engine's scan mode at its
 step beside its bound); shows by torch.profiler that each
 engine's step loop runs no aten op, allocates nothing and puts exactly its
 kernels on the card, and that a steady farm call (unsharded, sharded, mixed)
-runs no aten op and puts on the card one upload, one farm_stage_kernel, the
-engine's kernels, one farm_unstage_kernel and one download a program; counts
+runs no aten op and puts on the card its chunk's pieces' uploads (the farm
+library's host threads copy each piece into pinned memory straight from the
+caller's arrays) and one farm_stage_kernel, the engine's kernels, one
+farm_unstage_kernel and one download a program; checks that every farm of the
+main and sharded paths took its chunks straight from the caller's int16
+arrays or stacked a mixed farm's streams, and that chunks of other types and
+layouts, converted first, give the same outputs; counts
 the device launches of one tiled, general, strided, wide and batch entry
 call (one, one, one, two and one: each entry computes its own launch
 geometry), and prints
@@ -1415,10 +1420,13 @@ def oracle_stream(data: np.ndarray, in_rate: int, out_rate: int) -> np.ndarray:
 
 
 SPLIT = ("stage_ms", "launch_issue_ms", "to_host_ms")
-# Inside the staging: the upload and stage launch issued (FarmProgram.stage),
-# the rest being the host's pass into the pinned input; with ``wait_staging``
-# also the wait, after the staging returns, for the card to have done it.
-STAGE_SPLIT = ("stage_issue_ms", "stage_wait_ms")
+# Inside the staging: the programs' stage (FarmProgram.stage: the chunk's way
+# to the card and the stage launch issued) and, inside that, their upload
+# (FarmProgram.upload: the farm library's host threads copying the chunk into
+# the pinned input, each piece's upload issued as it lands; or the upload
+# alone); with ``wait_staging`` also the wait, after the staging returns, for
+# the card to have done it.
+STAGE_SPLIT = ("stage_issue_ms", "upload_ms", "stage_wait_ms")
 
 
 def drive_farm(farm, chunks, feed=lambda farm, chunk: farm.process(chunk),
@@ -1433,10 +1441,11 @@ def drive_farm(farm, chunks, feed=lambda farm, chunk: farm.process(chunk),
     ``split`` the farm's staging, launch issue and copy out (``_stage``,
     ``_launch``, ``_to_host``) are timed on the host clock inside each call
     (the copy out waits for the launch, so it holds the device time), and
-    inside the staging its programs' issue of the upload and the stage launch
-    (STAGE_SPLIT; with ``wait_staging`` a synchronise after the staging,
-    timed: the call then waits for the staging before it issues the
-    launches)."""
+    inside the staging its programs' stage and upload (STAGE_SPLIT; with
+    ``wait_staging`` a synchronise after the staging, timed: the call then
+    waits for the staging before it issues the launches). ``host_ms`` is the
+    call's host part before the stage launch: the staging but the stage
+    launch's issue, the host threads' copy included."""
     calls = []
     if split:
         def timed(name, fn, wait=False):
@@ -1456,6 +1465,7 @@ def drive_farm(farm, chunks, feed=lambda farm, chunk: farm.process(chunk),
         farm._to_host = timed(SPLIT[2], farm._to_host)
         for *_, program in farm._programs:
             program.stage = timed(STAGE_SPLIT[0], program.stage)
+            program.upload = timed(STAGE_SPLIT[1], program.upload)
     outs, times, sizes = [], [], []
     for k, chunk in enumerate([*chunks, None]):
         torch.cuda.synchronize()
@@ -1472,11 +1482,15 @@ def drive_farm(farm, chunks, feed=lambda farm, chunk: farm.process(chunk),
         del out
     res = dict(outs=outs, times=times, sizes=sizes)
     if split:
-        keys = SPLIT + STAGE_SPLIT[: 2 if wait_staging else 1]
-        res["steady_split_ms"] = {k: statistics.median(c[k] for c in calls[1 : len(chunks)])
+        keys = SPLIT + STAGE_SPLIT[: 3 if wait_staging else 2]
+        steady = calls[1 : len(chunks)]
+        res["steady_split_ms"] = {k: statistics.median(c.get(k, 0.0) for c in steady)
                                   for k in keys}
-        res["steady_split_ms"]["host_pass_ms"] = statistics.median(
-            c["stage_ms"] - c["stage_issue_ms"] for c in calls[1 : len(chunks)])
+        res["steady_split_ms"]["host_ms"] = statistics.median(
+            c["stage_ms"] - c.get("stage_issue_ms", 0.0) + c.get("upload_ms", 0.0) for c in steady)
+        if wait_staging:
+            res["steady_split_ms"]["chunk_to_card_ms"] = statistics.median(
+                c["stage_ms"] + c["stage_wait_ms"] for c in steady)
     return res
 
 
@@ -2183,6 +2197,55 @@ def run_example() -> dict:
     return dict(seconds=time.perf_counter() - t0, printed=proc.stdout.strip().splitlines())
 
 
+# The ways a chunk enters a farm on the card (ROUTES ("farm_input", route)):
+# straight from the caller's C-contiguous int16 array through the farm
+# library's host threads, converted into the pinned input first, or a mixed
+# farm's streams stacked straight into it.
+INPUT_ROUTES = ("direct", "converted", "stacked")
+# The headline farm's first chunks in forms a caller may hand it, each to
+# take its route: (name, form of the int16 chunk, route).
+INPUT_FORMS = (("int16", lambda x: x, "direct"),
+               ("int32", lambda x: x.astype(np.int32), "converted"),
+               ("strided view", lambda x: np.repeat(x, 2, axis=1)[:, ::2], "converted"),
+               ("read-only int16", lambda x: _read_only(x.copy()), "direct"))
+
+
+def _read_only(x: np.ndarray) -> np.ndarray:
+    x.flags.writeable = False
+    return x
+
+
+def input_routes(counts: dict) -> dict:
+    """The farm_input routes among ROUTES ``counts``."""
+    return {impl: n for (kind, impl), n in counts.items() if kind == "farm_input"}
+
+
+def run_input_routes(farm: dict) -> dict:
+    """A fresh headline farm fed the main path's first chunks in the forms of
+    INPUT_FORMS, each call held against the main path's output for the same
+    chunk and its route against ROUTES."""
+    import clownresampler_tpu_torch as crt
+    from clownresampler_tpu_torch.ops.resample import ROUTES
+
+    f = FARM
+    fm = crt.UniformStreamFarm(f["streams"], f["channels"], *f["rates"], chunk_frames=f["chunk"],
+                               device=DEVICE)
+    taken = {}
+    for k, (name, form, route) in enumerate(INPUT_FORMS):
+        chunk = form(farm["chunks"][k])
+        before = input_routes(ROUTES)
+        out = fm.process(chunk)
+        after = input_routes(ROUTES)
+        got = {r: after.get(r, 0) - before.get(r, 0) for r in after if after.get(r, 0) !=
+               before.get(r, 0)}
+        if got != {route: 1}:
+            raise AssertionError(f"a {name} chunk took the routes {got}, not {route}")
+        if not np.array_equal(out, farm["outs"][k]):
+            raise AssertionError(f"a {name} chunk's output != the main path's")
+        taken[name] = route
+    return dict(forms=taken, exact=True)
+
+
 def run_sharded_paths(rng, gen, farm: dict, mixed: dict, checkpoints: dict,
                       fleet: dict) -> dict:
     """The sharded paths (main path of parallel/) on shard_mesh(): the
@@ -2317,7 +2380,10 @@ def time_sharded(rng, farm: dict, fleet: dict) -> dict:
     """The headline farm unsharded, sharded, sharded, unsharded on the same
     chunks in fresh farms, each output held against the main path's and
     dropped (Msamples/s, ms a steady call and its split; the main path's
-    farms keep every output, so each of their calls pins a new buffer);
+    farms keep every output, so past the pool's buffers each call copies
+    into a fresh array), and unsharded once more with a synchronise after
+    each call's staging (its ``chunk_to_card_ms``: the host part and the
+    wait for the upload and the stage);
     resample_batch batched and sharded on the fleet's inputs (FLEET,
     ``fleet``), batched and looped stream by stream at BATCH; and one
     headline emit's de-interleave to a fresh host array three ways."""
@@ -2328,8 +2394,9 @@ def time_sharded(rng, farm: dict, fleet: dict) -> dict:
     mesh = shard_mesh()
     turns = []
     for name, m in (("unsharded", None), ("sharded", mesh), ("sharded", mesh),
-                    ("unsharded", None)):
-        r = run_uniform_farm(FARM, rng, chunks=farm["chunks"], mesh=m, expect=farm["outs"])
+                    ("unsharded", None), ("unsharded, the staging waited", None)):
+        r = run_uniform_farm(FARM, rng, chunks=farm["chunks"], mesh=m, expect=farm["outs"],
+                             wait_staging=name.endswith("waited"))
         turns.append(dict(farm=name, msamples_per_s=r["msamples_per_s"],
                           ms_per_process=r["ms_per_process"],
                           steady_split_ms=r["steady_split_ms"], ms_per_call=r["ms_per_call"]))
@@ -2721,24 +2788,25 @@ ROUTE_KERNELS = {"farm_stage": ("farm_stage_kernel",), "farm_unstage": ("farm_un
                  **ENTRY_KERNELS}
 
 
-# The torch ops of a steady farm call: the threaded host copy of the chunk
-# into the pinned input buffer (from_numpy, copy_).
-FARM_HOST_PASS_OPS = {"aten::copy_", "aten::lift_fresh"}
+def host_stage_uploads(farm, n: int) -> int:
+    """The uploads a call of ``n`` frames issues through crt_farm_host_stage
+    on each of ``farm``'s programs (a UniformStreamFarm's): its pieces."""
+    from clownresampler_tpu_torch.ops import _build
+
+    return sum(len(_build.farm_host_pieces(2 * (hi - lo) * n * farm.channels))
+               for _, lo, hi, _ in farm._programs)
 
 
-def profile_farm_call(label: str, call, programs: int, uploads_first: bool = True,
+def profile_farm_call(label: str, call, programs: int, uploads: int,
                       attempts: int = 3) -> dict:
     """One steady farm call (``call()``, after the farm has run a few) under
-    torch.profiler. It fails unless the card ran, for each of the farm's
-    ``programs`` FarmPrograms, one upload, one farm_stage_kernel, one
+    torch.profiler. It fails unless the card ran ``uploads`` host-to-device
+    copies (the pieces of the chunk, host_stage_uploads), and for each of the
+    farm's ``programs`` FarmPrograms one farm_stage_kernel, one
     farm_unstage_kernel and one download, the kernels of the launches that
-    ROUTES counted during the call, and nothing else; and unless the call's
-    only ``aten::`` ops are the host's pass of the chunk into the pinned
-    input (FARM_HOST_PASS_OPS), all begun before the first upload did: none
-    between the upload and the end of the last download. A mixed farm stages
-    group after group (``uploads_first`` False), so there a group's host pass
-    follows the upload of the group before, and the window opens at the last
-    upload. A count that is off is taken again (the
+    ROUTES counted during the call, and nothing else; and unless the call ran
+    no ``aten::`` op at all (the chunk reaches the pinned input through the
+    farm library's host threads). A count that is off is taken again (the
     profiler now and then loses a record), up to ``attempts`` times. Returns
     the activities, their device ms and the call's profiled wall ms."""
     from clownresampler_tpu_torch.ops.resample import ROUTES
@@ -2753,23 +2821,23 @@ def profile_farm_call(label: str, call, programs: int, uploads_first: bool = Tru
             call()
             wall_ms = 1e3 * (time.perf_counter() - t0)
             torch.cuda.synchronize()
-        want = {"Memcpy HtoD": programs, "Memcpy DtoH": programs}
+        want = {"Memcpy HtoD": uploads, "Memcpy DtoH": programs}
         for (kind, impl), count in ROUTES.items():
             launched = count - before.get((kind, impl), 0)
+            if kind == "farm_input":
+                continue
             for kernel in ROUTE_KERNELS[kind] if launched and impl == "cuda" else ():
                 want[kernel] = want.get(kernel, 0) + launched
         if (want.get("farm_stage_kernel"), want.get("farm_unstage_kernel")) != (programs,) * 2:
             raise AssertionError(f"{label}: ROUTES counted {want} for {programs} programs")
-        counts, device_us, aten, copies = {}, {}, [], []
+        counts, device_us, aten = {}, {}, set()
         for evt in prof.events():
             if evt.device_type == torch.autograd.DeviceType.CUDA:
                 name = next((k for k in want if k in evt.name), evt.name)
                 counts[name] = counts.get(name, 0) + 1
                 device_us[name] = device_us.get(name, 0) + evt.time_range.elapsed_us()
-                if name.startswith("Memcpy"):
-                    copies.append(evt.time_range)
             elif evt.name.startswith("aten::"):
-                aten.append((evt.name, evt.time_range.start))
+                aten.add(evt.name)
         strangers = [k for k in counts if k not in want]
         if strangers:
             raise AssertionError(f"{label}: a steady farm call put {strangers} on the card")
@@ -2778,16 +2846,10 @@ def profile_farm_call(label: str, call, programs: int, uploads_first: bool = Tru
         if attempt == attempts:
             raise AssertionError(f"{label}: device activities {counts} in each of {attempts} "
                                  f"profiles, wanted {want}")
-    uploads = sorted(c.start for c in copies)[:programs]
-    first, last = uploads[0 if uploads_first else -1], max(c.end for c in copies)
-    between = sorted({name for name, at in aten if first <= at <= last})
-    others = sorted({name for name, _ in aten} - FARM_HOST_PASS_OPS)
-    if between or others:
-        raise AssertionError(f"{label}: aten ops between the upload and the download: "
-                             f"{between}; aten ops other than the host pass: {others}")
+    if aten:
+        raise AssertionError(f"{label}: a steady farm call ran aten ops {sorted(aten)}")
     total_us = sum(device_us.values())
-    return dict(farm=label, aten_ops_before_the_upload=sorted({name for name, _ in aten}),
-                aten_ops_between_upload_and_download=0, profiles_taken=attempt,
+    return dict(farm=label, aten_ops=0, profiles_taken=attempt,
                 device_activities=counts, device_ms={k: v / 1e3 for k, v in device_us.items()},
                 device_ms_total=total_us / 1e3, profiled_wall_ms=wall_ms,
                 profiled_device_busy_share=total_us / 1e3 / wall_ms)
@@ -2812,7 +2874,8 @@ def profile_farms(rng, farm: dict) -> list:
              SHARD_DP)):
         for chunk in chunks[:3]:
             fm.process(chunk)
-        res.append(profile_farm_call(label, lambda: fm.process(chunks[3]), programs))
+        res.append(profile_farm_call(label, lambda: fm.process(chunks[3]), programs,
+                                     host_stage_uploads(fm, chunks[3].shape[1])))
         del fm
     specs = [rates for rates in m["groups"] for _ in range(m["per_group"])]
     mixed = crt.MixedStreamFarm(specs, m["channels"], chunk_frames=m["chunk"],
@@ -2821,8 +2884,9 @@ def profile_farms(rng, farm: dict) -> list:
                                  dtype=np.int16)) for _ in range(2)]
     for k in range(3):
         mixed.process(mchunks[k % 2])
+    uploads = sum(host_stage_uploads(group, m["chunk"]) for group, _ in mixed._groups)
     res.append(profile_farm_call("mixed (config 5)", lambda: mixed.process(mchunks[1]),
-                                 len(m["groups"]), uploads_first=False))
+                                 len(m["groups"]), uploads))
     return res
 
 
@@ -2864,6 +2928,34 @@ def check_cli(res: dict) -> dict:
                 md5_s32le=md5, printed=res["printed"])
 
 
+def _read(path: str) -> str:
+    try:
+        with open(path) as f:
+            return f.read().strip()
+    except OSError as e:
+        return f"unreadable: {e}"
+
+
+def host_facts() -> dict:
+    """What bounds a farm call's host half (PERF.md §5): torch's thread
+    count, the CPUs this process may use, the card's NUMA node and its CPUs,
+    the machine's nodes, transparent huge pages."""
+    import glob
+
+    p = torch.cuda.get_device_properties(0)
+    ids = [getattr(p, k, None) for k in ("pci_domain_id", "pci_bus_id", "pci_device_id")]
+    pci = None if None in ids else "/sys/bus/pci/devices/{:04x}:{:02x}:{:02x}.0".format(*ids)
+    return dict(
+        torch_threads=torch.get_num_threads(), os_cpu_count=os.cpu_count(),
+        affinity_cpus=len(os.sched_getaffinity(0)),
+        card_numa_node=_read(os.path.join(pci, "numa_node")) if pci else None,
+        card_local_cpus=_read(os.path.join(pci, "local_cpulist")) if pci else None,
+        numa_nodes={os.path.basename(d): _read(os.path.join(d, "cpulist"))
+                    for d in sorted(glob.glob("/sys/devices/system/node/node[0-9]*"))},
+        thp_enabled=_read("/sys/kernel/mm/transparent_hugepage/enabled"),
+        thp_defrag=_read("/sys/kernel/mm/transparent_hugepage/defrag"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
@@ -2874,6 +2966,7 @@ def main() -> int:
     phase("environment", torch=torch.__version__, cuda=torch.version.cuda,
           device=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
           nvidia_smi=smi)
+    phase("host", **host_facts())
 
     from clownresampler_tpu_torch.ops import _build
     from clownresampler_tpu_torch.ops.resample import ROUTES
@@ -2916,9 +3009,17 @@ def main() -> int:
                             for (k, impl), v in sorted(sharded_launches.items())})
     for name, counts, names in (("main", launches, KERNELS),
                                 ("sharded", sharded_launches, SHARDED_KERNELS)):
-        if set(counts) != {(KERNELS[kernel][0], "cuda") for kernel in names}:
+        kernel_routes = {k for k in counts if k[0] != "farm_input"}
+        if kernel_routes != {(KERNELS[kernel][0], "cuda") for kernel in names}:
             raise AssertionError(f"{name} paths took routes other than their kernels: "
                                  f"{counts}")
+        # Every farm of these paths took its chunks straight from the caller's
+        # int16 arrays (uniform farms) or stacked them (mixed farms).
+        if set(input_routes(counts)) != {"direct", "stacked"}:
+            raise AssertionError(f"{name} paths' farms took the input routes "
+                                 f"{input_routes(counts)}")
+    phase("farm_input_routes", main=input_routes(launches),
+          sharded=input_routes(sharded_launches), **run_input_routes(farm))
 
     phase("goldens", passed=goldens, md5_ok=True)
     for name, spec, res in (("farm", FARM, farm), ("strided_farm", STRIDED_FARM, strided)):

@@ -13,14 +13,15 @@ increment/stretching change.
 (input, output, low-pass) rate triple and issues every group's launches of a
 chunk together.
 
-On a CUDA card a farm call is one device program (``FarmProgram``): one
-upload of the chunk from a pinned buffer, one launch of farm_stage_kernel
-(the parked slide, the chunk widened and transposed, the zero tail), the
-ratio class's launches written in place into one output, one launch of
-farm_unstage_kernel (the de-interleave) and one download into the pinned
-buffer that the caller receives, all issued as prebound C calls with no
-torch op in between. On the CPU the same bookkeeping runs the kernels' plain
-versions (``farm_stage_reference``, ``farm_unstage_reference``).
+On a CUDA card a farm call is one device program (``FarmProgram``): the
+chunk copied from the caller's memory into a pinned buffer by the farm
+library's host threads, its pieces uploaded as they land, one launch of
+farm_stage_kernel (the parked slide, the chunk widened and transposed, the
+zero tail), the ratio class's launches written in place into one output, one
+launch of farm_unstage_kernel (the de-interleave) and one download into the
+pinned buffer that the caller receives, all issued as prebound C calls with
+no torch op in between. On the CPU the same bookkeeping runs the kernels'
+plain versions (``farm_stage_reference``, ``farm_unstage_reference``).
 
 Bit-exactness: each stream's output is identical to running the reference
 (and LowLevelResampler) on that stream alone.
@@ -235,7 +236,8 @@ class FarmProgram:
     a parked slide applied, for everything that reads between calls.
 
     On a card every step is a C call whose arguments were checked once: the
-    upload (cudaMemcpyAsync from the farm's pinned input), farm_stage_kernel,
+    upload (``upload``: the host threads' copy into the farm's pinned input
+    and its pieces' cudaMemcpyAsync, or the latter alone), farm_stage_kernel,
     the ratio class's launches into one preallocated (frames, lanes) output at
     their row offsets -- issued in order, the last one's padding rows (every
     other launch is whole 8-frame tiles) past the emit's frames and never
@@ -267,7 +269,7 @@ class FarmProgram:
             self._stage_calls: dict = {}
             self._calls = {entry: _build.entry_function(entry)
                            for entry in ("crt_farm_stage", "crt_farm_unstage", "crt_farm_copy",
-                                         "crt_farm_sync")}
+                                         "crt_farm_host_stage", "crt_farm_sync")}
 
     def rows(self) -> torch.Tensor:
         """The staged rows from row 0 on, a parked slide applied (a view)."""
@@ -288,11 +290,35 @@ class FarmProgram:
     def _stream(self) -> int:
         return _build._stream(self.buffers[0])
 
-    def stage(self, chunk, n: int, fill: int) -> None:
+    def upload(self, pinned: int, n: int, sources: Optional[np.ndarray] = None) -> None:
+        """Upload this program's (streams, n, channels) int16 block (on a
+        card) from the pinned host address ``pinned``: from there as it
+        stands (crt_farm_copy), or, given ``sources`` (the uint64 host
+        addresses of the equal rows the block is made of, 0 for a row of
+        zeros), after the farm library's host threads have copied them there,
+        each piece going up as it lands (crt_farm_host_stage)."""
+        nbytes, device, stream = 2 * n * self.lanes, self.device.index, self._stream()
+        if sources is None:
+            self._call("crt_farm_copy", dict(dst=self.chunk.data_ptr(), src=pinned,
+                                             nbytes=nbytes, device=device, stream=stream))
+        else:
+            self._call("crt_farm_host_stage", _build.farm_host_stage_args(
+                pinned, sources, nbytes // len(sources), self.chunk.data_ptr(), device, stream))
+
+    def host_copy(self, dst: np.ndarray, src: np.ndarray) -> None:
+        """dst[...] = src (C-contiguous arrays of one size in host memory) by
+        the farm library's host threads (crt_farm_host_stage with no card
+        address: the copy alone)."""
+        sources = np.array([src.ctypes.data], np.uint64)
+        self._call("crt_farm_host_stage", _build.farm_host_stage_args(
+            dst.ctypes.data, sources, src.nbytes, None, self.device.index, self._stream()))
+
+    def stage(self, chunk, n: int, fill: int, sources: Optional[np.ndarray] = None) -> None:
         """Stage ``n`` frames at row ``fill`` with the parked slide, and zero
         the rows after them. ``chunk`` is this program's streams' (streams,
-        n, channels) int16 block: on a card its address in pinned host
-        memory, uploaded here; on the CPU a tensor."""
+        n, channels) int16 block: on a card the address of its place in the
+        farm's pinned input, uploaded here with ``sources`` (``upload``); on
+        the CPU a tensor."""
         src = self.buffers[self.current]
         if self.slide:
             self.current ^= 1
@@ -300,9 +326,7 @@ class FarmProgram:
         if self.on_card:
             stream = self._stream()
             if n:
-                self._call("crt_farm_copy", dict(
-                    dst=self.chunk.data_ptr(), src=chunk, nbytes=2 * n * self.lanes,
-                    device=self.device.index, stream=stream))
+                self.upload(chunk, n, sources)
             key = (n, src.data_ptr(), dst.data_ptr())
             args = self._stage_calls.get(key)
             if args is None:
@@ -400,8 +424,8 @@ class UniformStreamFarm:
     uploaded per launch. Each returned array is the caller's: no later call
     writes to it.
 
-    A call has three seams: ``_stage`` (the chunk into the pinned input
-    buffer, its upload and the stage launch), ``_launch`` (the ratio class's
+    A call has three seams: ``_stage`` (the chunk through the pinned input
+    buffer to the card and the stage launch), ``_launch`` (the ratio class's
     launches) and ``_to_host`` (the de-interleave and the download). The
     programs (``_programs``: (shard, first stream, end stream, FarmProgram),
     here one for all streams) are set up by ``_alloc`` and issued under
@@ -631,7 +655,9 @@ class UniformStreamFarm:
         the host then waits for the shards in order. No host copy follows and
         no fresh page is touched once the pool is warm, unless the caller
         holds every buffer of the pool: then the download goes through the
-        pool's scratch buffer and a threaded host copy into a fresh array."""
+        pool's scratch buffer, and the farm library's host threads copy it
+        into a fresh array (no torch op, whose threads would spin on after it
+        beside the next call's host copy)."""
         shape = (self.n_streams, n_out, self.channels)
         dtype = np.int16 if self.clamp_s16 else np.int32
         if self._on_card:
@@ -645,7 +671,7 @@ class UniformStreamFarm:
                     program.wait()
             if not owned:             # the caller holds every pooled buffer
                 scratch, result = result, np.empty(shape, dtype)
-                torch.from_numpy(result).copy_(torch.from_numpy(scratch))
+                self._programs[0][3].host_copy(result, scratch)
             return result
         result = np.empty(shape, dtype)
         if self._device_staging:
@@ -704,32 +730,50 @@ class UniformStreamFarm:
     def _write_rows(self, chunk: np.ndarray) -> None:
         """Stage the (B, n, C) chunk lane-major at rows [fill, fill + n),
         converted as ``np.ascontiguousarray(chunk, dtype=np.int16)`` converts
-        it. On a card that is one host pass into the pinned input buffer
-        (once the card has taken the chunk before; the only torch op of a
-        steady call), then each program's upload of its streams' block and
-        its stage launch."""
+        it. On a card (once the card has taken the chunk before) a
+        C-contiguous int16 chunk goes straight from the caller's memory
+        through the pinned input to the card, by the farm library's host
+        threads, piece by piece (route ``("farm_input", "direct")``); any
+        other is converted into the pinned input and uploaded from there
+        (``("farm_input", "converted")``); then each program stages its
+        streams' block."""
         b, n, c = chunk.shape
         if not self._device_staging:
             native.stage_chunk(np.ascontiguousarray(chunk, dtype=np.int16), self._host_staging,
                                self._fill)
         elif self._on_card:
-            for shard, _, _, program in self._programs:
-                with self._as_shard(shard):
-                    program.wait()
-            block = self._input_array[: b * n * c].reshape(b, n, c)
-            if chunk.dtype == np.int16 and chunk.flags.c_contiguous and chunk.flags.writeable:
-                # PyTorch's copy is threaded: 1.2 ms against numpy's 6.8 ms for
-                # the 36.5 MB of 1024 stereo streams x 8916 frames (PERF.md).
-                torch.from_numpy(block).copy_(torch.from_numpy(chunk))
+            self._wait_programs()
+            if chunk.dtype == np.int16 and chunk.flags.c_contiguous:
+                ROUTES[("farm_input", "direct")] += 1
+                stream_bytes = 2 * n * c
+                self._upload(n, lambda lo, hi: np.array(
+                    [chunk.ctypes.data + lo * stream_bytes], np.uint64))
             else:
-                np.copyto(block, chunk, casting="unsafe")
-            for shard, lo, _, program in self._programs:
-                with self._as_shard(shard):
-                    program.stage(self._input.data_ptr() + 2 * lo * n * c, n, self._fill)
+                np.copyto(self._input_array[: b * n * c].reshape(b, n, c), chunk,
+                          casting="unsafe")
+                ROUTES[("farm_input", "converted")] += 1
+                self._upload(n)
         else:
             block = torch.from_numpy(np.ascontiguousarray(chunk, dtype=np.int16))
             for _, lo, hi, program in self._programs:
                 program.stage(block[lo:hi], n, self._fill)
+
+    def _wait_programs(self) -> None:
+        """Wait for every program: the card is done with the pinned input."""
+        for shard, _, _, program in self._programs:
+            with self._as_shard(shard):
+                program.wait()
+
+    def _upload(self, n: int, sources=None) -> None:
+        """Each program uploads its streams' block of the (B, n, C) chunk from
+        its place in the pinned input, with ``sources(lo, hi)`` (the uint64
+        addresses of the rows that make up streams [lo, hi), 0 for zeros)
+        copied there first, and stages it."""
+        stream_bytes = 2 * n * self.channels
+        for shard, lo, hi, program in self._programs:
+            with self._as_shard(shard):
+                program.stage(self._input.data_ptr() + lo * stream_bytes, n, self._fill,
+                              None if sources is None else sources(lo, hi))
 
     def _zero_rows(self, start: int, n: int) -> None:
         """Rows [start, start + n) zero (flush's silence). A program's stage
@@ -774,19 +818,50 @@ class UniformStreamFarm:
         lanes = source._staging[:, lo : lo + self.channels]
         self._staging[: lanes.shape[0]] = lanes
 
+    def _check_chunk(self, shape: tuple) -> None:
+        b, n, c = shape
+        if b != self.n_streams or c != self.channels or n > self.chunk_frames:
+            raise ValueError(f"chunk of shape {shape} does not match the farm "
+                             f"({self.n_streams}, <= {self.chunk_frames}, {self.channels})")
+        if self._fill + n > self._capacity:
+            raise ValueError("staging overflow: feed chunks of at most chunk_frames")
+
     def _stage(self, chunk: np.ndarray) -> int:
         """Stage one (B, n, C) int16 chunk; returns the consumable frame count
         (the last `radius_bound` data rows stay held back until more data or
         flush arrives -- the high-level buffer's early `input_buffer_end`,
         clownresampler.h:1154)."""
         chunk = np.asarray(chunk)
-        b, n, c = chunk.shape
-        if b != self.n_streams or c != self.channels or n > self.chunk_frames:
-            raise ValueError(f"chunk of shape {chunk.shape} does not match the farm "
-                             f"({self.n_streams}, <= {self.chunk_frames}, {self.channels})")
-        if self._fill + n > self._capacity:
-            raise ValueError("staging overflow: feed chunks of at most chunk_frames")
+        self._check_chunk(chunk.shape)
         self._write_rows(chunk)
+        self._fill += chunk.shape[1]
+        return self._fill - 2 * self._radius_bound
+
+    def _check_streams(self, rows: list, n: int) -> None:
+        """Refuse ``rows`` (``_stage_streams``) unless each is an (n, C)
+        chunk and together they fit the farm."""
+        shape = (n, self.channels)
+        for r in rows:
+            if r is not None and r.shape != shape:
+                raise ValueError(f"a stream's chunk of shape {r.shape} among chunks of "
+                                 f"shape {shape}")
+        self._check_chunk((len(rows), *shape))
+
+    def _stage_streams(self, rows: list, n: int) -> int:
+        """``_stage`` of the chunk whose stream j is ``rows[j]``, an (n, C)
+        int16 array, or zeros where it is None (MixedStreamFarm's slots). On a
+        card the farm library's host threads copy the rows straight into the
+        pinned input, piece by piece, each piece going up as it lands: one
+        pass (route ``("farm_input", "stacked")``); elsewhere they are stacked
+        into one chunk first. The caller has checked them (``_check_streams``)."""
+        if not self._on_card:
+            zeros = np.zeros((n, self.channels), np.int16)
+            return self._stage(np.stack([zeros if r is None else r for r in rows]))
+        self._wait_programs()
+        rows = [None if r is None else np.ascontiguousarray(r) for r in rows]
+        addresses = np.array([0 if r is None else r.ctypes.data for r in rows], np.uint64)
+        ROUTES[("farm_input", "stacked")] += 1
+        self._upload(n, lambda lo, hi: addresses[lo:hi])
         self._fill += n
         return self._fill - 2 * self._radius_bound
 
@@ -913,14 +988,17 @@ class MixedStreamFarm:
     def process(self, chunks: list) -> list:
         """chunks[i]: (n, channels) int16 for stream i (the same n for every
         stream). Returns outputs[i]: (m_i, channels) int32 (int16 with
-        ``clamp_s16``); m_i varies with the stream's ratio and phase."""
+        ``clamp_s16``); m_i varies with the stream's ratio and phase. Each
+        chunk is converted as ``np.asarray(chunk, np.int16)`` converts it; on
+        a card a group's streams go straight into its pinned input."""
         n = np.asarray(chunks[0]).shape[0]
-        zeros = np.zeros((n, self.channels), np.int16)
+        groups = [(farm, members, [None if i is None else np.asarray(chunks[i], np.int16)
+                                   for i in members]) for farm, members in self._groups]
+        for farm, _, rows in groups:       # refuse a bad chunk before any group stages
+            farm._check_streams(rows, n)
         pending = []   # (farm, members, total, n_out)
-        for farm, members in self._groups:
-            batch = np.stack([zeros if i is None else np.asarray(chunks[i], np.int16)
-                              for i in members])
-            total = farm._stage(batch)
+        for farm, members, rows in groups:
+            total = farm._stage_streams(rows, n)
             n_out = farm._natural_count(total) if total > 0 else 0
             pending.append((farm, members, total, n_out))
         launched = iter(self._launch_groups([(farm, n_out) for farm, _, _, n_out in pending

@@ -16,7 +16,8 @@ caller that repeats a launch (the whole-stream scan) checks once and then
 calls the entry (``entry_function``) with ``ordered_args`` of the same
 arguments, a few pointers replaced, with no torch op in between. A farm call
 issues its copies and its wait the same way (``crt_farm_copy``,
-``crt_farm_sync``).
+``crt_farm_sync``), and its chunk's way into pinned memory and up
+(``crt_farm_host_stage``, host threads of the farm library).
 """
 
 from __future__ import annotations
@@ -50,10 +51,12 @@ POINTER_ARGS = frozenset((
     "x", "p0_ptr", "f0_ptr", "inc_hi", "inc_lo", "radius", "delta", "int_radius", "step",
     "table", "tstr", "partial", "tap_sums", "out", "rows_out", "n_valid", "stream",
     "chunk", "state_in", "produced", "over", "state_out",
-    "src", "dst", "totals", "quotas", "consumed", "p_out", "f_out", "exhausted"))
+    "src", "dst", "totals", "quotas", "consumed", "p_out", "f_out", "exhausted",
+    "pinned", "srcs", "card"))
 # The ConfigScalars pointers every MAC entry takes, in order (TILED_CONFIG_FIELDS).
 CONFIG_ARGS = ("inc_hi", "inc_lo", "radius", "delta", "int_radius", "step")
-LONG_ARGS = frozenset(("nbytes", "stride_b", "src_first", "src_end"))   # pass as long long
+LONG_ARGS = frozenset(("nbytes", "stride_b", "src_first", "src_end",
+                       "row_bytes"))   # pass as long long
 _LAUNCH_INPUT = ("x", "S", "L", "lane_offset", "lanes", "p0_ptr", "p0_val", "f0_ptr", "f0_val",
                  *CONFIG_ARGS, "table", "table_size")
 _LAUNCH_OUTPUT = ("out", "rows_out", "clamp_s16", "n_valid", "frame_offset", "device", "stream")
@@ -80,6 +83,7 @@ ENTRY_ARGS = {
     "crt_farm_unstage": ("src", "dst", "L", "n_out", "stream_lo", "streams", "channels",
                          "out_s16", "words", "tile_streams", "tile_frames", "device", "stream"),
     "crt_farm_copy": ("dst", "src", "nbytes", "device", "stream"),
+    "crt_farm_host_stage": ("pinned", "srcs", "rows", "row_bytes", "card", "device", "stream"),
     "crt_farm_sync": ("device", "stream"),
     "crt_batch_mac": ("x", "x_s16", "B", "S", "C", "stride_b", "totals", "quotas", "p0_ptr",
                       "f0_ptr", "inc_hi", "inc_lo", "radius", "delta", "int_radius", "step",
@@ -93,7 +97,7 @@ LIBRARIES = {
     "strided": ("strided_kernels.cu", ("crt_strided_mac", "crt_strided_scan")),
     "wide": ("wide_kernels.cu", ("crt_wide_mac", "crt_wide_scan")),
     "farm": ("farm_kernels.cu", ("crt_farm_stage", "crt_farm_unstage", "crt_farm_copy",
-                                 "crt_farm_sync")),
+                                 "crt_farm_host_stage", "crt_farm_sync")),
     "batch": ("batch_kernels.cu", ("crt_batch_mac",)),
 }
 # C entry -> (its library, what it launches, for error messages).
@@ -106,6 +110,7 @@ ENTRIES = {"crt_tiled_mac": ("resample", "tiled_mac_kernel"),
            "crt_farm_stage": ("farm", "farm_stage_kernel"),
            "crt_farm_unstage": ("farm", "farm_unstage_kernel"),
            "crt_farm_copy": ("farm", "cudaMemcpyAsync"),
+           "crt_farm_host_stage": ("farm", "the host copy into pinned memory"),
            "crt_farm_sync": ("farm", "cudaStreamSynchronize"),
            "crt_batch_mac": ("batch", "batch_mac_kernel")}
 
@@ -721,6 +726,30 @@ FARM_RING_ROW_BYTES = 256
 FARM_RING_HEADER = 128
 # crt_farm_stage's paths: element by element, 16-byte stores, the ring.
 FARM_STAGE_ELEMENT, FARM_STAGE_VEC, FARM_STAGE_RING = 0, 1, 2
+# crt_farm_host_stage's pieces, whose uploads are issued as each lands
+# (farm_kernels.cu HOST_PIECES; its thread count is the source's alone).
+FARM_HOST_PIECES = 8
+
+
+def farm_host_pieces(nbytes: int) -> list:
+    """The byte bounds of crt_farm_host_stage's pieces of ``nbytes``: equal
+    pieces of whole 64-byte units, the last one shorter, none empty (the C
+    entry's rule)."""
+    step = -(-(-(-nbytes // FARM_HOST_PIECES)) // 64) * 64
+    return [(lo, min(nbytes, lo + step)) for lo in range(0, nbytes, step)] if nbytes else []
+
+
+def farm_host_stage_args(pinned: int, sources, row_bytes: int, card: int, device: int,
+                         stream: int) -> dict:
+    """crt_farm_host_stage's arguments: the rows at the addresses of the
+    uint64 array ``sources`` (0 for a row of zeros), ``row_bytes`` each, to
+    the host address ``pinned`` (pinned memory where they go on) and from
+    there to the card address ``card`` (None: nowhere). ``sources`` must stay
+    alive until the call returns."""
+    if row_bytes <= 0 or len(sources) == 0 or sources.dtype != "uint64":
+        raise ValueError(f"bad farm host stage: {len(sources)} rows of {row_bytes} bytes")
+    return dict(pinned=pinned, srcs=sources.ctypes.data, rows=len(sources), row_bytes=row_bytes,
+                card=card, device=device, stream=stream)
 
 
 def farm_tile(granule: int) -> tuple:

@@ -59,11 +59,35 @@
 // cudaStreamSynchronize on the caller's stream, so that a farm call's
 // uploads, download and wait are issued like its launches.
 //
+// crt_farm_host_stage is host code: the caller's C-contiguous int16 chunk
+// into the farm's pinned input by the calling thread and a pool of host
+// threads, in pieces; once every thread has written its part of a piece, that
+// piece's upload is issued, so the copy of the next piece overlaps it. On the
+// H100's host one thread copies 5-6 GB/s and eight 19-33, against an upload of
+// 41 GB/s (PERF.md §5), so a chunk goes up at the rate of the threads' copy,
+// with no pass of its own before it. The same threads copy a result into a
+// fresh array where a caller holds every pooled result buffer. One job runs at
+// a time: farms fed from several host threads take turns.
+//
 // Built by ops/_build.py with nvcc into a shared library with a plain C
 // interface, like the MAC kernels' sources; the Python side checks devices,
 // dtypes, shapes and alignment before it passes pointers.
 
+#include <sched.h>
+
 #include <algorithm>
+#include <atomic>
+#include <cstdint>
+#include <condition_variable>
+#include <cstring>
+#include <mutex>
+#include <new>
+#include <system_error>
+#include <thread>
+#include <vector>
+#if defined(__x86_64__)
+#include <immintrin.h>
+#endif
 
 #include "mac_common.cuh"
 
@@ -445,6 +469,144 @@ int launch_farm_unstage(const UnstageParams& P, int smem, int device, cudaStream
     return static_cast<int>(cudaGetLastError());
 }
 
+// ---- The host side: the caller's chunk into the pinned input ---------------
+
+// The threads that copy a job (the calling one and the pool's; fewer where
+// the process may use fewer CPUs) and the pieces whose uploads are issued as
+// each lands (_build.FARM_HOST_PIECES mirrors it): chip_scripts/
+// farm_host_probe.py measured 8 x 8 against 4 threads and 4-32 pieces on the
+// H100's 8-CPU host (PERF.md §5).
+constexpr int HOST_THREADS = 8;
+constexpr int HOST_PIECES = 8;
+
+// dst[0, n) = src[0, n) by 16-byte streaming stores (a plain copy off x86-64);
+// the stores are fenced before it returns.
+void stream_copy(char* dst, const char* src, size_t n) {
+#if defined(__x86_64__)
+    size_t head = (16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15;
+    if (head > n) head = n;
+    std::memcpy(dst, src, head);
+    dst += head;
+    src += head;
+    n -= head;
+    const size_t body = n & ~static_cast<size_t>(63);
+    for (size_t i = 0; i < body; i += 64) {
+        const __m128i a = _mm_loadu_si128(reinterpret_cast<const __m128i*>(src + i));
+        const __m128i b = _mm_loadu_si128(reinterpret_cast<const __m128i*>(src + i + 16));
+        const __m128i c = _mm_loadu_si128(reinterpret_cast<const __m128i*>(src + i + 32));
+        const __m128i d = _mm_loadu_si128(reinterpret_cast<const __m128i*>(src + i + 48));
+        _mm_stream_si128(reinterpret_cast<__m128i*>(dst + i), a);
+        _mm_stream_si128(reinterpret_cast<__m128i*>(dst + i + 16), b);
+        _mm_stream_si128(reinterpret_cast<__m128i*>(dst + i + 32), c);
+        _mm_stream_si128(reinterpret_cast<__m128i*>(dst + i + 48), d);
+    }
+    std::memcpy(dst + body, src + body, n - body);
+    _mm_sfence();
+#else
+    std::memcpy(dst, src, n);
+#endif
+}
+
+// A pool of host threads that copies one job's pieces in order beside the
+// thread that issues the job: the job is rows of row_bytes bytes each, row r
+// from srcs[r] (zeros where it is null), to dst laid end to end, each piece
+// cut into `parts` parts of whole 64-byte units. Pool thread w copies part w
+// of each piece, then counts the piece done; the issuing thread copies the
+// last part itself. The caller holds `job` from setting a job up until every
+// piece is counted done, so that no two jobs share the pool.
+struct HostPool {
+    std::mutex job;
+    std::mutex m;
+    std::condition_variable cv;
+    std::vector<std::thread> threads;
+    bool started = false;
+    long generation = 0;
+    bool stop = false;
+    char* dst = nullptr;
+    const char* const* srcs = nullptr;
+    long long row_bytes = 0;
+    long long bounds[HOST_PIECES + 1];
+    int parts = 1;
+    std::atomic<int> done[HOST_PIECES];
+
+    // Bytes [a, b) of the job.
+    void copy(long long a, long long b) const {
+        long long r = a / row_bytes, off = a % row_bytes;
+        while (a < b) {
+            const long long len = std::min(b - a, row_bytes - off);
+            if (srcs[r] != nullptr) {
+                stream_copy(dst + a, srcs[r] + off, static_cast<size_t>(len));
+            } else {
+                std::memset(dst + a, 0, static_cast<size_t>(len));
+            }
+            a += len;
+            ++r;
+            off = 0;
+        }
+    }
+
+    // Part w of piece k.
+    void copy_part(int k, int w) const {
+        const long long lo = bounds[k], hi = bounds[k + 1];
+        const long long part = ((hi - lo + parts - 1) / parts + 63) & ~63LL;
+        const long long a = std::min(hi, lo + w * part);
+        copy(a, std::min(hi, a + part));
+    }
+
+    void work(int w, long seen) {
+        for (;;) {
+            {
+                std::unique_lock<std::mutex> lock(m);
+                cv.wait(lock, [&] { return stop || generation != seen; });
+                if (stop) return;
+                seen = generation;
+            }
+            for (int k = 0; k < HOST_PIECES; ++k) {
+                copy_part(k, w);
+                done[k].fetch_add(1, std::memory_order_release);
+            }
+        }
+    }
+
+    // The pool's threads, once: HOST_THREADS - 1, or one fewer than the CPUs
+    // this process may use. Throws std::system_error where a thread does not
+    // start, with none left running.
+    void start() {
+        if (started) return;
+        int cpus = HOST_THREADS;
+        cpu_set_t set;
+        if (sched_getaffinity(0, sizeof(set), &set) == 0) cpus = std::min(cpus, CPU_COUNT(&set));
+        try {
+            for (int w = 0; w + 1 < std::max(cpus, 1); ++w) {
+                threads.emplace_back([this, w, g = generation] { work(w, g); });
+            }
+        } catch (...) {
+            shutdown();
+            throw;
+        }
+        parts = static_cast<int>(threads.size()) + 1;
+        started = true;
+    }
+
+    void shutdown() {
+        {
+            std::lock_guard<std::mutex> lock(m);
+            stop = true;
+        }
+        cv.notify_all();
+        for (auto& t : threads) t.join();
+        threads.clear();
+        stop = false;
+    }
+
+    ~HostPool() { shutdown(); }
+};
+
+HostPool& host_pool() {
+    static HostPool pool;
+    return pool;
+}
+
 }  // namespace
 
 extern "C" {
@@ -514,6 +676,61 @@ int crt_farm_copy(void* dst, const void* src, long long nbytes, int device, void
     return static_cast<int>(cudaMemcpyAsync(dst, src, static_cast<size_t>(nbytes),
                                             cudaMemcpyDefault,
                                             static_cast<cudaStream_t>(stream)));
+}
+
+// A farm call's chunk into its pinned input and up: `rows` rows of row_bytes
+// bytes, row r read from srcs[r] (a host address; null for a row of zeros),
+// laid end to end at the host address `pinned` by the calling thread and the
+// pool's, in HOST_PIECES pieces of whole 64-byte units (the last one shorter);
+// each piece's upload to the same offset of the device address `card` is
+// issued on the stream as soon as the piece has landed (with `card` null the
+// copy alone). Returns once every piece is written and its upload issued: no
+// source is read after that. Calls from several host threads take turns.
+// Returns a cudaError_t (cudaErrorOperatingSystem where the pool's threads
+// do not start, cudaErrorMemoryAllocation where they cannot be held).
+int crt_farm_host_stage(void* pinned, const void* srcs, int rows, long long row_bytes,
+                        void* card, int device, void* stream) {
+    if (rows < 1 || row_bytes < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const DeviceGuard guard(device);
+    if (guard.err != 0) return guard.err;
+    HostPool& p = host_pool();
+    try {
+        const std::lock_guard<std::mutex> job(p.job);
+        p.start();
+        const long long nbytes = rows * row_bytes;
+        const long long step = ((nbytes + HOST_PIECES - 1) / HOST_PIECES + 63) & ~63LL;
+        for (int k = 0; k <= HOST_PIECES; ++k) p.bounds[k] = std::min(nbytes, k * step);
+        for (int k = 0; k < HOST_PIECES; ++k) p.done[k].store(0, std::memory_order_relaxed);
+        {
+            const std::lock_guard<std::mutex> lock(p.m);
+            p.dst = static_cast<char*>(pinned);
+            p.srcs = static_cast<const char* const*>(srcs);
+            p.row_bytes = row_bytes;
+            ++p.generation;
+        }
+        p.cv.notify_all();
+        const int pool = p.parts - 1;
+        cudaError_t err = cudaSuccess;
+        for (int k = 0; k < HOST_PIECES; ++k) {
+            p.copy_part(k, pool);
+            while (p.done[k].load(std::memory_order_acquire) < pool) {
+#if defined(__x86_64__)
+                _mm_pause();
+#endif
+            }
+            const long long size = p.bounds[k + 1] - p.bounds[k];
+            if (card != nullptr && size > 0 && err == cudaSuccess) {
+                err = cudaMemcpyAsync(static_cast<char*>(card) + p.bounds[k], p.dst + p.bounds[k],
+                                      static_cast<size_t>(size), cudaMemcpyHostToDevice,
+                                      static_cast<cudaStream_t>(stream));
+            }
+        }
+        return static_cast<int>(err);
+    } catch (const std::system_error&) {
+        return static_cast<int>(cudaErrorOperatingSystem);
+    } catch (const std::bad_alloc&) {
+        return static_cast<int>(cudaErrorMemoryAllocation);
+    }
 }
 
 // Block the host until the stream has done all it holds. Returns a cudaError_t.

@@ -269,6 +269,27 @@ def _copy_stand_in(calls):
     return entry
 
 
+def _host_stage_stand_in(calls):
+    """crt_farm_host_stage over the same pointers: the rows at the table's
+    addresses (zeros for 0) laid end to end at the pinned address, then each
+    piece of _build.farm_host_pieces copied on to the card address (none
+    without one); logs the
+    table it read as ``sources`` and the rows that landed as ``landed``."""
+    def entry(*args):
+        a = dict(zip(_build.ENTRY_ARGS["crt_farm_host_stage"], args))
+        rows, row_bytes = a["rows"], a["row_bytes"]
+        sources = _view(a["srcs"], (rows,), np.uint64).copy()
+        calls.append(("crt_farm_host_stage", dict(a, sources=sources)))
+        pinned = _view(a["pinned"], (rows, row_bytes), np.uint8)
+        for r, src in enumerate(sources):
+            pinned[r] = 0 if src == 0 else _view(int(src), (row_bytes,), np.uint8)
+        for lo, hi in _build.farm_host_pieces(rows * row_bytes) if a["card"] else ():
+            ctypes.memmove(a["card"] + lo, a["pinned"] + lo, hi - lo)
+        calls[-1][1]["landed"] = pinned.copy()
+        return 0
+    return entry
+
+
 def _sync_stand_in(calls):
     def entry(*args):
         calls.append(("crt_farm_sync", dict(zip(_build.ENTRY_ARGS["crt_farm_sync"], args))))
@@ -323,6 +344,7 @@ def card(monkeypatch):
     entries = {"crt_farm_stage": _stage_stand_in(calls),
                "crt_farm_unstage": _unstage_stand_in(calls),
                "crt_farm_copy": _copy_stand_in(calls), "crt_farm_sync": _sync_stand_in(calls),
+               "crt_farm_host_stage": _host_stage_stand_in(calls),
                **{name: _mac_stand_in(name, calls) for name in MAC_ENTRIES}}
     monkeypatch.setattr(_build, "entry_function", entries.__getitem__)
     monkeypatch.setattr(_build, "_check_cuda", lambda x: None)
@@ -376,16 +398,18 @@ def test_torch_farm_program_argument_flow(card, engine, clamp):
     _same(got, want, engine)
     emits = sum(1 for o in got if o.shape[1])
     assert rs.ROUTES == {("farm_stage", "cuda"): len(chunks) + 1,
-                         ("farm_unstage", "cuda"): emits, (engine, "cuda"): emits}
+                         ("farm_unstage", "cuda"): emits, (engine, "cuda"): emits,
+                         ("farm_input", "direct"): len(chunks)}
     assert {a["path"] for name, a in card if name == "crt_farm_stage"} == {0}   # 10 lanes
     assert {a["stream"] for _, a in card} == {77}
 
 
 def test_torch_farm_program_call_sequence_and_buffer_swap(card):
-    """One call is: wait, upload, stage, the launches, unstage, download,
-    wait. The stage appends in place until an emit has consumed rows, then
-    goes to the other buffer with the parked slide; the launches read the
-    buffer the stage wrote."""
+    """One call is: wait, the chunk through the pinned input to the card
+    (the host threads' copy and the uploads), stage, the launches, unstage,
+    download, wait. The stage appends in place until an emit has consumed
+    rows, then goes to the other buffer with the parked slide; the launches
+    read the buffer the stage wrote."""
     chunks = _chunks(42, 4, 2, (100, 256, 256, 256))
     farm = UniformStreamFarm(4, 2, 48000, 44100, chunk_frames=256, device="cpu",
                              device_staging=True)
@@ -396,12 +420,15 @@ def test_torch_farm_program_call_sequence_and_buffer_swap(card):
         del card[:]
         out = farm.process(chunk)
         names = [name for name, _ in card]
-        assert names == ["crt_farm_sync", "crt_farm_copy", "crt_farm_stage", "crt_tiled_mac",
-                         "crt_farm_unstage", "crt_farm_copy", "crt_farm_sync"], (k, names)
+        assert names == ["crt_farm_sync", "crt_farm_host_stage", "crt_farm_stage",
+                         "crt_tiled_mac", "crt_farm_unstage", "crt_farm_copy",
+                         "crt_farm_sync"], (k, names)
         upload, stage, mac, unstage, download = (a for _, a in card[1:6])
         n = chunk.shape[1]
-        assert upload["src"] == farm._input.data_ptr() and upload["nbytes"] == chunk.nbytes
-        assert upload["dst"] == stage["chunk"] == program.chunk.data_ptr()
+        assert upload["pinned"] == farm._input.data_ptr()
+        assert list(upload["sources"]) == [chunk.ctypes.data]
+        assert upload["rows"] * upload["row_bytes"] == chunk.nbytes
+        assert upload["card"] == stage["chunk"] == program.chunk.data_ptr()
         if parked:
             current ^= 1
         assert (stage["src"], stage["dst"]) == (buffers[current ^ bool(parked)], buffers[current])
@@ -487,17 +514,23 @@ def test_torch_farm_program_converts_chunks_as_ascontiguousarray(card):
 
 def test_torch_farm_program_waits_before_it_reuses_the_input(card):
     """A call that emits nothing returns without waiting for its upload, so
-    the next call waits for the card before it writes the pinned input."""
+    the next call waits for the card before it writes the pinned input, on
+    every route into it."""
     farm = UniformStreamFarm(2, 2, 44100, 8000, chunk_frames=64, device="cpu",
                              device_staging=True)
     assert farm.process(_chunk(np.random.default_rng(46), 2, 10, 2)).shape == (2, 0, 2)
-    assert [name for name, _ in card] == ["crt_farm_sync", "crt_farm_copy", "crt_farm_stage"]
+    assert [name for name, _ in card] == ["crt_farm_sync", "crt_farm_host_stage",
+                                          "crt_farm_stage"]
     del card[:]
     assert farm.process(_chunk(np.random.default_rng(47), 2, 0, 2)).shape == (2, 0, 2)
     assert [name for name, _ in card] == ["crt_farm_sync", "crt_farm_stage"]   # nothing to upload
     del card[:]
-    farm.process(_chunk(np.random.default_rng(48), 2, 64, 2))
+    farm.process(_chunk(np.random.default_rng(48), 2, 10, 2).astype(np.int32))   # converted
     assert [name for name, _ in card][:3] == ["crt_farm_sync", "crt_farm_copy", "crt_farm_stage"]
+    del card[:]
+    farm.process(_chunk(np.random.default_rng(49), 2, 64, 2))
+    assert [name for name, _ in card][:3] == ["crt_farm_sync", "crt_farm_host_stage",
+                                              "crt_farm_stage"]
 
 
 @pytest.mark.parametrize("dp,b", [(4, 16), (3, 8), (5, 3)])
@@ -514,10 +547,12 @@ def test_torch_sharded_farm_program_argument_flow(card, dp, b):
     got = [farm.process(chunks[0])]
     shards = len(farm._programs)
     assert shards == min(dp, b)
-    uploads = [a for name, a in card if name == "crt_farm_copy"][:shards]
-    assert [a["src"] - farm._input.data_ptr() for a in uploads] == [
+    uploads = [a for name, a in card if name == "crt_farm_host_stage"]
+    assert [a["pinned"] - farm._input.data_ptr() for a in uploads] == [
         2 * lo * 256 * 2 for _, lo, _, _ in farm._programs]
-    downloads = [a for name, a in card if name == "crt_farm_copy"][shards:]
+    assert [list(a["sources"]) for a in uploads] == [
+        [chunks[0].ctypes.data + 2 * lo * 256 * 2] for _, lo, _, _ in farm._programs]
+    downloads = [a for name, a in card if name == "crt_farm_copy"]
     assert [a["dst"] - got[0].ctypes.data for a in downloads] == [
         4 * lo * got[0].shape[1] * 2 for _, lo, _, _ in farm._programs]
     assert [name for name, _ in card].count("crt_strided_mac") == shards
@@ -883,6 +918,7 @@ def test_torch_cuda_farm_matches_cpu_farm(cuda_device, engine, clamp):
     got += [farm.process(c) for c in chunks[2:]] + [farm.flush()]
     _same(got, want, engine)
     _same(tail, want[2:], f"{engine} restored")
-    assert set(rs.ROUTES) == {("farm_stage", "cuda"), ("farm_unstage", "cuda"), (engine, "cuda")}
+    assert set(rs.ROUTES) == {("farm_stage", "cuda"), ("farm_unstage", "cuda"), (engine, "cuda"),
+                              ("farm_input", "direct")}
     mesh = make_mesh(dp=4, devices=[cuda_device] * 4)
     _same(_run(ShardedStreamFarm(mesh, 37, 2, *rates, **kw), chunks), want, f"{engine} sharded")
