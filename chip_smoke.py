@@ -2806,10 +2806,12 @@ def profile_farm_call(label: str, call, programs: int, uploads: int,
     farm_unstage_kernel and one download, the kernels of the launches that
     ROUTES counted during the call, and nothing else; and unless the call ran
     no ``aten::`` op at all (the chunk reaches the pinned input through the
-    farm library's host threads). A count that is off is taken again (the
+    farm library's host threads); the recorder's record_function ranges
+    (``utils.profiling.RANGES``) are neither. A count that is off is taken again (the
     profiler now and then loses a record), up to ``attempts`` times. Returns
     the activities, their device ms and the call's profiled wall ms."""
     from clownresampler_tpu_torch.ops.resample import ROUTES
+    from clownresampler_tpu_torch.utils import profiling
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(1, attempts + 1):
@@ -2832,6 +2834,8 @@ def profile_farm_call(label: str, call, programs: int, uploads: int,
             raise AssertionError(f"{label}: ROUTES counted {want} for {programs} programs")
         counts, device_us, aten = {}, {}, set()
         for evt in prof.events():
+            if evt.name in profiling.RANGES:  # the recorder's ranges, on the host and the card
+                continue
             if evt.device_type == torch.autograd.DeviceType.CUDA:
                 name = next((k for k in want if k in evt.name), evt.name)
                 counts[name] = counts.get(name, 0) + 1

@@ -21,7 +21,9 @@ zero tail), the ratio class's launches written in place into one output, one
 launch of farm_unstage_kernel (the de-interleave) and one download into the
 pinned buffer that the caller receives, all issued as prebound C calls with
 no torch op in between. On the CPU the same bookkeeping runs the kernels'
-plain versions (``farm_stage_reference``, ``farm_unstage_reference``).
+plain versions (``farm_stage_reference``, ``farm_unstage_reference``). Each
+call is one row of the recorder (``utils.profiling``, ``crt.farm.call``):
+its staging, launches and copy out as spans, with the host pool's counters.
 
 Bit-exactness: each stream's output is identical to running the reference
 (and LowLevelResampler) on that stream alone.
@@ -50,7 +52,7 @@ from clownresampler_tpu_torch.ops.resample import (
     multi_resample,
     wide_launch_frames,
 )
-from clownresampler_tpu_torch.utils import native
+from clownresampler_tpu_torch.utils import native, profiling
 
 # Max output frames per launch: device positions come from
 # fx.positions_from_state, int32-exact while f0 + n*inc_lo < 2^31.
@@ -269,7 +271,11 @@ class FarmProgram:
             self._stage_calls: dict = {}
             self._calls = {entry: _build.entry_function(entry)
                            for entry in ("crt_farm_stage", "crt_farm_unstage", "crt_farm_copy",
-                                         "crt_farm_host_stage", "crt_farm_sync")}
+                                         "crt_farm_host_stage", "crt_farm_host_stats",
+                                         "crt_farm_sync")}
+            # crt_farm_host_stats' (pool_wait_ns, pool_late_ns) of this thread's last job.
+            self._host_stats = np.zeros(2, np.int64)
+            self._host_stats_ptr = self._host_stats.ctypes.data
 
     def rows(self) -> torch.Tensor:
         """The staged rows from row 0 on, a parked slide applied (a view)."""
@@ -290,20 +296,26 @@ class FarmProgram:
     def _stream(self) -> int:
         return _build._stream(self.buffers[0])
 
+    @profiling.spanned("crt.farm.stage.host")
     def upload(self, pinned: int, n: int, sources: Optional[np.ndarray] = None) -> None:
         """Upload this program's (streams, n, channels) int16 block (on a
         card) from the pinned host address ``pinned``: from there as it
         stands (crt_farm_copy), or, given ``sources`` (the uint64 host
         addresses of the equal rows the block is made of, 0 for a row of
         zeros), after the farm library's host threads have copied them there,
-        each piece going up as it lands (crt_farm_host_stage)."""
+        each piece going up as it lands (crt_farm_host_stage; while the
+        recorder is on, its pool's counters go to the call's row)."""
         nbytes, device, stream = 2 * n * self.lanes, self.device.index, self._stream()
         if sources is None:
             self._call("crt_farm_copy", dict(dst=self.chunk.data_ptr(), src=pinned,
                                              nbytes=nbytes, device=device, stream=stream))
-        else:
-            self._call("crt_farm_host_stage", _build.farm_host_stage_args(
-                pinned, sources, nbytes // len(sources), self.chunk.data_ptr(), device, stream))
+            return
+        self._call("crt_farm_host_stage", _build.farm_host_stage_args(
+            pinned, sources, nbytes // len(sources), self.chunk.data_ptr(), device, stream))
+        if profiling.tracing():
+            self._calls["crt_farm_host_stats"](self._host_stats_ptr)
+            profiling.count("pool_wait_ns", int(self._host_stats[0]))
+            profiling.count("pool_late_ns", int(self._host_stats[1]))
 
     def host_copy(self, dst: np.ndarray, src: np.ndarray) -> None:
         """dst[...] = src (C-contiguous arrays of one size in host memory) by
@@ -327,15 +339,17 @@ class FarmProgram:
             stream = self._stream()
             if n:
                 self.upload(chunk, n, sources)
-            key = (n, src.data_ptr(), dst.data_ptr())
-            args = self._stage_calls.get(key)
-            if args is None:
-                if len(self._stage_calls) >= 8:
-                    self._stage_calls.clear()
-                args = self._stage_calls[key] = _build.farm_stage_call_args(
-                    self._stage_args, n_in=n, keep=0, consumed=0, src=key[1], dst=key[2])
-            self._call("crt_farm_stage", dict(args, keep=fill, consumed=self.slide,
-                                              stream=stream))
+            with profiling.span("crt.farm.stage.kernel"):
+                key = (n, src.data_ptr(), dst.data_ptr())
+                args = self._stage_calls.get(key)
+                if args is None:
+                    if len(self._stage_calls) >= 8:
+                        self._stage_calls.clear()
+                    args = self._stage_calls[key] = _build.farm_stage_call_args(
+                        self._stage_args, n_in=n, keep=0, consumed=0, src=key[1], dst=key[2])
+                    profiling.count("plans_built", 1)
+                self._call("crt_farm_stage", dict(args, keep=fill, consumed=self.slide,
+                                                  stream=stream))
             ROUTES[("farm_stage", "cuda")] += 1
         else:
             farm_stage_reference(src, dst, chunk, keep=fill, consumed=self.slide)
@@ -374,6 +388,7 @@ class FarmProgram:
                              (scratch, tstr, state.cfg)))
             done += tile
         self.plans[key] = launches
+        profiling.count("plans_built", 1)
         return launches
 
     def launch(self, specs: tuple) -> torch.Tensor:
@@ -633,6 +648,7 @@ class UniformStreamFarm:
                               tstrs=tstrs)
         return self._join(outs, tiles)
 
+    @profiling.spanned("crt.farm.launch")
     def _launch(self, n_out: int) -> list:
         """Frames [0, n_out) of every lane, as ``_to_host`` takes them: each
         shard's launched lanes on its device, in ``_programs``' order (one
@@ -645,6 +661,7 @@ class UniformStreamFarm:
                 outs.append(self._launch_shard(n_out, shard))
         return outs
 
+    @profiling.spanned("crt.farm.to_host")
     def _to_host(self, lanes_out: list, n_out: int) -> np.ndarray:
         """A host array the caller owns, holding the launched lanes
         de-interleaved to (B, n_out, C), shard i's streams in result[lo:hi].
@@ -661,14 +678,16 @@ class UniformStreamFarm:
         shape = (self.n_streams, n_out, self.channels)
         dtype = np.int16 if self.clamp_s16 else np.int32
         if self._on_card:
-            result, address, owned = self._results.lease(shape, dtype)
-            stream_bytes = n_out * self.channels * result.itemsize
-            for shard, lo, _, program in self._programs:
-                with self._as_shard(shard):
-                    program.unstage(n_out, address + lo * stream_bytes)
-            for shard, _, _, program in self._programs:
-                with self._as_shard(shard):
-                    program.wait()
+            with profiling.span("crt.farm.to_host.issue"):
+                result, address, owned = self._results.lease(shape, dtype)
+                stream_bytes = n_out * self.channels * result.itemsize
+                for shard, lo, _, program in self._programs:
+                    with self._as_shard(shard):
+                        program.unstage(n_out, address + lo * stream_bytes)
+            with profiling.span("crt.farm.to_host.wait"):
+                for shard, _, _, program in self._programs:
+                    with self._as_shard(shard):
+                        program.wait()
             if not owned:             # the caller holds every pooled buffer
                 scratch, result = result, np.empty(shape, dtype)
                 self._programs[0][3].host_copy(result, scratch)
@@ -745,12 +764,15 @@ class UniformStreamFarm:
             self._wait_programs()
             if chunk.dtype == np.int16 and chunk.flags.c_contiguous:
                 ROUTES[("farm_input", "direct")] += 1
-                stream_bytes = 2 * n * c
-                self._upload(n, lambda lo, hi: np.array(
-                    [chunk.ctypes.data + lo * stream_bytes], np.uint64))
+                with profiling.span("crt.farm.stage.rows"):
+                    base, stream_bytes = chunk.ctypes.data, 2 * n * c
+                    sources = [np.array([base + lo * stream_bytes], np.uint64)
+                               for _, lo, _, _ in self._programs]
+                self._upload(n, sources)
             else:
-                np.copyto(self._input_array[: b * n * c].reshape(b, n, c), chunk,
-                          casting="unsafe")
+                with profiling.span("crt.farm.stage.rows"):
+                    np.copyto(self._input_array[: b * n * c].reshape(b, n, c), chunk,
+                              casting="unsafe")
                 ROUTES[("farm_input", "converted")] += 1
                 self._upload(n)
         else:
@@ -758,6 +780,7 @@ class UniformStreamFarm:
             for _, lo, hi, program in self._programs:
                 program.stage(block[lo:hi], n, self._fill)
 
+    @profiling.spanned("crt.farm.stage.wait")
     def _wait_programs(self) -> None:
         """Wait for every program: the card is done with the pinned input."""
         for shard, _, _, program in self._programs:
@@ -766,14 +789,14 @@ class UniformStreamFarm:
 
     def _upload(self, n: int, sources=None) -> None:
         """Each program uploads its streams' block of the (B, n, C) chunk from
-        its place in the pinned input, with ``sources(lo, hi)`` (the uint64
-        addresses of the rows that make up streams [lo, hi), 0 for zeros)
-        copied there first, and stages it."""
+        its place in the pinned input, with ``sources[k]`` (for the k-th of
+        ``_programs``, streams [lo, hi): the uint64 addresses of the rows that
+        make them up, 0 for zeros) copied there first, and stages it."""
         stream_bytes = 2 * n * self.channels
-        for shard, lo, hi, program in self._programs:
+        for k, (shard, lo, hi, program) in enumerate(self._programs):
             with self._as_shard(shard):
                 program.stage(self._input.data_ptr() + lo * stream_bytes, n, self._fill,
-                              None if sources is None else sources(lo, hi))
+                              None if sources is None else sources[k])
 
     def _zero_rows(self, start: int, n: int) -> None:
         """Rows [start, start + n) zero (flush's silence). A program's stage
@@ -826,6 +849,7 @@ class UniformStreamFarm:
         if self._fill + n > self._capacity:
             raise ValueError("staging overflow: feed chunks of at most chunk_frames")
 
+    @profiling.spanned("crt.farm.stage")
     def _stage(self, chunk: np.ndarray) -> int:
         """Stage one (B, n, C) int16 chunk; returns the consumable frame count
         (the last `radius_bound` data rows stay held back until more data or
@@ -847,6 +871,7 @@ class UniformStreamFarm:
                                  f"shape {shape}")
         self._check_chunk((len(rows), *shape))
 
+    @profiling.spanned("crt.farm.stage")
     def _stage_streams(self, rows: list, n: int) -> int:
         """``_stage`` of the chunk whose stream j is ``rows[j]``, an (n, C)
         int16 array, or zeros where it is None (MixedStreamFarm's slots). On a
@@ -858,13 +883,16 @@ class UniformStreamFarm:
             zeros = np.zeros((n, self.channels), np.int16)
             return self._stage(np.stack([zeros if r is None else r for r in rows]))
         self._wait_programs()
-        rows = [None if r is None else np.ascontiguousarray(r) for r in rows]
-        addresses = np.array([0 if r is None else r.ctypes.data for r in rows], np.uint64)
+        with profiling.span("crt.farm.stage.rows"):
+            rows = [None if r is None else np.ascontiguousarray(r) for r in rows]
+            addresses = np.array([0 if r is None else r.ctypes.data for r in rows], np.uint64)
+            sources = [addresses[lo:hi] for _, lo, hi, _ in self._programs]
         ROUTES[("farm_input", "stacked")] += 1
-        self._upload(n, lambda lo, hi: addresses[lo:hi])
+        self._upload(n, sources)
         self._fill += n
         return self._fill - 2 * self._radius_bound
 
+    @profiling.spanned("crt.farm.call")
     def process(self, chunk: np.ndarray) -> np.ndarray:
         """Feed (n_streams, n, channels) int16; returns (n_streams, m, channels)
         output frames (m varies with phase, ~n*out_rate/in_rate)."""
@@ -978,6 +1006,7 @@ class MixedStreamFarm:
             if i is not None:
                 outputs[i] = out[j]
 
+    @profiling.spanned("crt.farm.launch")
     def _launch_groups(self, farms: list) -> list:
         """Each of ``farms`` (farm, n_out)'s launched lanes, as its
         ``_launch`` returns them: every group's launches of the chunk, one
@@ -985,6 +1014,7 @@ class MixedStreamFarm:
         them)."""
         return [farm._launch(n_out) for farm, n_out in farms]
 
+    @profiling.spanned("crt.farm.call")
     def process(self, chunks: list) -> list:
         """chunks[i]: (n, channels) int16 for stream i (the same n for every
         stream). Returns outputs[i]: (m_i, channels) int32 (int16 with

@@ -58,6 +58,7 @@ from clownresampler_tpu_torch.ops.resample import (
     strided_stage_plan,
     wide_launch_frames,
 )
+from clownresampler_tpu_torch.utils import profiling
 
 # Keep n*increment_lo inside int32 (fixedpoint.positions_from_state).
 MAX_CHUNK_OUTPUT_FRAMES = 1 << 14
@@ -479,6 +480,7 @@ class ScanProgram:
     No torch op, allocation, argument check or host sync happens between
     the first launch and the last. A program runs once."""
 
+    @profiling.spanned("crt.scan.build")
     def __init__(self, table, chunks, state: DeviceState, *, max_taps: int, n_out: int,
                  radius: int, increment: int, table_strided=None):
         kind = _scan_engine(increment, max_taps, n_out)[0]
@@ -515,6 +517,7 @@ class ScanProgram:
                         produced=args["produced"] + 4 * s, over=args["over"] + 4 * s,
                         out=args["out"] + s * out_bytes))))
 
+    @profiling.spanned("crt.scan.run")
     def run(self) -> None:
         """Queue every launch of the scan on the stream that was current at
         construction; raises if a launch is refused."""
@@ -565,10 +568,11 @@ def resample_scan_fused(table, chunks, state: DeviceState, *, max_taps: int, n_o
             increment=increment, table_strided=table_strided)
     if chunks.device.type != "cuda":
         raise ValueError(f"no fused scan route for device {chunks.device}")
-    program = ScanProgram(table, chunks, state, max_taps=max_taps, n_out=n_out, radius=radius,
-                          increment=increment, table_strided=table_strided)
-    program.run()
-    return program.result()
+    with profiling.span("crt.scan.request"):
+        program = ScanProgram(table, chunks, state, max_taps=max_taps, n_out=n_out,
+                              radius=radius, increment=increment, table_strided=table_strided)
+        program.run()
+        return program.result()
 
 
 def resample_scan_tiled(table, chunks, state: DeviceState, *, max_taps: int, n_out: int,

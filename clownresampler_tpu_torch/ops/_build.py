@@ -17,7 +17,8 @@ calls the entry (``entry_function``) with ``ordered_args`` of the same
 arguments, a few pointers replaced, with no torch op in between. A farm call
 issues its copies and its wait the same way (``crt_farm_copy``,
 ``crt_farm_sync``), and its chunk's way into pinned memory and up
-(``crt_farm_host_stage``, host threads of the farm library).
+(``crt_farm_host_stage``, host threads of the farm library, whose counters
+``crt_farm_host_stats`` reads).
 """
 
 from __future__ import annotations
@@ -84,6 +85,7 @@ ENTRY_ARGS = {
                          "out_s16", "words", "tile_streams", "tile_frames", "device", "stream"),
     "crt_farm_copy": ("dst", "src", "nbytes", "device", "stream"),
     "crt_farm_host_stage": ("pinned", "srcs", "rows", "row_bytes", "card", "device", "stream"),
+    "crt_farm_host_stats": ("out",),
     "crt_farm_sync": ("device", "stream"),
     "crt_batch_mac": ("x", "x_s16", "B", "S", "C", "stride_b", "totals", "quotas", "p0_ptr",
                       "f0_ptr", "inc_hi", "inc_lo", "radius", "delta", "int_radius", "step",
@@ -97,7 +99,7 @@ LIBRARIES = {
     "strided": ("strided_kernels.cu", ("crt_strided_mac", "crt_strided_scan")),
     "wide": ("wide_kernels.cu", ("crt_wide_mac", "crt_wide_scan")),
     "farm": ("farm_kernels.cu", ("crt_farm_stage", "crt_farm_unstage", "crt_farm_copy",
-                                 "crt_farm_host_stage", "crt_farm_sync")),
+                                 "crt_farm_host_stage", "crt_farm_host_stats", "crt_farm_sync")),
     "batch": ("batch_kernels.cu", ("crt_batch_mac",)),
 }
 # C entry -> (its library, what it launches, for error messages).
@@ -111,6 +113,7 @@ ENTRIES = {"crt_tiled_mac": ("resample", "tiled_mac_kernel"),
            "crt_farm_unstage": ("farm", "farm_unstage_kernel"),
            "crt_farm_copy": ("farm", "cudaMemcpyAsync"),
            "crt_farm_host_stage": ("farm", "the host copy into pinned memory"),
+           "crt_farm_host_stats": ("farm", "the host copy's counters"),
            "crt_farm_sync": ("farm", "cudaStreamSynchronize"),
            "crt_batch_mac": ("batch", "batch_mac_kernel")}
 

@@ -77,6 +77,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <chrono>
 #include <cstdint>
 #include <condition_variable>
 #include <cstring>
@@ -507,13 +508,31 @@ void stream_copy(char* dst, const char* src, size_t n) {
 #endif
 }
 
+// Nanoseconds on steady_clock (CLOCK_MONOTONIC, Python's perf_counter_ns).
+long long now_ns() {
+    return std::chrono::duration_cast<std::chrono::nanoseconds>(
+               std::chrono::steady_clock::now().time_since_epoch())
+        .count();
+}
+
+// The counters of the calling thread's last job (crt_farm_host_stats):
+// wait_ns, its time spinning for the pool's parts; late_ns, from the job's
+// publication (its generation and notify_all) to the last pool thread's
+// first byte.
+struct HostStats {
+    long long wait_ns = 0;
+    long long late_ns = 0;
+};
+thread_local HostStats host_stats;
+
 // A pool of host threads that copies one job's pieces in order beside the
 // thread that issues the job: the job is rows of row_bytes bytes each, row r
 // from srcs[r] (zeros where it is null), to dst laid end to end, each piece
 // cut into `parts` parts of whole 64-byte units. Pool thread w copies part w
 // of each piece, then counts the piece done; the issuing thread copies the
 // last part itself. The caller holds `job` from setting a job up until every
-// piece is counted done, so that no two jobs share the pool.
+// piece is counted done, so that no two jobs share the pool. Each pool thread
+// raises `last_start` to the time it begins a job.
 struct HostPool {
     std::mutex job;
     std::mutex m;
@@ -528,6 +547,7 @@ struct HostPool {
     long long bounds[HOST_PIECES + 1];
     int parts = 1;
     std::atomic<int> done[HOST_PIECES];
+    std::atomic<long long> last_start{0};
 
     // Bytes [a, b) of the job.
     void copy(long long a, long long b) const {
@@ -560,6 +580,10 @@ struct HostPool {
                 cv.wait(lock, [&] { return stop || generation != seen; });
                 if (stop) return;
                 seen = generation;
+            }
+            const long long start = now_ns();
+            long long last = last_start.load(std::memory_order_relaxed);
+            while (start > last && !last_start.compare_exchange_weak(last, start)) {
             }
             for (int k = 0; k < HOST_PIECES; ++k) {
                 copy_part(k, w);
@@ -686,6 +710,8 @@ int crt_farm_copy(void* dst, const void* src, long long nbytes, int device, void
 // issued on the stream as soon as the piece has landed (with `card` null the
 // copy alone). Returns once every piece is written and its upload issued: no
 // source is read after that. Calls from several host threads take turns.
+// The job's counters are the calling thread's until its next job
+// (crt_farm_host_stats).
 // Returns a cudaError_t (cudaErrorOperatingSystem where the pool's threads
 // do not start, cudaErrorMemoryAllocation where they cannot be held).
 int crt_farm_host_stage(void* pinned, const void* srcs, int rows, long long row_bytes,
@@ -701,22 +727,30 @@ int crt_farm_host_stage(void* pinned, const void* srcs, int rows, long long row_
         const long long step = ((nbytes + HOST_PIECES - 1) / HOST_PIECES + 63) & ~63LL;
         for (int k = 0; k <= HOST_PIECES; ++k) p.bounds[k] = std::min(nbytes, k * step);
         for (int k = 0; k < HOST_PIECES; ++k) p.done[k].store(0, std::memory_order_relaxed);
+        p.last_start.store(0, std::memory_order_relaxed);
+        long long published;
         {
             const std::lock_guard<std::mutex> lock(p.m);
             p.dst = static_cast<char*>(pinned);
             p.srcs = static_cast<const char* const*>(srcs);
             p.row_bytes = row_bytes;
             ++p.generation;
+            published = now_ns();
         }
         p.cv.notify_all();
         const int pool = p.parts - 1;
+        long long wait_ns = 0;
         cudaError_t err = cudaSuccess;
         for (int k = 0; k < HOST_PIECES; ++k) {
             p.copy_part(k, pool);
-            while (p.done[k].load(std::memory_order_acquire) < pool) {
+            if (p.done[k].load(std::memory_order_acquire) < pool) {
+                const long long spin = now_ns();
+                while (p.done[k].load(std::memory_order_acquire) < pool) {
 #if defined(__x86_64__)
-                _mm_pause();
+                    _mm_pause();
 #endif
+                }
+                wait_ns += now_ns() - spin;
             }
             const long long size = p.bounds[k + 1] - p.bounds[k];
             if (card != nullptr && size > 0 && err == cudaSuccess) {
@@ -725,12 +759,23 @@ int crt_farm_host_stage(void* pinned, const void* srcs, int rows, long long row_
                                       static_cast<cudaStream_t>(stream));
             }
         }
+        const long long last = p.last_start.load(std::memory_order_relaxed);
+        host_stats.wait_ns = wait_ns;
+        host_stats.late_ns = pool > 0 ? std::max(0LL, last - published) : 0;
         return static_cast<int>(err);
     } catch (const std::system_error&) {
         return static_cast<int>(cudaErrorOperatingSystem);
     } catch (const std::bad_alloc&) {
         return static_cast<int>(cudaErrorMemoryAllocation);
     }
+}
+
+// The counters of the calling thread's last crt_farm_host_stage job:
+// out[0] pool_wait_ns, out[1] pool_late_ns (HostStats). Returns 0.
+int crt_farm_host_stats(long long* out) {
+    out[0] = host_stats.wait_ns;
+    out[1] = host_stats.late_ns;
+    return 0;
 }
 
 // Block the host until the stream has done all it holds. Returns a cudaError_t.

@@ -37,6 +37,7 @@ from clownresampler_tpu_torch.device import Device
 from clownresampler_tpu_torch.farm import DeviceTables, MixedStreamFarm, UniformStreamFarm
 from clownresampler_tpu_torch.models import DEFAULT_MODEL, KernelModel
 from clownresampler_tpu_torch.parallel.sharding import Mesh, split_bounds
+from clownresampler_tpu_torch.utils import profiling
 
 
 class ShardedStreamFarm(UniformStreamFarm):
@@ -141,6 +142,7 @@ class ShardedMixedStreamFarm(MixedStreamFarm):
             self.mesh, n_streams, self.channels, *rates, chunk_frames=self.chunk_frames,
             model=self.model, max_radius=max_radius, clamp_s16=self.clamp_s16)
 
+    @profiling.spanned("crt.farm.launch")
     def _launch_groups(self, farms: list) -> list:
         """Each group's per-shard launched lanes (``ShardedStreamFarm._launch``'s
         return), issued shard by shard: every group's launches of dp shard i

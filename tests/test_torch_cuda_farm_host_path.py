@@ -7,8 +7,9 @@ where the caller holds it; ``converted``; a mixed farm's ``stacked``), short
 and empty chunks, flush, ``adjust`` and ``adjust_stream``, a snapshot right
 after ``process`` restored on the card, the sharded farm at dp 1-4 on shards of
 the card, the caller's chunk left as it was and free to overwrite as soon
-as ``process`` returns, each output exact against the CPU farm's; and two
-farms fed at once from two threads, each exact against itself fed alone. They
+as ``process`` returns, each output exact against the CPU farm's; two
+farms fed at once from two threads, each exact against itself fed alone; and
+the recorder's row of each mixed call with the host pool's counters. They
 skip without a card.
 """
 
@@ -23,6 +24,7 @@ from clownresampler_tpu_torch import checkpoint as ckpt
 from clownresampler_tpu_torch.farm import MixedStreamFarm, UniformStreamFarm
 from clownresampler_tpu_torch.ops import resample as rs
 from clownresampler_tpu_torch.parallel import ShardedMixedStreamFarm, ShardedStreamFarm, make_mesh
+from clownresampler_tpu_torch.utils import profiling
 
 RATES = (48000, 44100)
 CHUNK = 256
@@ -233,3 +235,27 @@ def test_torch_cuda_mixed_farm_host_path_refuses_chunks_of_other_shapes(cuda_dev
     want = MixedStreamFarm(specs, 2, chunk_frames=CHUNK, device="cpu").process(good)
     for g, w in zip(farm.process(good), want):     # nothing was staged by the refusals
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+def test_torch_cuda_mixed_farm_rows_and_pool_counters(cuda_device):
+    """A mixed farm's calls on the card, one row each: every span, the host
+    pool's counters within the host copy's span, no plan built once steady."""
+    specs = [rates for rates in MIXED_GROUPS for _ in range(64)]
+    farm = MixedStreamFarm(specs, 2, chunk_frames=CHUNK, device=cuda_device)
+    rng = np.random.default_rng(95)
+    chunks = [[rng.integers(-32768, 32768, size=(CHUNK, 2)).astype(np.int16) for _ in specs]
+              for _ in range(8)]
+    for c in chunks[:4]:
+        farm.process(c)
+    for c in chunks[4:]:
+        farm.process(c)
+    rows = profiling.recent_calls("crt.farm.call", 4)
+    spans = profiling.KINDS["crt.farm.call"][0]
+    for row in rows:
+        assert all(row[name] > 0 for name in spans), row
+        assert 0 <= 1e-9 * row["pool_wait_ns"] <= row["crt.farm.stage.host"]
+        assert 0 <= 1e-9 * row["pool_late_ns"] <= row["crt.farm.stage.host"]
+        assert row["plans_built"] == 0
+        assert row["crt.farm.stage"] + row["crt.farm.launch"] + row["crt.farm.to_host"] <= \
+            row["crt.farm.call"]

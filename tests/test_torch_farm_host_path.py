@@ -279,11 +279,10 @@ int main() {
 """
 
 
-def test_torch_farm_host_stage_takes_one_call_at_a_time(tmp_path):
-    """Four host threads calling crt_farm_host_stage at once (farms fed from
-    several threads) each get exactly their own rows, zeros for null rows, in
-    their pinned buffer and on their card address: the entry's host code
-    (farm_kernels.cu, compiled with g++) runs one job at a time on its pool."""
+def _run_host_stage(tmp_path, main: str) -> str:
+    """crt_farm_host_stage's and crt_farm_host_stats' host code
+    (farm_kernels.cu) and ``main`` (the program's main), compiled with g++ and run: its
+    standard output."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the host stage's C++")
@@ -295,13 +294,70 @@ def test_torch_farm_host_stage_takes_one_call_at_a_time(tmp_path):
              "namespace {", source[host:source.index("}  // namespace", host)], "}",
              'extern "C" {', source[source.index("int crt_farm_host_stage("):
                                     source.index("// Block the host until the stream")], "}",
-             _HOST_STAGE_DRIVER]
+             main]
     cpp, exe = tmp_path / "host_stage.cpp", tmp_path / "host_stage"
     cpp.write_text("\n".join(parts))
     subprocess.run([gxx, "-std=c++17", "-O1", "-pthread", str(cpp), "-o", str(exe)], check=True,
                    capture_output=True, timeout=120)
-    out = subprocess.run([str(exe)], check=True, capture_output=True, text=True, timeout=120)
-    assert out.stdout.split() == ["0"] * 4, out.stdout
+    return subprocess.run([str(exe)], check=True, capture_output=True, text=True,
+                          timeout=120).stdout
+
+
+def test_torch_farm_host_stage_takes_one_call_at_a_time(tmp_path):
+    """Four host threads calling crt_farm_host_stage at once (farms fed from
+    several threads) each get exactly their own rows, zeros for null rows, in
+    their pinned buffer and on their card address: the entry's host code
+    (farm_kernels.cu, compiled with g++) runs one job at a time on its pool."""
+    out = _run_host_stage(tmp_path, _HOST_STAGE_DRIVER)
+    assert out.split() == ["0"] * 4, out
+
+
+# Two threads, each 30 jobs of its own size: after each job its counters
+# (crt_farm_host_stats) must be non-negative and within the job's wall time,
+# and must read the same again once the other thread has run a job.
+_HOST_STATS_DRIVER = """
+#include <cstdio>
+int main() {
+    std::atomic<int> jobs{0};
+    std::vector<int> bad(2, 0);
+    std::vector<long long> late_max(2, 0);
+    std::vector<std::thread> ts;
+    for (int t = 0; t < 2; ++t) ts.emplace_back([&, t] {
+        const int rows = 64 + 32 * t;
+        const long long rb = 16384 + 64;
+        std::vector<char> src(rows * rb, char(t + 1)), pinned(rows * rb), card(rows * rb);
+        std::vector<const char*> ptr(rows);
+        for (int r = 0; r < rows; ++r) ptr[r] = src.data() + r * rb;
+        for (int it = 0; it < 30; ++it) {
+            const long long t0 = now_ns();
+            if (crt_farm_host_stage(pinned.data(), ptr.data(), rows, rb, card.data(), 0,
+                                    nullptr) != 0) bad[t] += 1000;
+            const long long wall = now_ns() - t0;
+            long long mine[2], again[2];
+            if (crt_farm_host_stats(mine) != 0) bad[t] += 1000;
+            for (long long v : mine) if (v < 0 || v > wall) ++bad[t];
+            late_max[t] = std::max(late_max[t], mine[1]);
+            jobs.fetch_add(1);
+            while (jobs.load() < 2 * (it + 1)) std::this_thread::yield();
+            crt_farm_host_stats(again);
+            if (again[0] != mine[0] || again[1] != mine[1]) ++bad[t];
+        }
+    });
+    for (auto& t : ts) t.join();
+    std::printf("%d %d %lld %lld", bad[0], bad[1], late_max[0], late_max[1]);
+    return 0;
+}
+"""
+
+
+def test_torch_farm_host_stats_are_each_threads_own(tmp_path):
+    """crt_farm_host_stats gives the calling thread's last job's counters:
+    pool_wait_ns and pool_late_ns non-negative and no longer than the job,
+    unchanged by another thread's job in between (farm_kernels.cu's host
+    code, compiled with g++, two threads taking turns)."""
+    bad0, bad1, *late = _run_host_stage(tmp_path, _HOST_STATS_DRIVER).split()
+    assert (bad0, bad1) == ("0", "0"), (bad0, bad1)
+    assert all(int(v) >= 0 for v in late)
 
 
 def test_torch_farm_host_path_delivers_past_the_pool_by_the_host_threads(card):

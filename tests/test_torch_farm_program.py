@@ -290,6 +290,23 @@ def _host_stage_stand_in(calls):
     return entry
 
 
+# What the stand-in of crt_farm_host_stats reports for every job,
+# (pool_wait_ns, pool_late_ns), and its calls' arguments (apart from the
+# device program's calls: the recorder makes them).
+HOST_STATS = (7000, 3000)
+HOST_STATS_CALLS = []
+
+
+def _host_stats_stand_in():
+    """crt_farm_host_stats: HOST_STATS written to the address passed."""
+    def entry(*args):
+        a = dict(zip(_build.ENTRY_ARGS["crt_farm_host_stats"], args))
+        HOST_STATS_CALLS.append(a)
+        _view(a["out"], (2,), np.int64)[...] = HOST_STATS
+        return 0
+    return entry
+
+
 def _sync_stand_in(calls):
     def entry(*args):
         calls.append(("crt_farm_sync", dict(zip(_build.ENTRY_ARGS["crt_farm_sync"], args))))
@@ -339,12 +356,15 @@ MAC_ENTRIES = ("crt_tiled_mac", "crt_strided_mac", "crt_wide_mac")
 def card(monkeypatch):
     """Farms built under this fixture on CPU tensors take the card's path:
     every C entry is stood in over the same pointers and logged (the list
-    this returns), pinned memory is ordinary memory."""
+    this returns; crt_farm_host_stats reports HOST_STATS and logs in
+    HOST_STATS_CALLS), pinned memory is ordinary memory."""
     calls = []
+    HOST_STATS_CALLS.clear()
     entries = {"crt_farm_stage": _stage_stand_in(calls),
                "crt_farm_unstage": _unstage_stand_in(calls),
                "crt_farm_copy": _copy_stand_in(calls), "crt_farm_sync": _sync_stand_in(calls),
                "crt_farm_host_stage": _host_stage_stand_in(calls),
+               "crt_farm_host_stats": _host_stats_stand_in(),
                **{name: _mac_stand_in(name, calls) for name in MAC_ENTRIES}}
     monkeypatch.setattr(_build, "entry_function", entries.__getitem__)
     monkeypatch.setattr(_build, "_check_cuda", lambda x: None)
