@@ -1690,11 +1690,11 @@ def scan_args(c: dict) -> dict:
 def run_scans(gen) -> dict:
     """Config 7's scan and the other engines' scans (main path). Each scan's
     own launch counts must be its engine's scan mode's and nothing else's:
-    one tiled_mac_kernel launch a step for the tiled and general engines,
+    one tiled_mac_kernel launch a request for the tiled and general engines,
     one strided_mac_kernel launch a step for the strided one, a
     wide_mac_kernel and wide_fold_kernel launch a launch offset for the wide
     one (any other route, a staging kernel's or an entry's, fails)."""
-    from clownresampler_tpu_torch.lowlevel import SCAN_ROUTES, _scan_engine
+    from clownresampler_tpu_torch.lowlevel import SCAN_ROUTES, WHOLE_SCAN_KINDS, _scan_engine
     from clownresampler_tpu_torch.ops.resample import ROUTES
 
     runs = {}
@@ -1711,7 +1711,8 @@ def run_scans(gen) -> dict:
         runs[rates] = dict(case=c, result=res, seconds=seconds,
                            launch_counts={"/".join(key): n for key, n in counts.items()})
         kind, _, _, step = _scan_engine(c["increment"], c["max_taps"], c["n_out"])
-        want = {(SCAN_ROUTES[kind], "cuda"): (k + 1) * -(-c["n_out"] // step)}
+        want = {(SCAN_ROUTES[kind], "cuda"):
+                1 if kind in WHOLE_SCAN_KINDS else (k + 1) * -(-c["n_out"] // step)}
         if counts != want:
             raise AssertionError(f"scan {rates} ({kind} engine) launched {counts}, not {want}")
     return runs
@@ -1779,17 +1780,18 @@ def profile_scan_program(c: dict, k: int, attempts: int = 3) -> dict:
     """The step loop of one scan (``ScanProgram.run`` over the first k
     chunks, set up outside) under torch.profiler with memory profiling on:
     fails unless the loop ran no ``aten::`` op, allocated and freed nothing
-    and put exactly its kernels on the card -- a step is its engine's
-    scan-mode launches: one tiled_mac_kernel for the tiled and general
-    engines, one strided_mac_kernel for the strided one, a wide_mac_kernel
-    and a wide_fold_kernel a launch offset for the wide one. The profiler now
+    and put exactly its kernels on the card -- one tiled_mac_kernel a
+    request for the tiled and general engines; a step is its engine's
+    scan-mode launches for the others: one strided_mac_kernel for the
+    strided one, a wide_mac_kernel and a wide_fold_kernel a launch offset for
+    the wide one. The profiler now
     and then loses a kernel's record, so a count that is off is taken again
     with a new program, up to ``attempts`` times; an aten op, a memory event
     or an activity that is none of the loop's kernels fails at once. Returns
     the device activities a step, the device time a step by kernel, and the
     device's busy share of the loop's wall time (profiled: the profiler slows
     the host's issue)."""
-    from clownresampler_tpu_torch.lowlevel import ScanProgram
+    from clownresampler_tpu_torch.lowlevel import WHOLE_SCAN_KINDS, ScanProgram
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(1, attempts + 1):
@@ -1816,17 +1818,17 @@ def profile_scan_program(c: dict, k: int, attempts: int = 3) -> dict:
             raise AssertionError(
                 f"scan {c['rates']}: the step loop ran aten ops {aten}, {memory_events} memory "
                 f"events and device activities other than its kernels: {strangers}")
-        want = program.launches * len(kernels)
-        if sum(counts.values()) == want * k:
+        want = program.launches * len(kernels) * (1 if program.kind in WHOLE_SCAN_KINDS else k)
+        if sum(counts.values()) == want:
             break
         if attempt == attempts:
             raise AssertionError(
                 f"scan {c['rates']}: {counts} device activities over {k} steps in each of "
-                f"{attempts} profiles (wanted {want} a step)")
+                f"{attempts} profiles (wanted {want})")
     total_us = sum(device_us.values())
     return dict(rates=c["rates"], engine=program.kind, steps=k, lanes=c["chunks"].shape[2],
                 aten_ops=0, memory_events=0,
-                profiles_taken=attempt, device_activities_per_step=want,
+                profiles_taken=attempt, device_activities_per_step=want / k,
                 device_ms_per_step=total_us / 1e3 / k,
                 device_ms_per_step_by_kernel={key[:60]: v / 1e3 / k
                                               for key, v in sorted(device_us.items())},

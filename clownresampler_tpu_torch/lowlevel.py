@@ -77,6 +77,10 @@ GENERAL_WIDE_MIN_TAPS = 256
 # wide_mac_kernel and a wide_fold_kernel launch).
 SCAN_ROUTES = {"tiled": "scan_inplace", "general": "scan_inplace", "strided": "scan_strided",
                "wide": "scan_wide"}
+# The engines whose scan-mode launch walks every step of a request with one
+# grid (tiled_mac_kernel's); the others launch once a step (the wide engine
+# once a launch offset a step).
+WHOLE_SCAN_KINDS = frozenset(("tiled", "general"))
 
 Scalar = Union[int, torch.Tensor]
 OutputCallback = Callable[[np.ndarray], bool]
@@ -274,8 +278,10 @@ def resample_scan(table, chunks, state: DeviceState, *, max_taps: int, n_out: in
 
 def _scan_engine(increment: int, max_taps: int, n_out: int) -> tuple:
     """(kind, d, cand, frames between launches) of the fused scan's engine:
-    ``launch_kind``'s class, one launch a step except for the wide class,
-    which cuts n_out into launches of ``wide_launch_frames(max_taps)``."""
+    ``launch_kind``'s class, whose steps are one launch each (the tiled and
+    general classes: one launch a request, WHOLE_SCAN_KINDS) except for the
+    wide class, which cuts n_out into launches of
+    ``wide_launch_frames(max_taps)``."""
     if max_taps > FAST_KERNEL_MAX_TAPS:
         raise ValueError(f"the fused scan takes at most {FAST_KERNEL_MAX_TAPS} taps, got "
                          f"{max_taps}: stream wider kernels through LowLevelResampler")
@@ -395,9 +401,12 @@ def _scan_step_launches(table, chunks, state_in, cfg, out, produced, over, state
     of (C entry, its arguments by name) -- one crt_tiled_scan or
     crt_strided_scan, or a crt_wide_scan per launch offset of the wide
     engine, each writing its frames of ``out`` (n_out, L) and reading its
-    launch state from the step's ``state_in``. ``partial`` is the wide
-    engine's scratch (_build.wide_scratch_ints of one launch)."""
-    kind, d, cand, step = _scan_engine(increment, max_taps, out.shape[0])
+    launch state from the step's ``state_in``. For the WHOLE_SCAN_KINDS
+    ``out`` may be (steps, n_out, L), with ``produced``, ``over`` and
+    ``state_out`` of as many steps: one crt_tiled_scan then takes them all.
+    ``partial`` is the wide engine's scratch (_build.wide_scratch_ints of one
+    launch)."""
+    kind, d, cand, step = _scan_engine(increment, max_taps, out.shape[-2])
     books = (state_in, cfg, out, produced, over, state_out)
     common = dict(step=k, radius=radius, max_taps=max_taps)
     elem = chunks.element_size()
@@ -467,15 +476,17 @@ class ScanProgram:
     The constructor validates, plans the engine's launches, allocates (the
     (K, n_out, L) outputs, one int32 array for produced (K,), over (K,) and
     the carried states (K + 1, 2), and the wide engine's scratch) and builds
-    every launch's argument list. ``run`` then calls, for each step, the
-    engine's scan-mode C entry (``scan_inplace_step``'s launches: one
-    crt_tiled_scan or crt_strided_scan, or a crt_wide_scan per launch
-    offset), which reads the step's window rows straight from the chunks (as
-    the stream rows [k*n_in - 2*radius, (k+1)*n_in), int16 or int32),
-    computes the step's bookkeeping and its launch state from the step's
-    state, stores the frames past ``produced`` as 0 straight into the
-    outputs and (the first launch of the step) writes produced, over and the
-    next state. No staging buffer exists.
+    every launch's argument list. ``run`` then calls the engine's scan-mode
+    C entry: for the tiled and general engines (WHOLE_SCAN_KINDS) one
+    crt_tiled_scan over all K steps, whose blocks carry each step's state
+    forward on the card; for the others, for each step,
+    ``scan_inplace_step``'s launches (one crt_strided_scan, or a
+    crt_wide_scan per launch offset). Each reads a step's window rows
+    straight from the chunks (as the stream rows [k*n_in - 2*radius,
+    (k+1)*n_in), int16 or int32), computes the step's bookkeeping and its
+    launch state from the step's state, stores the frames past ``produced``
+    as 0 straight into the outputs and writes produced, over and the next
+    state. No staging buffer exists.
 
     No torch op, allocation, argument check or host sync happens between
     the first launch and the last. A program runs once."""
@@ -500,15 +511,19 @@ class ScanProgram:
         self.states[0] = torch.stack([st.position_integer, st.position_fractional])
         self.scratch = _wide_scratch(chunks, increment, max_taps, n_out)
         # Step 0's launches, checked; the other steps' differ in their window
-        # and pointers only.
+        # and pointers only. For the WHOLE_SCAN_KINDS step 0's launch takes
+        # every step.
+        whole = kind in WHOLE_SCAN_KINDS
+        n = k if whole else 1
         launches = _scan_step_launches(
-            table, chunks, self.states[0], st.cfg, self.outputs[0], self.produced[:1],
-            self.over[:1], self.states[1], k=0, radius=radius, max_taps=max_taps,
-            increment=increment, table_strided=table_strided, partial=self.scratch)
+            table, chunks, self.states[0], st.cfg, self.outputs if whole else self.outputs[0],
+            self.produced[:n], self.over[:n], self.states[1 : n + 1].view(-1), k=0,
+            radius=radius, max_taps=max_taps, increment=increment, table_strided=table_strided,
+            partial=self.scratch)
         self.launches = len(launches)
         out_bytes = self.outputs[0].nbytes
         self.calls = []
-        for s in range(k):
+        for s in range(k // n):
             for entry, args in launches:
                 self.calls.append((_build.entry_function(entry), entry, _build.ordered_args(
                     entry, dict(
@@ -528,7 +543,8 @@ class ScanProgram:
             err = fn(*args)
             if err:
                 _build.raise_on_launch(err, entry)
-        ROUTES[(SCAN_ROUTES[self.kind], "cuda")] += self.steps * self.launches
+        ROUTES[(SCAN_ROUTES[self.kind], "cuda")] += len(calls)
+        profiling.count("scan_launches", len(calls))
 
     def result(self):
         """What ``resample_scan_fused`` returns."""
@@ -553,12 +569,13 @@ def resample_scan_fused(table, chunks, state: DeviceState, *, max_taps: int, n_o
     gather into a row take. ``n_out`` must be a multiple of 8.
 
     On a CUDA card the scan is one device program (``ScanProgram``): after
-    one set-up every step is the engine's scan-mode launch (tiled_mac_kernel
-    for the tiled and general engines, strided_mac_kernel, or wide_mac_kernel
-    and wide_fold_kernel per launch offset), which reads its window rows
+    one set-up the engine's scan-mode launches run (one tiled_mac_kernel
+    launch over every step for the tiled and general engines, a
+    strided_mac_kernel launch a step, or wide_mac_kernel and
+    wide_fold_kernel per launch offset a step), which read their window rows
     straight from the chunks (no staging pass, no staging buffers) and
-    computes the step's bookkeeping itself from the step's state in device
-    memory. Every launch writes the outputs in place, so the host only
+    compute each step's bookkeeping themselves from the step's state in
+    device memory. Every launch writes the outputs in place, so the host only
     queues kernels and never synchronises. On the CPU the plain version runs
     (``resample_scan_fused_reference``).
     """

@@ -69,7 +69,7 @@ ENTRY_ARGS = {
     "crt_tiled_mac": (*_LAUNCH_INPUT, "tstr", "tstr_rows", "N", "T", "frames_per_stage",
                       "win_rows", "vec", *_LAUNCH_OUTPUT),
     "crt_tiled_scan": (*_SCAN_INPUT, "tstr", "tstr_rows", "N", "T", "frames_per_stage",
-                       "win_rows", "out", *_SCAN_OUTPUT),
+                       "win_rows", "steps", "out", *_SCAN_OUTPUT),
     "crt_strided_mac": (*_LAUNCH_INPUT, "N", "T", "d", "frames_per_tile", "win_rows", "vec",
                         *_LAUNCH_OUTPUT),
     "crt_strided_scan": (*_SCAN_INPUT, "N", "T", "d", "frames_per_tile", "win_rows", "out",
@@ -552,23 +552,28 @@ def _scan_args(chunks, state_in, cfg, out, produced, over, state_out, *, step: i
     scan step ``step`` of ``chunks`` (K, n_in, L) int16 or int32, read as one
     stream, from the state ``state_in`` (2,) -- (p with the scan's +radius
     bias, f) --, frames into ``out`` (N, L) int32, ``produced`` and ``over``
-    (1,) and ``state_out`` (2,) int32; ``cfg`` ConfigScalars; ``tensors``
-    (name: (tensor, ndim)) the launch's tables and scratch, int32;
-    everything contiguous on the chunks' card."""
+    (1,) and ``state_out`` (2,) int32; or, with ``out`` (steps, N, L), the
+    ``steps`` steps from ``step`` on, each with its bookkeeping in
+    ``produced`` and ``over`` (steps,) and ``state_out`` (2 * steps,);
+    ``cfg`` ConfigScalars; ``tensors`` (name: (tensor, ndim)) the launch's
+    tables and scratch, int32; everything contiguous on the chunks' card."""
     _check_cuda(chunks)
     if (chunks.dim() != 3 or chunks.dtype not in (torch.int16, torch.int32)
             or not chunks.is_contiguous()):
         raise ValueError(f"chunks must be a contiguous (K, n_in, L) int16 or int32 tensor, got "
                          f"{chunks.dtype} {tuple(chunks.shape)}")
     k, n_in, lanes = chunks.shape
-    n_out = out.shape[0] if out.dim() == 2 else -1
-    small = dict(state_in=(state_in, 2), state_out=(state_out, 2), produced=(produced, 1),
-                 over=(over, 1))
-    _check_tensors(out, lanes, 0, **tensors, **{name: (t, 1) for name, (t, _) in small.items()})
+    steps = out.shape[0] if out.dim() == 3 else 1
+    n_out = out.shape[-2] if out.dim() in (2, 3) else -1
+    small = dict(state_in=(state_in, 2), state_out=(state_out, 2 * steps),
+                 produced=(produced, steps), over=(over, steps))
+    _check_tensors(out.view(-1, lanes) if out.dim() == 3 and out.is_contiguous() else out,
+                   lanes, 0, **tensors, **{name: (t, 1) for name, (t, _) in small.items()})
     for name, (t, numel) in small.items():
         if t.numel() != numel:
             raise ValueError(f"{name} must have {numel} elements, got {t.numel()}")
-    if chunks.device != out.device or not (0 <= step < k and n_out > 0 and radius >= 0):
+    if chunks.device != out.device or not (0 <= step and step + steps <= k and n_out > 0
+                                           and steps > 0 and radius >= 0):
         raise ValueError(f"bad scan step {step} of chunks {tuple(chunks.shape)} on "
                          f"{chunks.device}, radius {radius}, out {tuple(out.shape)} on "
                          f"{out.device}")
@@ -610,10 +615,12 @@ def _tstr_args(table_strided) -> dict:
 def tiled_scan_args(chunks, table, table_strided, state_in, cfg, out, produced, over,
                     state_out, *, step: int, radius: int, max_taps: int, frames_per_stage: int,
                     win_rows: int) -> dict:
-    """Check one scan-mode tiled_mac_kernel launch (a tiled or general scan
-    step) and return crt_tiled_scan's arguments by name (_scan_args: its n_out
-    frames into ``out`` (n_out, L)); the flat LUT ``table`` or its strided
-    form; stages as for tiled_mac, their rows of the chunks' type."""
+    """Check one scan-mode tiled_mac_kernel launch (tiled or general scan
+    steps) and return crt_tiled_scan's arguments by name (_scan_args: one
+    step's n_out frames into ``out`` (n_out, L), or with ``out`` (steps,
+    n_out, L) that many steps, walked by the launch's one grid); the flat LUT
+    ``table`` or its strided form; stages as for tiled_mac, their rows of the
+    chunks' type."""
     args = _scan_args(chunks, state_in, cfg, out, produced, over, state_out, step=step,
                       radius=radius, max_taps=max_taps, **_tables(table, table_strided))
     if frames_per_stage not in (8, 16, 32, 64) or win_rows < 0:
@@ -622,8 +629,12 @@ def tiled_scan_args(chunks, table, table_strided, state_in, cfg, out, produced, 
     if smem > MAX_SHARED_BYTES:
         raise ValueError(f"tiled stages of {smem} bytes exceed {MAX_SHARED_BYTES} bytes "
                          f"of shared memory")
-    args.update(**_tstr_args(table_strided), N=out.shape[0], T=max_taps,
-                frames_per_stage=frames_per_stage, win_rows=win_rows)
+    if out.dim() == 3 and out.shape[0] * out.shape[1] >= 2**31:
+        raise ValueError(f"{out.shape[0]} steps of {out.shape[1]} frames: the launch's output "
+                         f"rows must number under 2^31")
+    args.update(**_tstr_args(table_strided), N=out.shape[-2], T=max_taps,
+                frames_per_stage=frames_per_stage, win_rows=win_rows,
+                steps=out.shape[0] if out.dim() == 3 else 1)
     return args
 
 
@@ -631,9 +642,10 @@ def tiled_scan(chunks, table, table_strided, state_in, cfg, out, produced, over,
                step: int, radius: int, max_taps: int, frames_per_stage: int,
                win_rows: int) -> None:
     """Launch tiled_mac_kernel once in scan mode (tiled_scan_args): scan step
-    ``step`` straight from the chunks -- each block copies its tiles' window
-    rows from the stream, as int16 when the chunks are, into shared memory --
-    and its bookkeeping, written in place."""
+    ``step`` (or the steps ``out`` holds) straight from the chunks -- each
+    block copies its tiles' window rows from the stream, as int16 when the
+    chunks are, into shared memory -- and the bookkeeping, written in
+    place."""
     _launch("crt_tiled_scan", tiled_scan_args(
         chunks, table, table_strided, state_in, cfg, out, produced, over, state_out, step=step,
         radius=radius, max_taps=max_taps, frames_per_stage=frames_per_stage, win_rows=win_rows))

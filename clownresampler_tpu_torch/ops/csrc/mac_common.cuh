@@ -218,6 +218,8 @@ constexpr int SCAN_COPY_VEC = 2;
 // < end, else 0: first = k*n_in - 2r, end = (k+1)*n_in for step k. A launch
 // computes frames [offset, offset + N) of the step's n_out (a step of the
 // wide engine may be several launches; every other step is one, offset 0).
+// The tiled scan mode's launch takes `steps` steps from the given one on,
+// step j's window shifted by j*n_in rows and its bookkeeping at index j.
 struct ScanSource {
     const void* chunks;               // int16 or int32 (SrcT); never offset before it
     long long first, end;
@@ -225,40 +227,70 @@ struct ScanSource {
     int n_in;                         // chunk frames
     int n_out;                        // the step's output frames, all launches
     int offset;                       // the launch's first frame in the step
-    int* produced;                    // (1,) written by the step's offset-0 launch
-    int* over;                        // (1,)
-    int* state_out;                   // (2,) the next step's (p, f)
+    int* produced;                    // (steps,) written by the step's offset-0 launch
+    int* over;                        // (steps,)
+    int* state_out;                   // (steps, 2) each next step's (p, f)
+    int steps;                        // the tiled scan mode's steps a launch (unused by others)
 };
 
-// The bookkeeping of one scan-mode launch. On entry g's position is the
-// step's state (p with the scan's +radius bias, f; read_geometry of the
-// state pointer), in int64 as the scan's plain version computes it
+// A scan step's bookkeeping from its state (p with the scan's +radius bias,
+// f), in int64 as the scan's plain version computes it
 // (lowlevel._step_scalars): natural = ceil(((n_in - p) * 2^16 - f) / inc)
-// frames are due, produced = min(natural, n_out). `writer` (thread 0 of
-// block 0) of the step's offset-0 launch writes produced, over (natural >
-// n_out) and the next step's state (the position carry,
-// clownresampler.h:1063-1068); a launch at another offset writes nothing. On
-// return g holds the launch's state at frame `offset` of the step: t = f +
-// offset * inc, p0 = p + (t >> 16), f0 = t & 0xFFFF. Returns the launch's
-// frames that keep their values, produced - offset; its stores mask the rest.
+// frames are due, produced = min(natural, n_out), and the next step's state
+// is the position after them with the carry (clownresampler.h:1063-1068):
+// p' = p_after - min(p_after, n_in), f' = t & 0xFFFF.
+struct ScanBooks {
+    long long natural, produced, p_next, f_next;
+};
+
+__device__ __forceinline__ ScanBooks scan_books(const ScanSource& s, long long p, long long f,
+                                                long long inc) {
+    ScanBooks b;
+    const long long num = (static_cast<long long>(s.n_in) - p) * 65536 - f;
+    b.natural = num > 0 ? (num + inc - 1) / (inc > 1 ? inc : 1) : 0;
+    b.produced = b.natural < s.n_out ? b.natural : s.n_out;
+    const long long t = f + b.produced * inc;
+    const long long p_after = p + (t >> 16);
+    b.p_next = p_after - (p_after < s.n_in ? p_after : s.n_in);
+    b.f_next = t & 0xFFFF;
+    return b;
+}
+
+// Step j's produced, over (natural > n_out) and next state, at index j of
+// the launch's bookkeeping arrays.
+__device__ __forceinline__ void write_books(const ScanSource& s, int j, const ScanBooks& b) {
+    s.produced[j] = static_cast<int>(b.produced);
+    s.over[j] = b.natural > s.n_out ? 1 : 0;
+    s.state_out[2 * j] = static_cast<int>(b.p_next);
+    s.state_out[2 * j + 1] = static_cast<int>(b.f_next);
+}
+
+// The bookkeeping of one single-step scan-mode launch. On entry g's
+// position is the step's state (read_geometry of the state pointer);
+// `writer` (thread 0 of block 0) of the step's offset-0 launch writes its
+// books (scan_books); a launch at another offset writes nothing. On return g
+// holds the launch's state at frame `offset` of the step: t = f + offset *
+// inc, p0 = p + (t >> 16), f0 = t & 0xFFFF. Returns the launch's frames that
+// keep their values, produced - offset; its stores mask the rest.
 __device__ __forceinline__ int scan_launch(const ScanSource& s, LaunchGeometry& g,
                                            bool writer) {
     const long long p = g.p0, f = g.f0;
-    const long long num = (static_cast<long long>(s.n_in) - p) * 65536 - f;
-    const long long natural = num > 0 ? (num + g.inc - 1) / (g.inc > 1 ? g.inc : 1) : 0;
-    const long long produced = natural < s.n_out ? natural : s.n_out;
-    if (writer && s.offset == 0) {
-        *s.produced = static_cast<int>(produced);
-        *s.over = natural > s.n_out ? 1 : 0;
-        const long long t = f + produced * g.inc;
-        const long long p_after = p + (t >> 16);
-        s.state_out[0] = static_cast<int>(p_after - (p_after < s.n_in ? p_after : s.n_in));
-        s.state_out[1] = static_cast<int>(t & 0xFFFF);
-    }
+    const ScanBooks b = scan_books(s, p, f, g.inc);
+    if (writer && s.offset == 0) write_books(s, 0, b);
     const long long t = f + static_cast<long long>(s.offset) * g.inc;
     g.p0 = p + (t >> 16);
     g.f0 = t & 0xFFFF;
-    return static_cast<int>(produced) - s.offset;
+    return static_cast<int>(b.produced) - s.offset;
+}
+
+// Step j of a multi-step launch (the tiled scan mode): the source with its
+// window shifted by j*n_in stream rows.
+__device__ __forceinline__ ScanSource scan_step_source(const ScanSource& s, int j) {
+    ScanSource t = s;
+    const long long shift = static_cast<long long>(j) * s.n_in;
+    t.first += shift;
+    t.end += shift;
+    return t;
 }
 
 // Four staged lanes as one shared load (16 bytes of int32, 8 of int16), and

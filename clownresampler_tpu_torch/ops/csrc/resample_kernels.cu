@@ -37,8 +37,8 @@
 // The per-term truncation rules out tensor cores: the MACs are int32 work on
 // the CUDA cores.
 //
-// Scan mode (SCAN): a step of the whole-stream scan with the tiled or general
-// engine (lowlevel.ScanProgram), as one launch. It replaces the engine's
+// Scan mode (SCAN): the steps of the whole-stream scan with the tiled or
+// general engine (lowlevel.ScanProgram), as one launch. It replaces the engine's
 // Pallas kernel together with the staging, bookkeeping and halo slice XLA
 // compiles around it in the JAX scan (clownresampler_tpu/lowlevel.py:378-412),
 // which concatenates [halo | chunk | zeros] in device memory. The chunks are
@@ -54,11 +54,18 @@
 // the shared memory. The host knows the scan's increment, so it sizes each
 // stage to the window its frames reach (ops.resample.scan_stage_plan: at
 // config 7 16 frames of 123 rows, where the int32 entry takes 8 of 79), and
-// the shared memory left holds more blocks an SM. Each block also works out
-// the step's produced count from the state (scan_launch, mac_common.cuh,
-// shared with the strided and wide kernels' scan modes), masks its stores by
-// it, and block 0 writes produced, over and the next step's state, which the
-// next launch reads in stream order.
+// the shared memory left holds more blocks an SM. A launch takes K steps
+// (one for scan_inplace_step, every step of a request for ScanProgram): its
+// tiles are (step, stage, lane tile), lane tile fastest, and the persistent
+// blocks walk them all, so one tile's compute overlaps the next tile's copy
+// across the steps too and only the launch's last round runs on part of the
+// grid, where a launch a step paid that tail, an unoverlapped first copy a
+// block and a launch gap K times. Each block reads step 0's state once and
+// carries its own step's state forward by the scan's recurrence
+// (scan_books, mac_common.cuh, shared with the strided and wide kernels'
+// scan modes), over the steps it skips too, so no block waits on another;
+// it masks its stores by the step's produced count, and the block of a
+// step's first tile writes the step's produced, over and next state.
 //
 // Built by ops/_build.py with nvcc into a shared library with a plain C
 // interface; the Python wrappers check devices, dtypes, shapes and strides
@@ -96,17 +103,20 @@ struct TiledParams {
     ScanSource scan;                  // scan mode only (x null, S the staged buffer's rows)
 };
 
-// The frames of the launch that keep their values (valid_frames; in scan
-// mode the step's produced count, scan_launch, which also puts the step's
-// state into g as the launch state and whose block 0 writes the step's
-// bookkeeping).
-template <bool SCAN>
-__device__ __forceinline__ int launch_valid(const TiledParams& P, LaunchGeometry& g) {
-    if constexpr (SCAN) {
-        return scan_launch(P.scan, g, blockIdx.x == 0 && threadIdx.x == 0);
-    } else {
-        return valid_frames(P.n_valid, P.frame_offset);
+// Scan mode: move a block's step state -- g's position holds step `at`'s
+// state -- to step k >= at by the scan's recurrence, one step at a time;
+// returns step k's produced count. The block that walks step k's first
+// tile (`first_tile`) writes the step's bookkeeping.
+__device__ __forceinline__ int scan_enter(const ScanSource& s, LaunchGeometry& g, int at, int k,
+                                          bool first_tile) {
+    ScanBooks b = scan_books(s, g.p0, g.f0, g.inc);
+    for (; at < k; ++at) {
+        g.p0 = b.p_next;
+        g.f0 = b.f_next;
+        b = scan_books(s, g.p0, g.f0, g.inc);
     }
+    if (first_tile && threadIdx.x == 0) write_books(s, k, b);
+    return static_cast<int>(b.produced);
 }
 
 // One stage of a block's shared memory, in ints: the staged window
@@ -149,13 +159,15 @@ __device__ __forceinline__ Tile tiled_tile(const TiledParams& P, const LaunchGeo
 }
 
 // Start the asynchronous copy of a staged tile's window rows into `win` (in
-// scan mode from the stream, window row r being stream row scan.first + r).
+// scan mode from the stream, window row r of step j being stream row
+// scan.first + j*n_in + r).
 template <typename SrcT, bool SCAN>
-__device__ __forceinline__ void tiled_load_window(const TiledParams& P, const Tile& t, SrcT* win) {
+__device__ __forceinline__ void tiled_load_window(const TiledParams& P, const Tile& t, int step,
+                                                  SrcT* win) {
     if (!t.staged) return;
     if constexpr (SCAN) {
-        load_stream_rows<TILED_THREADS>(P.scan, P.L, P.scan.first + t.first, t.rows, t.lane0,
-                                        win);
+        const ScanSource s = scan_step_source(P.scan, step);
+        load_stream_rows<TILED_THREADS>(s, P.L, s.first + t.first, t.rows, t.lane0, win);
     } else {
         load_rows_async<TILED_THREADS>(P.x, P.L, P.lane_offset, P.lanes, P.vec, t.first, t.rows,
                                        t.lane0, win);
@@ -203,20 +215,31 @@ __device__ __forceinline__ void tiled_geometry(const TiledParams& P, const Launc
 // rounded up to 8 adds taps that are zero, and a zero tap adds nothing. A
 // frame from `valid` on (valid_frames) skips its taps and is stored as 0: its
 // sum stays 0, and 0 normalises and clamps to 0. A window of int16 rows (scan
-// mode) is widened a quad at a time as its taps read it.
+// mode) is widened a quad at a time as its taps read it. In scan mode `book`
+// is the stage's (step, produced count): the launch's output rows are the
+// steps' (N, lanes) frames one after another, row step*N + n for frame n of
+// the step (every row index is under 2^31: _build.tiled_scan_args checks),
+// and `valid` is unused.
 template <int TT, typename OutT, typename SrcT, bool SCAN>
 __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& t, int T,
                                               const SrcT* win, const int* kv, const int* rl,
-                                              const int* q, const int* lv, int valid) {
+                                              const int* q, const int* lv, int valid,
+                                              const int* book) {
     using Q = Quad<SrcT>;
     const int tx = threadIdx.x & 31;
     const int lane = t.lane0 + 4 * tx;
     if (lane >= P.lanes) return;
+    int n0 = t.n0;                    // the output row of the tile's first frame
+    if constexpr (SCAN) {
+        const int base = book[0] * P.N;
+        n0 += base;
+        valid = book[1] + base;
+    }
     for (int f = threadIdx.x >> 5; f < t.nb; f += TILED_WARPS) {
         const int* k = kv + f * T;
         const int live = lv[f];
         int a0 = 0, a1 = 0, a2 = 0, a3 = 0;
-        if (t.n0 + f >= valid) {
+        if (n0 + f >= valid) {
             // masked: the zeros are stored below
         } else if (t.staged) {
             const typename Q::type* w = reinterpret_cast<const typename Q::type*>(win) +
@@ -250,8 +273,9 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
             // A window past the stage's rows, read from the stream a row at a
             // time; rows outside the step's live range read as zero.
             const int nl = min(4, P.lanes - lane);
+            const ScanSource s = scan_step_source(P.scan, book[0]);
             for (int j = 0; j < live; ++j) {
-                stream_tap<SrcT>(P.scan, P.L, rl[f] + j, lane, nl, k[j], a0, a1, a2, a3);
+                stream_tap<SrcT>(s, P.L, rl[f] + j, lane, nl, k[j], a0, a1, a2, a3);
             }
         } else if (P.vec) {
             // A window past the stage's rows (taps too wide to stage, or an
@@ -278,31 +302,55 @@ __device__ __forceinline__ void tiled_compute(const TiledParams& P, const Tile& 
                 if (nl > 3) a3 = macc_trunc(a3, __ldg(xr + 3), kj);
             }
         }
-        store_lanes<OutT>(P.out, P.lanes, P.vec, t.n0 + f, lane, q[f], a0, a1, a2, a3);
+        store_lanes<OutT>(P.out, P.lanes, P.vec, n0 + f, lane, q[f], a0, a1, a2, a3);
     }
 }
 
 // Persistent blocks walk the tiles (lane tile fastest, so the blocks in
-// flight share their stages' rows in L2). Two stages of shared memory: while
-// a block computes one tile, the copy of its next tile's window is in flight
-// (cp.async), and its geometry follows the compute. One barrier per tile.
-// SrcT and SCAN: the window's rows are int32 rows of x (SCAN false: the
-// tiled and general entries), or the scan's int16 or int32 stream rows.
+// flight share their stages' rows in L2; in scan mode then stage, then
+// step). Two stages of shared memory: while a block computes one tile, the
+// copy of its next tile's window is in flight (cp.async), and its geometry
+// follows the compute. One barrier per tile. SrcT and SCAN: the window's
+// rows are int32 rows of x (SCAN false: the tiled and general entries), or
+// the scan's int16 or int32 stream rows. Scan mode is held to 64 registers
+// (4 blocks an SM where its stages' shared memory allows: the scan cell's
+// request ran 1.4% faster than at 80 registers and 3 blocks, with no
+// spills).
 template <int TT, typename OutT, typename SrcT, bool SCAN>
-__global__ void __launch_bounds__(TILED_THREADS, 2)
+__global__ void __launch_bounds__(TILED_THREADS, SCAN ? 4 : 2)
 tiled_mac_kernel(const TiledParams P) {
     extern __shared__ int4 smem4[];
     int* const smem = reinterpret_cast<int*>(smem4);
     const int T = TT ? TT : P.T;
     LaunchGeometry g = read_geometry(P.geo);
-    const int valid = launch_valid<SCAN>(P, g);
+    int valid = SCAN ? 0 : valid_frames(P.n_valid, P.frame_offset);
     const int F = stage_frames(g, P.F, T, P.W);
     const int stage_ints = tiled_stage_ints<SrcT>(F, T, P.W);
     const int row_max = max(P.S - T, 0);
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
-    const int tiles = lane_tiles * ((P.N + F - 1) / F);
+    const int tiles = lane_tiles * ((P.N + F - 1) / F);     // a step's, in scan mode
     int tile = blockIdx.x;
-    if (tile >= tiles) return;
+    // Scan mode: `tile` is a tile of step `step`, whose state g's position
+    // holds; each stage's (step, produced count) is in `books`, written by
+    // thread 0 as the stage's tile is taken and read after the barrier (in
+    // shared memory, not in registers live across the compute, which is
+    // what holds scan mode to 64 registers).
+    int step = 0;
+    int* books = nullptr;
+    if constexpr (SCAN) {
+        __shared__ int stage_books[4];
+        books = stage_books;
+        step = tile / tiles;
+        tile -= step * tiles;
+        if (step >= P.scan.steps) return;
+        valid = scan_enter(P.scan, g, 0, step, tile == 0);
+        if (threadIdx.x == 0) {
+            books[0] = step;
+            books[1] = valid;
+        }
+    } else {
+        if (tile >= tiles) return;
+    }
 
     // Stage b: window at smem + b * stage_ints, then taps, rows, q, live.
     auto win = [&](int b) { return reinterpret_cast<SrcT*>(smem + b * stage_ints); };
@@ -312,22 +360,42 @@ tiled_mac_kernel(const TiledParams P) {
     auto live = [&](int b) { return recip(b) + F; };
 
     Tile cur = tiled_tile(P, g, tile, lane_tiles, F, T, row_max);
-    tiled_load_window<SrcT, SCAN>(P, cur, win(0));
+    tiled_load_window<SrcT, SCAN>(P, cur, step, win(0));
     cp_async_commit();
     tiled_geometry(P, g, cur, F, T, row_max, taps(0), rows(0), recip(0), live(0));
     for (int b = 0;; b ^= 1) {
         cp_async_wait_all();
         __syncthreads();
-        const int next = tile + gridDim.x;
+        int next = tile + gridDim.x;
+        bool more;
+        if constexpr (SCAN) {
+            step = books[2 * b];
+            const int ahead = next / tiles;
+            next -= ahead * tiles;
+            more = step + ahead < P.scan.steps;
+            if (more) {
+                int produced = books[2 * b + 1];
+                if (ahead) {
+                    produced = scan_enter(P.scan, g, step, step + ahead, next == 0);
+                    step += ahead;
+                }
+                if (threadIdx.x == 0) {
+                    books[2 * (b ^ 1)] = step;
+                    books[2 * (b ^ 1) + 1] = produced;
+                }
+            }
+        } else {
+            more = next < tiles;
+        }
         Tile nxt{};
-        if (next < tiles) {
+        if (more) {
             nxt = tiled_tile(P, g, next, lane_tiles, F, T, row_max);
-            tiled_load_window<SrcT, SCAN>(P, nxt, win(b ^ 1));
+            tiled_load_window<SrcT, SCAN>(P, nxt, step, win(b ^ 1));
         }
         cp_async_commit();
         tiled_compute<TT, OutT, SrcT, SCAN>(P, cur, T, win(b), taps(b), rows(b), recip(b),
-                                            live(b), valid);
-        if (next >= tiles) break;
+                                            live(b), valid, SCAN ? books + 2 * b : nullptr);
+        if (!more) break;
         tiled_geometry(P, g, nxt, F, T, row_max, taps(b ^ 1), rows(b ^ 1), recip(b ^ 1),
                        live(b ^ 1));
         cur = nxt;
@@ -337,7 +405,8 @@ tiled_mac_kernel(const TiledParams P) {
 
 // Persistent grid: as many blocks as fit on the card at this shared memory
 // size (persistent_grid, mac_common.cuh), at most one per tile of 8 frames
-// (the fewest frames a stage takes; blocks past the tiles exit).
+// (the fewest frames a stage takes; blocks past the tiles exit) of every
+// step of the launch.
 template <int TT, typename OutT, typename SrcT, bool SCAN>
 int launch_tiled(const TiledParams& P, int device, cudaStream_t stream) {
     static PersistentGrid cache;
@@ -348,7 +417,8 @@ int launch_tiled(const TiledParams& P, int device, cudaStream_t stream) {
                                     smem, device, &blocks);
     if (err != 0) return err;
     const int lane_tiles = (P.lanes + TILE_LANES - 1) / TILE_LANES;
-    const long long tiles = static_cast<long long>(lane_tiles) * ((P.N + 7) / 8);
+    long long tiles = static_cast<long long>(lane_tiles) * ((P.N + 7) / 8);
+    if constexpr (SCAN) tiles *= P.scan.steps;
     const int grid = static_cast<int>(std::min<long long>(tiles, blocks));
     tiled_mac_kernel<TT, OutT, SrcT, SCAN><<<grid, TILED_THREADS, smem, stream>>>(P);
     return static_cast<int>(cudaGetLastError());
@@ -389,28 +459,31 @@ int crt_tiled_mac(const int* x, int S, int L, int lane_offset, int lanes, const 
                      : launch_tiled_taps<int32_t>(P, device, s);
 }
 
-// One step of the whole-stream scan in scan mode: window row i is row src_first
-// + i of the (K * n_in, L) stream at src (int16 when src_s16, else int32) when
-// that row lies in [0, src_end), else 0; S is the rows of the staged buffer
-// the step stands for (2r + n_in + taps + 8: clamped windows stay put);
-// state_in (2,) is the step's (p, f) and its launch state; the step's frames
-// go to out (N, L) int32, zero from produced on, and produced, over and the
-// next state to their pointers. copy is a SCAN_COPY_* path, vec 1 when out's
-// rows take 16-byte stores. Returns a cudaError_t.
+// `steps` steps of the whole-stream scan in scan mode, as one launch: window
+// row i of the launch's step j is row src_first + j*n_in + i of the (K *
+// n_in, L) stream at src (int16 when src_s16, else int32) when that row lies
+// in [0, src_end + j*n_in), else 0; S is the rows of the staged buffer a step
+// stands for (2r + n_in + taps + 8: clamped windows stay put); state_in (2,)
+// is the first step's (p, f); step j's frames go to out + j*N*L, (N, L)
+// int32, zero from its produced count on, and its produced, over and next
+// state to produced[j], over[j] and state_out[2j..2j+1]. copy is a
+// SCAN_COPY_* path, vec 1 when out's rows take 16-byte stores. Returns a
+// cudaError_t.
 int crt_tiled_scan(const void* src, int src_s16, long long src_first, long long src_end,
                    int n_in, int S, int L, int copy, int vec, const int* state_in,
                    const int* inc_hi, const int* inc_lo, const int* radius, const int* delta,
                    const int* int_radius, const int* step, const int* table, int table_size,
                    const int* tstr, int tstr_rows, int N, int T, int frames_per_stage,
-                   int win_rows, void* out, int* produced, int* over, int* state_out,
-                   int device, void* stream) {
+                   int win_rows, int steps, void* out, int* produced, int* over,
+                   int* state_out, int device, void* stream) {
     const DeviceGuard guard(device);
     if (guard.err != 0) return guard.err;
     const GeometryArgs geo{state_in, 0, state_in + 1, 0, inc_hi, inc_lo,
                            radius, delta, int_radius, step};
     const TiledParams P{nullptr, S, L, 0, L, geo, {table, table_size, tstr, tstr_rows, T},
                         N, T, frames_per_stage, win_rows, vec, out, nullptr, nullptr, 0,
-                        {src, src_first, src_end, copy, n_in, N, 0, produced, over, state_out}};
+                        {src, src_first, src_end, copy, n_in, N, 0, produced, over, state_out,
+                         steps}};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return src_s16 ? launch_tiled_taps<int32_t, int16_t, true>(P, device, s)
                    : launch_tiled_taps<int32_t, int32_t, true>(P, device, s);

@@ -43,7 +43,8 @@ KINDS = {
          "crt.farm.stage.host", "crt.farm.stage.kernel", "crt.farm.launch", "crt.farm.to_host",
          "crt.farm.to_host.issue", "crt.farm.to_host.wait"),
         ("pool_wait_ns", "pool_late_ns", "plans_built")),
-    "crt.scan.request": (("crt.scan.request", "crt.scan.build", "crt.scan.run"), ()),
+    "crt.scan.request": (("crt.scan.request", "crt.scan.build", "crt.scan.run"),
+                         ("scan_launches",)),
 }
 # The spans that are record_function ranges while a profiler records: a
 # 5-group mixed call opens 17 (a trace reader that looks back a fixed number

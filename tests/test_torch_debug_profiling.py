@@ -75,6 +75,7 @@ def test_torch_trace_writes_a_chrome_trace(tmp_path):
 
 FARM, SCAN = "crt.farm.call", "crt.scan.request"
 FARM_SPANS, FARM_COUNTERS = profiling.KINDS[FARM]
+SCAN_SPANS, SCAN_COUNTERS = profiling.KINDS[SCAN]
 # span -> the span it nests in
 PARENT = {"crt.farm.stage": FARM, "crt.farm.launch": FARM, "crt.farm.to_host": FARM,
           "crt.farm.stage.wait": "crt.farm.stage", "crt.farm.stage.rows": "crt.farm.stage",
@@ -119,7 +120,8 @@ def test_torch_recorder_rows_nesting_and_counters():
     assert farm[FARM] >= farm["crt.farm.stage"] > 0
     assert farm["crt.farm.stage.host"] == farm["crt.farm.launch"] == 0
     assert (farm["plans_built"], farm["pool_wait_ns"], farm["pool_late_ns"]) == (3, 11, 0)
-    assert set(scan) == set(profiling.KINDS[SCAN][0])
+    assert set(scan) == set(SCAN_SPANS + SCAN_COUNTERS)
+    assert scan["scan_launches"] == 0
     assert scan[SCAN] >= scan["crt.scan.build"] + scan["crt.scan.run"]
     assert scan["crt.scan.build"] > 0 and scan["crt.scan.run"] > 0
 
@@ -278,7 +280,9 @@ def test_torch_mixed_call_opens_at_most_17_ranges(card):
 
 def test_torch_scan_program_spans(monkeypatch):
     """ScanProgram's construction and run, its C entries stood in, inside a
-    request's row: each its own span; outside a row, nothing."""
+    request's row: each its own span, and the launches it queued counted
+    (one for the tiled engine's three steps, one a step for the strided
+    one); outside a row, nothing."""
     c = _case(SCAN_ENGINES["tiled"], lanes=8, n_in=96, k=3, seed=94)
     before = _closed(SCAN)
     _program(c, monkeypatch)
@@ -288,3 +292,8 @@ def test_torch_scan_program_spans(monkeypatch):
     (row,) = _new_rows(SCAN, before)
     assert row["crt.scan.build"] > 0 and row["crt.scan.run"] > 0
     assert row["crt.scan.build"] + row["crt.scan.run"] <= row[SCAN]
+    assert row["scan_launches"] == 1
+    strided = _case(SCAN_ENGINES["strided"], lanes=8, n_in=96, k=3, seed=94)
+    with profiling.span(SCAN):
+        _program(strided, monkeypatch)
+    assert _new_rows(SCAN, before + 1)[0]["scan_launches"] == 4      # three chunks, the flush

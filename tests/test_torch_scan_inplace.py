@@ -43,9 +43,11 @@ from tests.test_torch_scan_program import (
     _case,
     _composed,
     _jax,
+    _kernel_step_int64,
     _plain,
     _program,
     _reference,
+    _scan_args,
 )
 
 INPLACE = ["tiled", "general"]
@@ -178,17 +180,6 @@ def test_torch_scan_stream_rows_are_the_staged_buffer():
             prev = torch.cat([staged, torch.zeros((9, 3), dtype=torch.int32)])
 
 
-def _kernel_step_int64(p, f, inc, n_in, n_out):
-    """mac_common.cuh scan_launch's bookkeeping in exact integers, C
-    truncating division: (produced, over, next state)."""
-    num = (n_in - p) * 65536 - f
-    natural = (num + inc - 1) // max(inc, 1) if num > 0 else 0   # num, inc > 0: floor = trunc
-    produced = min(natural, n_out)
-    t = f + produced * inc
-    p_after = p + (t >> 16)
-    return produced, int(natural > n_out), [p_after - min(p_after, n_in), t & 0xFFFF]
-
-
 @pytest.mark.parametrize("seed", range(5))
 def test_torch_scan_inplace_bookkeeping_equals_int64_form(seed):
     """100 random states a seed over the domain the scan admits: the
@@ -254,27 +245,25 @@ def _offset_chunks(c, offset):
          "s32-words", "s32-off4"])
 def test_torch_scan_inplace_argument_flow(monkeypatch, dtype, lanes, offset, copy):
     """The program over chunks at an offset from 16 bytes, its C entry stood
-    in: each step's launch reads the stream at the chunks' own address (never
-    offset before it), with the step's window [k*n_in - 2r, (k+1)*n_in), the
-    copy path the host picked and the step's pointers; the result is the
-    plain version's."""
+    in: its one launch reads the stream at the chunks' own address (never
+    offset before it), with step 0's window [-2r, n_in) -- step k's is that
+    shifted by k*n_in --, the copy path the host picked, the request's
+    steps and the bases of its state, output and bookkeeping arrays; the
+    result is the plain version's."""
     c = _case(ENGINES["general"], lanes=lanes, n_in=24, k=3, seed=306, dtype=dtype, f0=0x0F0F)
     chunks = _offset_chunks(c, offset)
     got, calls, program = _program(c, monkeypatch, chunks=chunks)
     _assert_same(got, _reference(c), f"{dtype} {lanes} lanes offset {offset}")
     k, n_in, r = chunks.shape[0], chunks.shape[1], c["r"]
     assert program.chunks.data_ptr() == chunks.data_ptr()
-    assert [(a["src"], a["src_first"], a["src_end"], a["copy"], a["S"]) for _, a in calls] == [
-        (chunks.data_ptr(), s * n_in - 2 * r, (s + 1) * n_in, copy,
-         2 * r + n_in + c["taps"] + 8) for s in range(k)]
+    (a,) = (a for _, a in calls)
+    assert (a["src"], a["src_first"], a["src_end"], a["copy"], a["S"], a["steps"]) == (
+        chunks.data_ptr(), -2 * r, n_in, copy, 2 * r + n_in + c["taps"] + 8, k)
     book = program.states.data_ptr()
-    assert [(a["state_in"] - book, a["state_out"] - book) for _, a in calls] == [
-        (8 * s, 8 * (s + 1)) for s in range(k)]
-    assert [a["out"] - program.outputs.data_ptr() for _, a in calls] == [
-        s * program.outputs[0].nbytes for s in range(k)]
-    assert [a["produced"] - program.produced.data_ptr() for _, a in calls] == [
-        4 * s for s in range(k)]
-    assert {a["vec"] for _, a in calls} == {int(lanes % 4 == 0)}
+    assert (a["state_in"] - book, a["state_out"] - book) == (0, 8)
+    assert (a["out"], a["produced"], a["over"]) == (
+        program.outputs.data_ptr(), program.produced.data_ptr(), program.over.data_ptr())
+    assert a["vec"] == int(lanes % 4 == 0)
     assert not hasattr(program, "buffers")
 
 
@@ -361,6 +350,15 @@ def test_torch_tiled_scan_launcher_refuses_what_the_kernel_cannot_take():
         with pytest.raises(ValueError, match="shared memory"):
             _build.tiled_scan_args(chunks, *args, *outs, step=0,
                                    **dict(kw, win_rows=1000))
+        # Several steps: (steps, n_out, L) outputs and bookkeeping of as many;
+        # steps past the three chunks refused.
+        many = (i32(2, c["n_out"], 8), i32(2), i32(2), i32(4))
+        got = _build.tiled_scan_args(chunks, *args, *many, step=0, **kw)
+        assert (got["steps"], got["N"], got["src_first"]) == (2, c["n_out"], -2 * c["r"])
+        with pytest.raises(ValueError, match="bad scan step"):
+            _build.tiled_scan_args(chunks, *args, *many, step=2, **kw)
+        with pytest.raises(ValueError, match="must have 4 elements"):
+            _build.tiled_scan_args(chunks, *args, *many[:3], i32(2), step=0, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -405,8 +403,8 @@ def test_torch_cuda_scan_inplace_step_matches_plain(cuda_device, engine, dtype, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("engine", INPLACE)
 def test_torch_cuda_scan_inplace_program_matches_reference(cuda_device, engine):
-    """The whole program on the card: one scan-mode launch a step, nothing
-    staged, against the plain scan."""
+    """The whole program on the card: one scan-mode launch a request,
+    nothing staged, against the plain scan."""
     c = _case(ENGINES[engine], lanes=1000, n_in=200, k=4, seed=309, f0=0x5A5A,
               device=cuda_device)
     chunks = torch.from_numpy(c["chunks"]).to(cuda_device)
@@ -414,8 +412,48 @@ def test_torch_cuda_scan_inplace_program_matches_reference(cuda_device, engine):
     got = _plain(resample_scan_fused(c["table"], chunks, c["state"],
                                      max_taps=c["taps"], n_out=c["n_out"], radius=c["r"],
                                      increment=c["inc"], table_strided=c["tstr"]))
-    assert rs.ROUTES == {("scan_inplace", "cuda"): 5}
+    assert rs.ROUTES == {("scan_inplace", "cuda"): 1}
     _assert_same(got, _reference(c), engine)
     program = ScanProgram(c["table"], chunks, c["state"], max_taps=c["taps"], n_out=c["n_out"],
                           radius=c["r"], increment=c["inc"], table_strided=c["tstr"])
     assert program.kind == engine and not hasattr(program, "buffers")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES, ids=DTYPE_IDS)
+@pytest.mark.parametrize("rates,lanes,n_in,k,backlog", [
+    (ENGINES["tiled"], 2048, 1024, 6, False),         # many tiles a step
+    (ENGINES["general"], 300, 512, 4, False),
+    (ENGINES["tiled"], 5, 256, 3, False),             # odd lanes
+    ((8000, 44100), 64, 128, 4, True),                # a backlog
+    (ENGINES["general"], 6, 16, 5, False),            # n_in < 2r
+    (ENGINES["general"], 128, 512, 1, False),         # K = 1
+    (ENGINES["tiled"], 128, 64, 600, False),          # 2 tiles a step: blocks skip steps
+], ids=["wide-steps", "general", "odd-lanes", "backlog", "short-chunks", "k1", "tiny-steps"])
+def test_torch_cuda_scan_one_launch_matches_steps(cuda_device, rates, lanes, n_in, k, backlog,
+                                                   dtype):
+    """A tiled or general request as one scan-mode launch against the same
+    steps as K one-step launches (scan_inplace_step, each from the state the
+    previous one wrote) and against the plain version: every output sample,
+    each step's produced, over and next state, exact."""
+    c = _case(rates, lanes=lanes, n_in=n_in, k=k, flush=k > 1, seed=310, dtype=dtype,
+              f0=0x2D2D, device=cuda_device)
+    if backlog:
+        c = dict(c, n_out=fx.round_up(c["n_out"] // 2, 8))
+    assert lowlevel._scan_engine(c["inc"], c["taps"], c["n_out"])[0] in lowlevel.WHOLE_SCAN_KINDS
+    chunks = torch.from_numpy(c["chunks"]).to(cuda_device)
+    program = ScanProgram(c["table"], chunks, c["state"], **_scan_args(c))
+    rs.ROUTES.clear()
+    program.run()
+    assert rs.ROUTES == {("scan_inplace", "cuda"): 1}
+    state = program.states[0].clone()
+    for j in range(chunks.shape[0]):
+        out, prod, over, state = scan_inplace_step(
+            c["table"], chunks, j, state, c["state"].cfg, radius=c["r"], max_taps=c["taps"],
+            n_out=c["n_out"], increment=c["inc"], table_strided=c["tstr"])
+        assert torch.equal(program.outputs[j], out), j
+        assert (int(program.produced[j]), int(program.over[j])) == (int(prod), int(over)), j
+        assert torch.equal(program.states[j + 1], state), j
+    got = _plain(program.result())
+    assert got[4] == backlog
+    _assert_same(got, _reference(c), (rates, lanes, n_in, k))

@@ -222,8 +222,9 @@ def test_torch_scan_program_chunks_shorter_than_the_halo_match_jax_fused(engine,
 
 def _bookkeeping_int64(p, f, inc, n_in, n_out, step):
     """A scan step's bookkeeping in exact integers, as the scan-mode kernels
-    compute it (mac_common.cuh scan_launch) for launches at frame offsets 0,
-    step, ...: (produced, over, the launches' states, next state)."""
+    compute it (mac_common.cuh scan_books, scan_launch) for launches at
+    frame offsets 0, step, ...: (produced, over, the launches' states, next
+    state)."""
     num = ((n_in - p) << 16) - f
     natural = (num + inc - 1) // max(inc, 1) if num > 0 else 0
     produced = min(natural, n_out)
@@ -239,6 +240,86 @@ def _bookkeeping_int64(p, f, inc, n_in, n_out, step):
 
 RATIOS = [(48000, 44100), (44100, 48000), (8000, 44100), (96000, 48000), (44100, 8000),
           (44100, 1000), (192000, 44100), (44100, 262)]
+
+
+def _kernel_step_int64(p, f, inc, n_in, n_out):
+    """mac_common.cuh scan_books in exact integers, C truncating division:
+    (produced, over, next state)."""
+    num = (n_in - p) * 65536 - f
+    natural = (num + inc - 1) // max(inc, 1) if num > 0 else 0   # num, inc > 0: floor = trunc
+    produced = min(natural, n_out)
+    t = f + produced * inc
+    p_after = p + (t >> 16)
+    return produced, int(natural > n_out), [p_after - min(p_after, n_in), t & 0xFFFF]
+
+
+def _kernel_walk(p, f, inc, n_in, n_out, steps, tiles, grid):
+    """tiled_mac_kernel's scan-mode walk (resample_kernels.cu), mirrored:
+    ``grid`` persistent blocks over ``steps`` steps of ``tiles`` tiles each,
+    block b from tile b of the launch on, then every grid-th; each block
+    reads step 0's state (p, f) once and carries it to its tiles' steps by
+    scan_enter, step by step. Returns ({(step, tile): (the block's state,
+    produced)}, {step: [(produced, over, next state) as written]})."""
+    seen, books = {}, {}
+
+    def enter(state, at, k, first_tile):
+        produced, over, nxt = _kernel_step_int64(*state, inc, n_in, n_out)
+        for _ in range(at, k):
+            state = nxt
+            produced, over, nxt = _kernel_step_int64(*state, inc, n_in, n_out)
+        if first_tile:
+            books.setdefault(k, []).append((produced, over, nxt))
+        return state, produced
+
+    for block in range(grid):
+        step, tile = divmod(block, tiles)
+        if step >= steps:
+            continue
+        state, valid = enter((p, f), 0, step, tile == 0)
+        while True:
+            assert (step, tile) not in seen
+            seen[(step, tile)] = (state, valid)
+            nxt = tile + grid
+            ahead = nxt // tiles
+            nxt -= ahead * tiles
+            if step + ahead >= steps:
+                break
+            if ahead:
+                state, valid = enter(state, step, step + ahead, nxt == 0)
+                step += ahead
+            tile = nxt
+    return seen, books
+
+
+@pytest.mark.parametrize("rates", [(48000, 44100), (44100, 8000), (8000, 44100), (44100, 262)])
+@pytest.mark.parametrize("steps,tiles,grid", [(1, 16, 528), (1, 1888, 528), (64, 1888, 528),
+                                              (40, 2, 528), (9, 5, 7), (6, 3, 1)])
+def test_torch_tiled_scan_walk_carries_each_steps_state(rates, steps, tiles, grid):
+    """Every tile of every step is walked once, by a block whose carried
+    state and produced count are the step's as _bookkeeping_int64 chains
+    them over the steps, and each step's bookkeeping is written once, by the
+    block of its first tile: K = 1, a launch of the scan cell's shape (1888
+    tiles a step, 528 blocks), grids larger than a step's tiles (blocks that
+    skip steps) and smaller; a backlog (8k -> 44.1k at half its n_out) and a
+    ratio with a radius past the chunk."""
+    inc = fx.calculate_ratio(*rates)
+    n_in = 96
+    n_out = max(fx.round_up(((n_in + 64) << 16) // inc, 8), 8)
+    if rates == (8000, 44100):
+        n_out //= 2
+    p, f = 2 * configure(*rates, max(rates)).integer_stretched_kernel_radius, 0x2468
+    seen, books = _kernel_walk(p, f, inc, n_in, n_out, steps, tiles, grid)
+    assert set(seen) == {(s, t) for s in range(steps) for t in range(tiles)}
+    state, want = [p, f], {}
+    for s in range(steps):
+        produced, over, _, nxt = _bookkeeping_int64(*state, inc, n_in, n_out, n_out)
+        want[s] = (tuple(state), produced, over, nxt)
+        state = nxt
+    for (s, _), (st, valid) in seen.items():
+        assert (tuple(st), valid) == want[s][:2], s
+    assert books == {s: [w[1:]] for s, w in want.items()}
+    if rates == (8000, 44100):
+        assert all(w[2] for w in want.values())
 
 
 @pytest.mark.parametrize("engine", list(ENGINES))
@@ -297,50 +378,60 @@ SCAN_ENTRIES = ("crt_tiled_scan", "crt_strided_scan", "crt_wide_scan")
 
 
 def _scan_stand_in(name, calls):
-    """A scan-mode C entry over the same pointers: the window from stream
-    rows [max(src_first, 0), src_end) only -- nothing before the stream or
-    past the step's chunk is read --, zeros elsewhere in its S rows; the
-    bookkeeping in exact integers, written by the step's offset-0 launch
-    only; the launch's state at its frame offset; the engine's plain version
-    with n_valid, written to the output pointer."""
+    """A scan-mode C entry over the same pointers, for each of its ``steps``
+    steps (crt_tiled_scan's; one for the others) j: the window from stream
+    rows [max(src_first + j*n_in, 0), src_end + j*n_in) only -- nothing
+    before the stream or past the step's chunk is read --, zeros elsewhere
+    in its S rows; the bookkeeping in exact integers from the first step's
+    state, chained over the steps as the kernel carries it, written at index
+    j by the step's offset-0 launch only; the launch's state at its frame
+    offset; the engine's plain version with n_valid, written to the output
+    pointer's step j."""
     def entry(*args):
         a = dict(zip(_build.ENTRY_ARGS[name], args))
         calls.append((name, a))
-        lanes, first, end, n_in = a["L"], a["src_first"], a["src_end"], a["n_in"]
+        lanes, n_in = a["L"], a["n_in"]
         elem = np.int16 if a["src_s16"] else np.int32
-        assert a["S"] == end - first + a["T"] + 8 and end % n_in == 0
-        x = np.zeros((a["S"], lanes), np.int32)
-        lo = max(first, 0)
-        x[lo - first : end - first] = _view(a["src"], (end, lanes), elem)[lo:end]
+        assert a["S"] == a["src_end"] - a["src_first"] + a["T"] + 8 and a["src_end"] % n_in == 0
         p, f = (int(v) for v in _view(a["state_in"], (2,)))
         inc = (int(_view(a["inc_hi"], ())) << 16) + int(_view(a["inc_lo"], ()))
         offset = a.get("frame_offset", 0)
         n_out = a.get("n_out", a["N"])
-        produced, over, _, nxt = _bookkeeping_int64(p, f, inc, n_in, n_out, n_out)
-        if offset == 0:
-            _view(a["produced"], ())[...] = produced
-            _view(a["over"], ())[...] = over
-            _view(a["state_out"], (2,))[...] = nxt
-        t = f + offset * inc
-        i32 = lambda v: torch.tensor(v, dtype=torch.int32)
-        st = DeviceState(i32(p + (t >> 16)), i32(t & 0xFFFF), _cfg_at(a))
         table = _tensor(a["table"], (a["table_size"],))
-        kw = dict(max_taps=a["T"], n_out=a["N"], n_valid=i32(produced), frame_offset=offset)
-        if a.get("tstr"):
-            kw["table_strided"] = _tensor(a["tstr"], (a["tstr_rows"], a["T"]))
-        if name == "crt_tiled_scan":
-            assert _build.tiled_shared_bytes(a["frames_per_stage"], a["win_rows"], a["T"],
-                                             np.dtype(elem).itemsize) <= _build.MAX_SHARED_BYTES
-            out, _ = rs.resample_uniform_lanes_general_reference(table, torch.from_numpy(x), st,
-                                                                 **kw)
-        elif name == "crt_strided_scan":
-            assert _build.strided_shared_bytes(a["T"], a["win_rows"], np.dtype(elem).itemsize) \
-                <= _build.MAX_SHARED_BYTES
-            out, _ = rs.resample_strided_reference(table, torch.from_numpy(x), st, d=a["d"], **kw)
-        else:
-            assert a["partial"] and a["tap_sums"] == a["partial"] + 4 * a["N"] * a["K"] * lanes
-            out, _ = rs.resample_wide_taps_reference(table, torch.from_numpy(x), st, d=0, **kw)
-        _tensor(a["out"], (a["N"], lanes)).copy_(out)
+        i32 = lambda v: torch.tensor(v, dtype=torch.int32)
+        for j in range(a.get("steps", 1)):
+            first, end = a["src_first"] + j * n_in, a["src_end"] + j * n_in
+            x = np.zeros((a["S"], lanes), np.int32)
+            lo = max(first, 0)
+            x[lo - first : end - first] = _view(a["src"], (end, lanes), elem)[lo:end]
+            produced, over, _, nxt = _bookkeeping_int64(p, f, inc, n_in, n_out, n_out)
+            if offset == 0:
+                _view(a["produced"] + 4 * j, ())[...] = produced
+                _view(a["over"] + 4 * j, ())[...] = over
+                _view(a["state_out"] + 8 * j, (2,))[...] = nxt
+            t = f + offset * inc
+            st = DeviceState(i32(p + (t >> 16)), i32(t & 0xFFFF), _cfg_at(a))
+            kw = dict(max_taps=a["T"], n_out=a["N"], n_valid=i32(produced), frame_offset=offset)
+            if a.get("tstr"):
+                kw["table_strided"] = _tensor(a["tstr"], (a["tstr_rows"], a["T"]))
+            if name == "crt_tiled_scan":
+                assert _build.tiled_shared_bytes(a["frames_per_stage"], a["win_rows"], a["T"],
+                                                 np.dtype(elem).itemsize) \
+                    <= _build.MAX_SHARED_BYTES
+                out, _ = rs.resample_uniform_lanes_general_reference(
+                    table, torch.from_numpy(x), st, **kw)
+            elif name == "crt_strided_scan":
+                assert _build.strided_shared_bytes(a["T"], a["win_rows"],
+                                                   np.dtype(elem).itemsize) \
+                    <= _build.MAX_SHARED_BYTES
+                out, _ = rs.resample_strided_reference(table, torch.from_numpy(x), st, d=a["d"],
+                                                       **kw)
+            else:
+                assert a["partial"] and a["tap_sums"] == a["partial"] + 4 * a["N"] * a["K"] * lanes
+                out, _ = rs.resample_wide_taps_reference(table, torch.from_numpy(x), st, d=0,
+                                                         **kw)
+            _tensor(a["out"] + 4 * j * a["N"] * lanes, (a["N"], lanes)).copy_(out)
+            p, f = nxt
         return 0
     return entry
 
@@ -367,10 +458,13 @@ def _program(c, monkeypatch, chunks=None):
 @pytest.mark.parametrize("dtype", [np.int16, np.int32], ids=["int16", "int32"])
 @pytest.mark.parametrize("engine", list(ENGINES))
 def test_torch_scan_program_argument_flow(monkeypatch, engine, dtype):
-    """The program's launches, stood in, reproduce the plain version: every
-    engine makes one scan-mode call a step (here one wide launch a step),
-    each with its window in stream rows at the chunks' own address and type,
-    and no staging buffer; the program counts them."""
+    """The program's launches, stood in, reproduce the plain version: the
+    tiled and general engines make one crt_tiled_scan call a request, which
+    takes every step with step 0's window and the whole request's outputs
+    and bookkeeping arrays; the strided and wide engines one scan-mode call
+    a step (here one wide launch a step), each with its step's window; all
+    in stream rows at the chunks' own address and type, and no staging
+    buffer; the program counts them."""
     c = _case(ENGINES[engine], lanes=12, n_in=96, k=3, seed=86, dtype=dtype, f0=0x4321)
     got, calls, program = _program(c, monkeypatch)
     _assert_same(got, _reference(c), engine)
@@ -378,10 +472,17 @@ def test_torch_scan_program_argument_flow(monkeypatch, engine, dtype):
     s16 = int(dtype == np.int16)
     entry = {"tiled": "crt_tiled_scan", "general": "crt_tiled_scan",
              "strided": "crt_strided_scan", "wide": "crt_wide_scan"}[engine]
-    assert [name for name, _ in calls] == [entry] * k
-    assert program.routes == {(lowlevel.SCAN_ROUTES[engine], "cuda"): k}
+    issues = 1 if engine in lowlevel.WHOLE_SCAN_KINDS else k
+    assert [name for name, _ in calls] == [entry] * issues
+    assert program.routes == {(lowlevel.SCAN_ROUTES[engine], "cuda"): issues}
     assert [(a["src_first"], a["src_end"]) for _, a in calls] == [
-        (s * n_in - 2 * c["r"], (s + 1) * n_in) for s in range(k)]
+        (s * n_in - 2 * c["r"], (s + 1) * n_in) for s in range(issues)]
+    if issues == 1:
+        (a,) = (a for _, a in calls)
+        assert a["steps"] == k and a["N"] == c["n_out"]
+        assert (a["out"], a["produced"], a["over"], a["state_in"], a["state_out"]) == (
+            program.outputs.data_ptr(), program.produced.data_ptr(), program.over.data_ptr(),
+            program.states.data_ptr(), program.states[1].data_ptr())
     assert {(a["src_s16"], a["src"]) for _, a in calls} == {(s16, program.chunks.data_ptr())}
     # 12 int16 lanes are 24 bytes a row: 4-byte copies; 12 int32 lanes 16-byte ones.
     assert {a["copy"] for _, a in calls} == {
@@ -482,7 +583,8 @@ def test_torch_cuda_scan_program_matches_reference(cuda_device, engine, dtype):
     chunks = torch.from_numpy(c["chunks"]).to(cuda_device)
     rs.ROUTES.clear()
     got = _plain(resample_scan_fused(c["table"], chunks, c["state"], **_scan_args(c)))
-    assert rs.ROUTES == {(lowlevel.SCAN_ROUTES[engine], "cuda"): 4}
+    launches = 1 if engine in lowlevel.WHOLE_SCAN_KINDS else 4
+    assert rs.ROUTES == {(lowlevel.SCAN_ROUTES[engine], "cuda"): launches}
     _assert_same(got, _reference(c), engine)
 
 
