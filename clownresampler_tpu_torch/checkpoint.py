@@ -175,7 +175,7 @@ def save_farm(farm: UniformStreamFarm) -> dict[str, Any]:
         "radius_bound": farm._radius_bound,
         "staging": padded,
         "fill": farm._fill,
-        "device_staging": farm._device_staging,
+        "device_staging": farm.device.type == "cuda",   # the JAX package's placement hint
         "clamp_s16": farm.clamp_s16,
         "model_radius": farm.model.radius,
         "model_resolution": farm.model.resolution,
@@ -190,8 +190,7 @@ def _check_placement(device: Device, mesh: Optional[Mesh]) -> None:
 
 def load_farm(d: dict[str, Any], device: Device = DEFAULT_DEVICE,
               mesh: Optional[Mesh] = None) -> UniformStreamFarm:
-    """Restore a farm onto ``device``, staging where a new farm there
-    would (on the card for CUDA), or with ``mesh`` as a ShardedStreamFarm
+    """Restore a farm onto ``device``, or with ``mesh`` as a ShardedStreamFarm
     over that mesh's dp axis (any dp; give a mesh or a device, not both).
     The snapshot may come from a sharded or an unsharded farm of this
     package or from the JAX package's ``save_farm``."""
@@ -204,7 +203,7 @@ def load_farm(d: dict[str, Any], device: Device = DEFAULT_DEVICE,
         farm.mesh = mesh
     farm._setup(d["n_streams"], d["channels"], Configuration(**d["config"]), d["increment"],
                 chunk_frames=d["chunk_frames"], model=_model(d),
-                radius_bound=d["radius_bound"], device=device, device_staging=None,
+                radius_bound=d["radius_bound"], device=device,
                 clamp_s16=d.get("clamp_s16", False))
     farm.position_integer = d["position_integer"]
     farm.position_fractional = d["position_fractional"]

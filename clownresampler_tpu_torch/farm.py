@@ -13,17 +13,20 @@ increment/stretching change.
 (input, output, low-pass) rate triple and issues every group's launches of a
 chunk together.
 
-On a CUDA card a farm call is one device program (``FarmProgram``): the
-chunk copied from the caller's memory into a pinned buffer by the farm
-library's host threads, its pieces uploaded as they land, one launch of
-farm_stage_kernel (the parked slide, the chunk widened and transposed, the
-zero tail), the ratio class's launches written in place into one output, one
-launch of farm_unstage_kernel (the de-interleave) and one download into the
-pinned buffer that the caller receives, all issued as prebound C calls with
-no torch op in between. On the CPU the same bookkeeping runs the kernels'
-plain versions (``farm_stage_reference``, ``farm_unstage_reference``). Each
-call is one row of the recorder (``utils.profiling``, ``crt.farm.call``):
-its staging, launches and copy out as spans, with the host pool's counters.
+Every farm call is one device program (``FarmProgram``): the chunk copied
+from the caller's memory into the farm's input buffer, uploaded, staged (the
+parked slide, the chunk widened and transposed, the zero tail), the ratio
+class's launches written into one output at their row offsets, the output
+de-interleaved and downloaded into the array the caller receives. On a CUDA
+card every step is a prebound C call with no torch op in between: the farm
+library's host threads copy the chunk into pinned memory and upload its
+pieces as they land, farm_stage_kernel, the engine's kernels,
+farm_unstage_kernel. On the CPU the same program runs their plain versions
+(``farm_host_stage_reference``, ``farm_stage_reference``, the engines'
+through ``multi_resample``, ``farm_unstage_reference``) on the same buffers.
+Each call is one row of the recorder (``utils.profiling``,
+``crt.farm.call``): its staging, launches and copy out as spans, with the
+host pool's counters.
 
 Bit-exactness: each stream's output is identical to running the reference
 (and LowLevelResampler) on that stream alone.
@@ -52,7 +55,7 @@ from clownresampler_tpu_torch.ops.resample import (
     multi_resample,
     wide_launch_frames,
 )
-from clownresampler_tpu_torch.utils import native, profiling
+from clownresampler_tpu_torch.utils import profiling
 
 # Max output frames per launch: device positions come from
 # fx.positions_from_state, int32-exact while f0 + n*inc_lo < 2^31.
@@ -129,8 +132,6 @@ def farm_stage(src, dst, chunk, *, keep: int, consumed: int) -> None:
     version."""
     if dst.device.type == "cpu":
         return farm_stage_reference(src, dst, chunk, keep=keep, consumed=consumed)
-    if dst.device.type != "cuda":
-        raise ValueError(f"no farm_stage route for device {dst.device}")
     b, n, c = chunk.shape
     _build.farm_stage(src, dst, chunk, streams=b, channels=c, n_in=n, keep=keep,
                       consumed=consumed)
@@ -165,8 +166,6 @@ def farm_unstage(lanes_out, n_out: int, channels: int, stream_lo: int = 0,
         if out is not None:
             out.view(-1)[: res.numel()] = res.view(-1)
         return res
-    if lanes_out.device.type != "cuda":
-        raise ValueError(f"no farm_unstage route for device {lanes_out.device}")
     if out is None:
         out = torch.empty((streams, n_out, channels), dtype=lanes_out.dtype,
                           device=lanes_out.device)
@@ -174,6 +173,21 @@ def farm_unstage(lanes_out, n_out: int, channels: int, stream_lo: int = 0,
                         streams=streams)
     ROUTES[("farm_unstage", "cuda")] += 1
     return out.view(-1)[: streams * n_out * channels].view(streams, n_out, channels)
+
+
+def farm_host_stage_reference(pinned: int, sources: np.ndarray, row_bytes: int,
+                              card: Optional[int]) -> None:
+    """Plain version of crt_farm_host_stage (``_build.farm_host_stage_args``)
+    on host memory: the rows of ``row_bytes`` bytes at the uint64 addresses
+    ``sources`` (0 for a row of zeros) laid end to end at the address
+    ``pinned``, then copied on to the address ``card`` (None: nowhere)."""
+    for r, src in enumerate(sources.tolist()):
+        if src:
+            ctypes.memmove(pinned + r * row_bytes, src, row_bytes)
+        else:
+            ctypes.memset(pinned + r * row_bytes, 0, row_bytes)
+    if card:
+        ctypes.memmove(card, pinned, len(sources) * row_bytes)
 
 
 class ResultPool:
@@ -237,15 +251,16 @@ class FarmProgram:
     pass, no copy of the buffer onto itself. ``rows`` is the staged data with
     a parked slide applied, for everything that reads between calls.
 
-    On a card every step is a C call whose arguments were checked once: the
-    upload (``upload``: the host threads' copy into the farm's pinned input
-    and its pieces' cudaMemcpyAsync, or the latter alone), farm_stage_kernel,
-    the ratio class's launches into one preallocated (frames, lanes) output at
-    their row offsets -- issued in order, the last one's padding rows (every
-    other launch is whole 8-frame tiles) past the emit's frames and never
-    unstaged --, farm_unstage_kernel and the download. Nothing else touches
-    the device between the upload and ``wait``. On the CPU the plain versions
-    run."""
+    A call's steps: the upload into ``chunk`` (``upload``), the stage, the
+    ratio class's launches into one (frames, lanes) output ``lanes_out`` at
+    their row offsets, the de-interleave into ``unstaged`` and the download.
+    On a card each is a C call whose arguments were checked once -- the farm
+    library's host threads and cudaMemcpyAsync, farm_stage_kernel, the
+    engine's prebound launches (the last one's padding rows, every other
+    launch being whole 8-frame tiles, past the emit's frames and never
+    unstaged), farm_unstage_kernel --, and nothing else touches the device
+    between the upload and ``wait``. On the CPU each step runs its plain
+    version on the same buffers."""
 
     def __init__(self, tables: DeviceTables, streams: int, channels: int, capacity: int,
                  chunk_frames: int, clamp_s16: bool):
@@ -259,10 +274,10 @@ class FarmProgram:
         self.on_card = _on_card(self.device)
         self.plans: dict = {}         # launch plans -> prebound launches (cleared by adjust)
         self.lanes_out = None         # the launches' (frames, lanes) output, grown to need
-        self.unstaged = None          # farm_unstage_kernel's destination on the card, as large
+        self.unstaged = None          # the de-interleave's destination, as large
+        self.chunk = torch.empty(max(self.lanes * chunk_frames, 1), dtype=torch.int16,
+                                 device=self.device)
         if self.on_card:
-            self.chunk = torch.empty(max(self.lanes * chunk_frames, 1), dtype=torch.int16,
-                                     device=self.device)
             self._stage_args = _build.farm_stage_args(
                 self.buffers[0], self.buffers[1], self.chunk, streams=streams,
                 channels=channels, n_in=0, keep=0, consumed=0)
@@ -296,22 +311,35 @@ class FarmProgram:
     def _stream(self) -> int:
         return _build._stream(self.buffers[0])
 
+    def _copy(self, dst: int, src: int, nbytes: int) -> None:
+        """``nbytes`` from the address ``src`` to ``dst``, between the host and
+        the program's device: on a card crt_farm_copy on the program's
+        stream, on the CPU a memmove."""
+        if not self.on_card:
+            ctypes.memmove(dst, src, nbytes)
+            return
+        self._call("crt_farm_copy", dict(dst=dst, src=src, nbytes=nbytes,
+                                         device=self.device.index, stream=self._stream()))
+
     @profiling.spanned("crt.farm.stage.host")
     def upload(self, pinned: int, n: int, sources: Optional[np.ndarray] = None) -> None:
-        """Upload this program's (streams, n, channels) int16 block (on a
-        card) from the pinned host address ``pinned``: from there as it
-        stands (crt_farm_copy), or, given ``sources`` (the uint64 host
-        addresses of the equal rows the block is made of, 0 for a row of
-        zeros), after the farm library's host threads have copied them there,
-        each piece going up as it lands (crt_farm_host_stage; while the
-        recorder is on, its pool's counters go to the call's row)."""
-        nbytes, device, stream = 2 * n * self.lanes, self.device.index, self._stream()
+        """Upload this program's (streams, n, channels) int16 block into
+        ``chunk`` from the host address ``pinned``: from there as it stands,
+        or, given ``sources`` (the uint64 host addresses of the equal rows the
+        block is made of, 0 for a row of zeros), after those rows have been
+        copied there (crt_farm_host_stage: on a card the farm library's host
+        threads, each piece going up as it lands, and while the recorder is
+        on its pool's counters go to the call's row)."""
+        nbytes = 2 * n * self.lanes
         if sources is None:
-            self._call("crt_farm_copy", dict(dst=self.chunk.data_ptr(), src=pinned,
-                                             nbytes=nbytes, device=device, stream=stream))
+            self._copy(self.chunk.data_ptr(), pinned, nbytes)
+            return
+        args = (pinned, sources, nbytes // len(sources), self.chunk.data_ptr())
+        if not self.on_card:
+            farm_host_stage_reference(*args)
             return
         self._call("crt_farm_host_stage", _build.farm_host_stage_args(
-            pinned, sources, nbytes // len(sources), self.chunk.data_ptr(), device, stream))
+            *args, self.device.index, self._stream()))
         if profiling.tracing():
             self._calls["crt_farm_host_stats"](self._host_stats_ptr)
             profiling.count("pool_wait_ns", int(self._host_stats[0]))
@@ -320,25 +348,26 @@ class FarmProgram:
     def host_copy(self, dst: np.ndarray, src: np.ndarray) -> None:
         """dst[...] = src (C-contiguous arrays of one size in host memory) by
         the farm library's host threads (crt_farm_host_stage with no card
-        address: the copy alone)."""
+        address: the copy alone; on a card)."""
         sources = np.array([src.ctypes.data], np.uint64)
         self._call("crt_farm_host_stage", _build.farm_host_stage_args(
             dst.ctypes.data, sources, src.nbytes, None, self.device.index, self._stream()))
 
-    def stage(self, chunk, n: int, fill: int, sources: Optional[np.ndarray] = None) -> None:
+    def stage(self, chunk: int, n: int, fill: int, sources: Optional[np.ndarray] = None) -> None:
         """Stage ``n`` frames at row ``fill`` with the parked slide, and zero
-        the rows after them. ``chunk`` is this program's streams' (streams,
-        n, channels) int16 block: on a card the address of its place in the
-        farm's pinned input, uploaded here with ``sources`` (``upload``); on
-        the CPU a tensor."""
+        the rows after them. ``chunk`` is the host address of this program's
+        streams' (streams, n, channels) int16 block, uploaded here with
+        ``sources`` (``upload``)."""
         src = self.buffers[self.current]
         if self.slide:
             self.current ^= 1
         dst = self.buffers[self.current]
-        if self.on_card:
-            stream = self._stream()
-            if n:
-                self.upload(chunk, n, sources)
+        if n:
+            self.upload(chunk, n, sources)
+        if not self.on_card:
+            farm_stage_reference(src, dst, self.chunk[: n * self.lanes].view(
+                self.streams, n, self.channels), keep=fill, consumed=self.slide)
+        else:
             with profiling.span("crt.farm.stage.kernel"):
                 key = (n, src.data_ptr(), dst.data_ptr())
                 args = self._stage_calls.get(key)
@@ -349,35 +378,26 @@ class FarmProgram:
                         self._stage_args, n_in=n, keep=0, consumed=0, src=key[1], dst=key[2])
                     profiling.count("plans_built", 1)
                 self._call("crt_farm_stage", dict(args, keep=fill, consumed=self.slide,
-                                                  stream=stream))
+                                                  stream=self._stream()))
             ROUTES[("farm_stage", "cuda")] += 1
-        else:
-            farm_stage_reference(src, dst, chunk, keep=fill, consumed=self.slide)
         self.slide = 0
 
     def _plan(self, specs: tuple) -> list:
-        """The prebound launches of ``specs`` (UniformStreamFarm._launch_specs):
-        [(C entry, its function, its arguments by name)], checked once; a call
-        replaces x, p0, f0 and the stream."""
-        _, states, plans, tstrs, tiles = specs
+        """The prebound launches of ``specs`` (UniformStreamFarm._launch_specs)
+        into ``lanes_out``: [(C entry, its function, its arguments by name)],
+        checked once; a call replaces x, p0, f0 and the stream."""
+        states, plans, tstrs, tiles = specs
         key = tuple(plans)
         launches = self.plans.get(key)
         if launches is not None:
             return launches
-        rows = sum(tiles[:-1]) + plans[-1][4]
-        if self.lanes_out is None or self.lanes_out.shape[0] < rows:
-            self.plans.clear()
-            self.lanes_out = torch.empty((rows, self.lanes), dtype=self.out_dtype,
-                                         device=self.device)
-            self.unstaged = torch.empty_like(self.lanes_out)
         launches, done = [], 0
         row_bytes = self.lanes * self.lanes_out.element_size()
         for state, (kind, d, cand, taps, n_pad, clamp), tstr, tile in zip(
                 states, plans, tstrs, tiles):
             scratch = None
             if kind == "wide":
-                scratch = torch.empty(_build.wide_scratch_ints(taps, n_pad, self.lanes),
-                                      dtype=torch.int32, device=self.device)
+                scratch = _build.wide_scratch(taps, n_pad, self.lanes, self.device)
             entry, args = entry_launch_args(
                 kind, self.tables.table, self.buffers[0], state, d=d, cand=cand, max_taps=taps,
                 n_out=n_pad, table_strided=tstr, partial=scratch)
@@ -391,34 +411,49 @@ class FarmProgram:
         profiling.count("plans_built", 1)
         return launches
 
-    def launch(self, specs: tuple) -> torch.Tensor:
-        """Issue the launches of ``specs`` over the current buffer into
-        ``lanes_out``, which it returns (on a card; the farm launches on the
-        CPU)."""
-        launches = self._plan(specs)
-        x, stream = self.buffers[self.current].data_ptr(), self._stream()
-        for (entry, fn, args, kind, _), state in zip(launches, specs[1]):
+    def launch(self, specs: tuple) -> None:
+        """Write the frames of the launches of ``specs`` over the current
+        buffer into ``lanes_out``, each launch's at the row where the frames
+        before it end: on a card the prebound launches, on the CPU the
+        engines' plain versions (``multi_resample``), their real frames."""
+        states, plans, tstrs, tiles = specs
+        rows = sum(tiles[:-1]) + plans[-1][4]
+        if self.lanes_out is None or self.lanes_out.shape[0] < rows:
+            self.plans.clear()        # they write into the old output
+            self.lanes_out = torch.empty((rows, self.lanes), dtype=self.out_dtype,
+                                         device=self.device)
+            self.unstaged = torch.empty_like(self.lanes_out)
+        x = self.buffers[self.current]
+        if not self.on_card:
+            outs = multi_resample(self.tables.table, (x,) * len(plans), tuple(states),
+                                  tuple(plans), tstrs=tstrs)
+            torch.cat([out[:tile] for out, tile in zip(outs, tiles)],
+                      out=self.lanes_out[: sum(tiles)])
+            return
+        x, stream = x.data_ptr(), self._stream()
+        for (entry, fn, args, kind, _), state in zip(self._plan(specs), states):
             err = fn(*_build.ordered_args(entry, dict(
                 args, x=x, p0_val=state.position_integer, f0_val=state.position_fractional,
                 stream=stream)))
             if err:
                 _build.raise_on_launch(err, entry)
             ROUTES[(kind, "cuda")] += 1
-        return self.lanes_out
 
     def unstage(self, n_out: int, host: int) -> None:
         """De-interleave the first ``n_out`` frames of ``lanes_out`` to
-        (streams, n_out, channels) and download them to the pinned address
-        ``host`` (on a card)."""
+        (streams, n_out, channels) in ``unstaged`` (on a card
+        farm_unstage_kernel, on the CPU farm_unstage_reference) and download
+        them to the host address ``host`` (pinned on a card)."""
         numel = self.streams * n_out * self.channels
-        args = _build.farm_unstage_args(self.lanes_out, self.unstaged.data_ptr(), n_out=n_out,
-                                        channels=self.channels, stream_lo=0,
-                                        streams=self.streams)
-        self._call("crt_farm_unstage", args)
-        ROUTES[("farm_unstage", "cuda")] += 1
-        self._call("crt_farm_copy", dict(
-            dst=host, src=args["dst"], nbytes=numel * self.unstaged.element_size(),
-            device=args["device"], stream=args["stream"]))
+        if not self.on_card:
+            self.unstaged.view(-1)[:numel] = farm_unstage_reference(
+                self.lanes_out, n_out, self.channels).view(-1)
+        else:
+            self._call("crt_farm_unstage", _build.farm_unstage_args(
+                self.lanes_out, self.unstaged.data_ptr(), n_out=n_out, channels=self.channels,
+                stream_lo=0, streams=self.streams))
+            ROUTES[("farm_unstage", "cuda")] += 1
+        self._copy(host, self.unstaged.data_ptr(), numel * self.unstaged.element_size())
 
     def wait(self) -> None:
         """Block until the card has done everything this program issued on
@@ -433,17 +468,16 @@ class UniformStreamFarm:
     Feed chunks of at most ``chunk_frames`` frames with :meth:`process`;
     finish with :meth:`flush`. Outputs are wide int32 frames per stream (int16
     with ``clamp_s16``), exactly the reference's per-stream results for the
-    concatenated input. The launches run on ``device``; the staging buffer
-    lives there too (``device_staging``, the default on CUDA), kept by a
-    ``FarmProgram``, or in host memory, staged by the native engine and
-    uploaded per launch. Each returned array is the caller's: no later call
-    writes to it.
+    concatenated input. The staging, the launches and the de-interleave run
+    on ``device``, kept by a ``FarmProgram``: on a card its kernels, on the
+    CPU their plain versions. Each returned array is the caller's: no later
+    call writes to it.
 
-    A call has three seams: ``_stage`` (the chunk through the pinned input
-    buffer to the card and the stage launch), ``_launch`` (the ratio class's
-    launches) and ``_to_host`` (the de-interleave and the download). The
-    programs (``_programs``: (shard, first stream, end stream, FarmProgram),
-    here one for all streams) are set up by ``_alloc`` and issued under
+    A call has three seams: ``_stage`` (the chunk through the input buffer
+    to the device and the stage), ``_launch`` (the ratio class's launches)
+    and ``_to_host`` (the de-interleave and the download). The programs
+    (``_programs``: (shard, first stream, end stream, FarmProgram), here one
+    for all streams) are set up by ``_alloc`` and issued under
     ``_as_shard``; parallel.ShardedStreamFarm overrides those two and
     ``_take_stream`` to keep one program per shard of a mesh. The phase
     bookkeeping and the launch routing (``_launch_specs``) are shared.
@@ -460,7 +494,6 @@ class UniformStreamFarm:
         model: KernelModel = DEFAULT_MODEL,
         max_radius: Optional[int] = None,
         device: Device = DEFAULT_DEVICE,
-        device_staging: Optional[bool] = None,
         clamp_s16: bool = False,
     ):
         low_pass_rate = low_pass_rate if low_pass_rate is not None else max(input_rate, output_rate)
@@ -471,12 +504,11 @@ class UniformStreamFarm:
         self._setup(n_streams, channels, cfg, fx.calculate_ratio(input_rate, output_rate),
                     chunk_frames=chunk_frames, model=model,
                     radius_bound=max(cfg.integer_stretched_kernel_radius, max_radius or 0),
-                    device=device, device_staging=device_staging, clamp_s16=clamp_s16)
+                    device=device, clamp_s16=clamp_s16)
 
     def _setup(self, n_streams: int, channels: int, cfg: Configuration, increment: int, *,
                chunk_frames: int, model: KernelModel, radius_bound: int,
-               device: Device, device_staging: Optional[bool],
-               clamp_s16: bool) -> None:
+               device: Device, clamp_s16: bool) -> None:
         """A farm at stream position 0 with an empty staging buffer (also
         the first half of a restore, checkpoint.load_farm)."""
         self.n_streams = n_streams
@@ -496,7 +528,7 @@ class UniformStreamFarm:
         # (ops.resample.launch_rows). The capacity depends on the radius
         # bound and chunk size only, not on the ratio.
         self._capacity = 2 * radius_bound + chunk_frames + self._max_taps
-        self._alloc(device, device_staging)
+        self._alloc(device)
         self._fill = radius_bound      # rows of valid data (left zero halo)
 
         # Host streaming state (exact Python ints).
@@ -508,20 +540,12 @@ class UniformStreamFarm:
         # adjust_stream (checkpoint.jax_capacity).
         self._capacity_increment = increment
 
-    def _alloc(self, device: Device, device_staging: Optional[bool]) -> None:
-        """The device, its constants (``_consts``: device -> DeviceTables)
-        and the zeroed staging: one FarmProgram, or a host array."""
+    def _alloc(self, device: Device) -> None:
+        """The device and one FarmProgram for all streams, with the device's
+        constants (DeviceTables), its staging zeroed."""
         self.device = resolve_device(device)
         tables = DeviceTables(self.model, self.device)
-        self._consts = {tables.device: tables}
-        if device_staging is None:
-            device_staging = self.device.type == "cuda"
-        self._device_staging = device_staging
-        self._programs = []
-        if device_staging:
-            self._programs = [(0, 0, self.n_streams, self._new_program(tables, self.n_streams))]
-        else:
-            self._host_staging = np.zeros((self._capacity, self._lanes), np.int32)
+        self._programs = [(0, 0, self.n_streams, self._new_program(tables, self.n_streams))]
         self._alloc_host()
 
     def _new_program(self, tables: DeviceTables, streams: int) -> FarmProgram:
@@ -529,14 +553,16 @@ class UniformStreamFarm:
                            self.clamp_s16)
 
     def _alloc_host(self) -> None:
-        """The host ends of a call: on a card the pinned input buffer of the
-        largest chunk and the pool the results come from."""
-        self._pinned = None            # host copy buffer of the host-staged CUDA output
-        self._on_card = bool(self._programs) and self._programs[0][3].on_card
+        """The host ends of a call: the input buffer of the largest chunk and,
+        on a card, where it is pinned, the pool the results come from."""
+        self._on_card = _on_card(self.device)
+        numel = max(self._lanes * self.chunk_frames, 1)
         if self._on_card:
-            self._input = _pinned_empty(max(self._lanes * self.chunk_frames, 1), torch.int16)
-            self._input_array = self._input.numpy()
+            self._input = _pinned_empty(numel, torch.int16)
             self._results = ResultPool()
+        else:
+            self._input = torch.empty(numel, dtype=torch.int16)
+        self._input_array = self._input.numpy()
 
     @contextlib.contextmanager
     def _as_shard(self, shard: int):
@@ -544,18 +570,17 @@ class UniformStreamFarm:
         yield
 
     @property
-    def _staging(self):
-        """The staged rows from row 0 on: the host array, or the program's
-        current buffer with a parked slide applied (a view)."""
-        return self._programs[0][3].rows() if self._device_staging else self._host_staging
+    def _staging(self) -> torch.Tensor:
+        """The staged rows from row 0 on: the program's current buffer with a
+        parked slide applied (a view)."""
+        return self._programs[0][3].rows()
 
     # ------------------------------------------------------------------
     def _set_config(self, cfg: Configuration, increment: int) -> None:
         self.config = cfg
         self.increment = increment
-        for tables in self._consts.values():
-            tables.configure(cfg, increment)
-        for *_, program in self._programs:
+        for *_, program in self._programs:     # a device's programs share its tables
+            program.tables.configure(cfg, increment)
             program.plans.clear()      # they point at the old scalars
 
     def adjust(self, input_rate: int, output_rate: int, low_pass_rate: Optional[int] = None) -> bool:
@@ -579,20 +604,11 @@ class UniformStreamFarm:
     def _program(self, shard: int) -> FarmProgram:
         return next(program for i, _, _, program in self._programs if i == shard)
 
-    def _shard_input(self, shard: int) -> torch.Tensor:
-        """The lane-major input of the launches of ``shard``: its program's
-        current buffer (staged, so nothing is parked), or the host staging
-        uploaded."""
-        if self._device_staging:
-            program = self._program(shard)
-            return program.buffers[program.current]
-        return torch.from_numpy(self._host_staging).to(self.device)
-
     def _launch_specs(self, n_out: int, shard: int = 0) -> tuple:
-        """(xs, states, plans, tstrs, tiles): the ``multi_resample`` launches
+        """(states, plans, tstrs, tiles): the ``multi_resample`` launches
         producing frames [0, n_out) of every lane of ``shard`` (a sharded
-        farm's; this farm is its own one shard), and each launch's real
-        frame count.
+        farm's; this farm is its own one shard) from its program's current
+        buffer, and each launch's real frame count.
 
         Routed by ``lowlevel.launch_kind`` and tiled into launches of at most
         MAX_LAUNCH_OUTPUT_FRAMES frames (wide_launch_frames for the wide
@@ -600,15 +616,14 @@ class UniformStreamFarm:
         Launches run at the CURRENT ratio's tap width (surplus taps of a
         wider reserve are masked, so any width >= the current class is
         bit-exact). The routing does not depend on the shard: only the
-        input, the strided table and the scalars are its device's."""
+        strided table and the scalars are its device's."""
         taps = min(self._max_taps,
                    fx.round_up(2 * self.config.integer_stretched_kernel_radius, 8))
         kind, d, cand = launch_kind(self.increment, taps)
         step = MAX_LAUNCH_OUTPUT_FRAMES
         if kind == "wide":
             step = min(step, wide_launch_frames(taps))
-        x = self._shard_input(shard)
-        tables = self._consts[x.device]
+        tables = self._program(shard).tables
         tstr = None
         if kind != "strided":
             tstr = tables.strided_table(self.config.kernel_step_size, taps)
@@ -629,32 +644,19 @@ class UniformStreamFarm:
             tiles.append(tile)
             done += tile
         n = len(plans)
-        return (x,) * n, states, plans, (tstr,) * n, tiles
-
-    @staticmethod
-    def _join(outs, tiles) -> torch.Tensor:
-        """The launches' real frames, in order: (sum(tiles), lanes)."""
-        return torch.cat([o[:tile] for o, tile in zip(outs, tiles)])
+        return states, plans, (tstr,) * n, tiles
 
     def _launch_shard(self, n_out: int, shard: int = 0) -> torch.Tensor:
-        """Frames [0, n_out) of every lane of ``shard`` on its device, the
-        first n_out rows of what it returns: on a card its program's output,
-        written in place by the prebound launches."""
-        specs = self._launch_specs(n_out, shard)
-        if self._on_card:
-            return self._program(shard).launch(specs)
-        xs, states, plans, tstrs, tiles = specs
-        outs = multi_resample(self._consts[xs[0].device].table, xs, tuple(states), tuple(plans),
-                              tstrs=tstrs)
-        return self._join(outs, tiles)
+        """Frames [0, n_out) of every lane of ``shard`` into its program's
+        ``lanes_out``, which it returns."""
+        program = self._program(shard)
+        program.launch(self._launch_specs(n_out, shard))
+        return program.lanes_out
 
     @profiling.spanned("crt.farm.launch")
     def _launch(self, n_out: int) -> list:
         """Frames [0, n_out) of every lane, as ``_to_host`` takes them: each
-        shard's launched lanes on its device, in ``_programs``' order (one
-        entry for a farm staged in host memory)."""
-        if not self._device_staging:
-            return [self._launch_shard(n_out)]
+        program's ``lanes_out``, in ``_programs``' order."""
         outs = []
         for shard, _, _, _ in self._programs:
             with self._as_shard(shard):
@@ -663,49 +665,37 @@ class UniformStreamFarm:
 
     @profiling.spanned("crt.farm.to_host")
     def _to_host(self, lanes_out: list, n_out: int) -> np.ndarray:
-        """A host array the caller owns, holding the launched lanes
-        de-interleaved to (B, n_out, C), shard i's streams in result[lo:hi].
+        """A host array the caller owns, holding the launched lanes (each
+        program's ``lanes_out``) de-interleaved to (B, n_out, C), shard i's
+        streams in result[lo:hi].
 
-        On a card each program de-interleaves on the device
-        (farm_unstage_kernel) and downloads its block straight into a pinned
-        buffer leased from the farm's ``ResultPool``, on its shard's stream;
-        the host then waits for the shards in order. No host copy follows and
-        no fresh page is touched once the pool is warm, unless the caller
-        holds every buffer of the pool: then the download goes through the
-        pool's scratch buffer, and the farm library's host threads copy it
-        into a fresh array (no torch op, whose threads would spin on after it
-        beside the next call's host copy)."""
+        Each program de-interleaves its block and downloads it straight into
+        the result, on its shard's stream; the host then waits for the shards
+        in order. On a card the result is a pinned buffer leased from the
+        farm's ``ResultPool``, so no fresh page is touched once the pool is
+        warm, unless the caller holds every buffer of the pool: then the
+        download goes through the pool's scratch buffer, and the farm
+        library's host threads copy it into a fresh array (no torch op, whose
+        threads would spin on beside the next call's host copy)."""
         shape = (self.n_streams, n_out, self.channels)
         dtype = np.int16 if self.clamp_s16 else np.int32
-        if self._on_card:
-            with profiling.span("crt.farm.to_host.issue"):
+        with profiling.span("crt.farm.to_host.issue"):
+            if self._on_card:
                 result, address, owned = self._results.lease(shape, dtype)
-                stream_bytes = n_out * self.channels * result.itemsize
-                for shard, lo, _, program in self._programs:
-                    with self._as_shard(shard):
-                        program.unstage(n_out, address + lo * stream_bytes)
-            with profiling.span("crt.farm.to_host.wait"):
-                for shard, _, _, program in self._programs:
-                    with self._as_shard(shard):
-                        program.wait()
-            if not owned:             # the caller holds every pooled buffer
-                scratch, result = result, np.empty(shape, dtype)
-                self._programs[0][3].host_copy(result, scratch)
-            return result
-        result = np.empty(shape, dtype)
-        if self._device_staging:
-            for (_, lo, hi, _), lanes in zip(self._programs, lanes_out):
-                torch.from_numpy(result[lo:hi]).copy_(
-                    farm_unstage_reference(lanes, n_out, self.channels))
-            return result
-        # Staged in host memory: a permuted copy, from a card through a pinned
-        # buffer the farm keeps (grown to the largest emit).
-        out = lanes_out[0].view(n_out, self.n_streams, self.channels).permute(1, 0, 2)
-        if self.device.type == "cuda":
-            if self._pinned is None or self._pinned.numel() < out.numel():
-                self._pinned = torch.empty(out.numel(), dtype=out.dtype, pin_memory=True)
-            out = self._pinned[: out.numel()].view(out.shape).copy_(out)
-        torch.from_numpy(result).copy_(out)
+            else:
+                result = np.empty(shape, dtype)
+                address, owned = result.ctypes.data, True
+            stream_bytes = n_out * self.channels * result.itemsize
+            for shard, lo, _, program in self._programs:
+                with self._as_shard(shard):
+                    program.unstage(n_out, address + lo * stream_bytes)
+        with profiling.span("crt.farm.to_host.wait"):
+            for shard, _, _, program in self._programs:
+                with self._as_shard(shard):
+                    program.wait()
+        if not owned:             # the caller holds every pooled buffer
+            scratch, result = result, np.empty(shape, dtype)
+            self._programs[0][3].host_copy(result, scratch)
         return result
 
     def _emit(self, total_frames: int) -> np.ndarray:
@@ -731,54 +721,40 @@ class UniformStreamFarm:
         self.position_fractional = t & 0xFFFF
         consumed = min(self.position_integer, total_frames)
         self.position_integer -= consumed
-        # Slide out consumed frames; retain everything after them (incl. halo).
-        keep = self._fill - consumed
+        # Slide out consumed frames; retain everything after them (incl. halo):
+        # staging[r] = staging[r + consumed] for r < keep, zeros from there.
+        # Each program parks the slide, and its next stage does it.
         if consumed:
-            self._slide(keep, consumed)
-        self._fill = keep
+            for *_, program in self._programs:
+                program.slide = consumed
+        self._fill -= consumed
         return result
-
-    def _slide(self, keep: int, consumed: int) -> None:
-        """staging[r] = staging[r + consumed] for r < keep; zeros from there.
-        A program parks it: the next stage launch does it."""
-        for *_, program in self._programs:
-            program.slide = consumed
-        if not self._device_staging:
-            native.shift_rows(self._host_staging, keep, consumed)
 
     def _write_rows(self, chunk: np.ndarray) -> None:
         """Stage the (B, n, C) chunk lane-major at rows [fill, fill + n),
         converted as ``np.ascontiguousarray(chunk, dtype=np.int16)`` converts
-        it. On a card (once the card has taken the chunk before) a
-        C-contiguous int16 chunk goes straight from the caller's memory
-        through the pinned input to the card, by the farm library's host
-        threads, piece by piece (route ``("farm_input", "direct")``); any
-        other is converted into the pinned input and uploaded from there
+        it. Once the devices have taken the chunk before, a C-contiguous
+        int16 chunk goes straight from the caller's memory through the input
+        buffer to the devices (on a card by the farm library's host threads,
+        piece by piece; route ``("farm_input", "direct")``); any other is
+        converted into the input buffer and uploaded from there
         (``("farm_input", "converted")``); then each program stages its
         streams' block."""
         b, n, c = chunk.shape
-        if not self._device_staging:
-            native.stage_chunk(np.ascontiguousarray(chunk, dtype=np.int16), self._host_staging,
-                               self._fill)
-        elif self._on_card:
-            self._wait_programs()
-            if chunk.dtype == np.int16 and chunk.flags.c_contiguous:
-                ROUTES[("farm_input", "direct")] += 1
-                with profiling.span("crt.farm.stage.rows"):
-                    base, stream_bytes = chunk.ctypes.data, 2 * n * c
-                    sources = [np.array([base + lo * stream_bytes], np.uint64)
-                               for _, lo, _, _ in self._programs]
-                self._upload(n, sources)
-            else:
-                with profiling.span("crt.farm.stage.rows"):
-                    np.copyto(self._input_array[: b * n * c].reshape(b, n, c), chunk,
-                              casting="unsafe")
-                ROUTES[("farm_input", "converted")] += 1
-                self._upload(n)
+        self._wait_programs()
+        if chunk.dtype == np.int16 and chunk.flags.c_contiguous:
+            ROUTES[("farm_input", "direct")] += 1
+            with profiling.span("crt.farm.stage.rows"):
+                base, stream_bytes = chunk.ctypes.data, 2 * n * c
+                sources = [np.array([base + lo * stream_bytes], np.uint64)
+                           for _, lo, _, _ in self._programs]
+            self._upload(n, sources)
         else:
-            block = torch.from_numpy(np.ascontiguousarray(chunk, dtype=np.int16))
-            for _, lo, hi, program in self._programs:
-                program.stage(block[lo:hi], n, self._fill)
+            with profiling.span("crt.farm.stage.rows"):
+                np.copyto(self._input_array[: b * n * c].reshape(b, n, c), chunk,
+                          casting="unsafe")
+            ROUTES[("farm_input", "converted")] += 1
+            self._upload(n)
 
     @profiling.spanned("crt.farm.stage.wait")
     def _wait_programs(self) -> None:
@@ -789,32 +765,20 @@ class UniformStreamFarm:
 
     def _upload(self, n: int, sources=None) -> None:
         """Each program uploads its streams' block of the (B, n, C) chunk from
-        its place in the pinned input, with ``sources[k]`` (for the k-th of
+        its place in the input buffer, with ``sources[k]`` (for the k-th of
         ``_programs``, streams [lo, hi): the uint64 addresses of the rows that
-        make them up, 0 for zeros) copied there first, and stages it."""
+        make them up, 0 for zeros) copied there first, and stages it at the
+        fill (with n = 0 nothing is uploaded, and the stage zeroes every row
+        from the fill on)."""
         stream_bytes = 2 * n * self.channels
         for k, (shard, lo, hi, program) in enumerate(self._programs):
             with self._as_shard(shard):
                 program.stage(self._input.data_ptr() + lo * stream_bytes, n, self._fill,
                               None if sources is None else sources[k])
 
-    def _zero_rows(self, start: int, n: int) -> None:
-        """Rows [start, start + n) zero (flush's silence). A program's stage
-        of no frames does it: with the parked slide, it zeroes every row from
-        ``start`` on."""
-        if not self._device_staging:
-            native.zero_rows(self._host_staging, start, n)
-            return
-        for shard, lo, hi, program in self._programs:
-            with self._as_shard(shard):
-                program.stage(None if self._on_card else torch.empty(
-                    (hi - lo, 0, self.channels), dtype=torch.int16), 0, start)
-
     def _staged_rows(self) -> np.ndarray:
         """Rows [0, fill) of the staging as a host (fill, lanes) int32 array,
         any parked slide applied (what a snapshot keeps)."""
-        if not self._device_staging:
-            return self._host_staging[: self._fill].copy()
         parts = []
         for shard, _, _, program in self._programs:
             with self._as_shard(shard):
@@ -825,9 +789,6 @@ class UniformStreamFarm:
         """Restore rows [0, len(rows)) of the staging from a host (fill,
         lanes) int32 array, zero the rest and set the fill."""
         fill, c = rows.shape[0], self.channels
-        if not self._device_staging:
-            self._host_staging[:fill] = rows
-            self._host_staging[fill:] = 0
         for shard, lo, hi, program in self._programs:
             with self._as_shard(shard):
                 program.load(torch.from_numpy(np.ascontiguousarray(rows[:, lo * c : hi * c])))
@@ -874,14 +835,11 @@ class UniformStreamFarm:
     @profiling.spanned("crt.farm.stage")
     def _stage_streams(self, rows: list, n: int) -> int:
         """``_stage`` of the chunk whose stream j is ``rows[j]``, an (n, C)
-        int16 array, or zeros where it is None (MixedStreamFarm's slots). On a
-        card the farm library's host threads copy the rows straight into the
-        pinned input, piece by piece, each piece going up as it lands: one
-        pass (route ``("farm_input", "stacked")``); elsewhere they are stacked
-        into one chunk first. The caller has checked them (``_check_streams``)."""
-        if not self._on_card:
-            zeros = np.zeros((n, self.channels), np.int16)
-            return self._stage(np.stack([zeros if r is None else r for r in rows]))
+        int16 array, or zeros where it is None (MixedStreamFarm's slots): the
+        rows go straight into the input buffer, one pass (on a card by the
+        farm library's host threads, piece by piece, each piece going up as it
+        lands; route ``("farm_input", "stacked")``). The caller has checked
+        them (``_check_streams``)."""
         self._wait_programs()
         with profiling.span("crt.farm.stage.rows"):
             rows = [None if r is None else np.ascontiguousarray(r) for r in rows]
@@ -896,17 +854,12 @@ class UniformStreamFarm:
     def process(self, chunk: np.ndarray) -> np.ndarray:
         """Feed (n_streams, n, channels) int16; returns (n_streams, m, channels)
         output frames (m varies with phase, ~n*out_rate/in_rate)."""
-        total = self._stage(chunk)
-        if total > 0:
-            return self._emit(total)
-        out_dtype = np.int16 if self.clamp_s16 else np.int32
-        return np.zeros((self.n_streams, 0, self.channels), out_dtype)
+        return self._emit(max(self._stage(chunk), 0))
 
     def flush(self) -> np.ndarray:
         """Feed `radius_bound` zero frames and drain (ResampleEnd, 1242-1250)."""
-        r = self._radius_bound
-        self._zero_rows(self._fill, r)
-        self._fill += r
+        self._upload(0)               # the stage of no frames zeroes the rows from the fill on
+        self._fill += self._radius_bound
         return self._emit(max(self._fill - 2 * self._radius_bound, 0))
 
 
@@ -926,8 +879,7 @@ class MixedStreamFarm:
     re-rated stream splits into its own phase-carrying group); re-rating a
     whole group is its farm's ``adjust``. ``max_radius`` reserves tap-window
     capacity in every group, so that a stream may later move to a wider
-    ratio. The groups stage on ``device`` as UniformStreamFarm does by
-    default (on the card for CUDA, in host memory for the CPU).
+    ratio. The groups run on ``device``.
     """
 
     def __init__(self, specs, channels: int, chunk_frames: int = 4096,
@@ -1028,20 +980,15 @@ class MixedStreamFarm:
             farm._check_streams(rows, n)
         pending = []   # (farm, members, total, n_out)
         for farm, members, rows in groups:
-            total = farm._stage_streams(rows, n)
-            n_out = farm._natural_count(total) if total > 0 else 0
-            pending.append((farm, members, total, n_out))
+            total = max(farm._stage_streams(rows, n), 0)
+            pending.append((farm, members, total, farm._natural_count(total)))
         launched = iter(self._launch_groups([(farm, n_out) for farm, _, _, n_out in pending
                                              if n_out > 0]))
 
         outputs: list = [None] * self.n_streams
         for farm, members, total, n_out in pending:
-            if total > 0:
-                out = farm._finish_emit(total, n_out, next(launched) if n_out > 0 else None)
-            else:
-                out = np.zeros((farm.n_streams, 0, self.channels),
-                               np.int16 if self.clamp_s16 else np.int32)
-            self._distribute(outputs, members, out)
+            lanes_out = next(launched) if n_out > 0 else None
+            self._distribute(outputs, members, farm._finish_emit(total, n_out, lanes_out))
         return outputs
 
     def flush(self) -> list:

@@ -404,7 +404,7 @@ def _scan_step_launches(table, chunks, state_in, cfg, out, produced, over, state
     launch state from the step's ``state_in``. For the WHOLE_SCAN_KINDS
     ``out`` may be (steps, n_out, L), with ``produced``, ``over`` and
     ``state_out`` of as many steps: one crt_tiled_scan then takes them all.
-    ``partial`` is the wide engine's scratch (_build.wide_scratch_ints of one
+    ``partial`` is the wide engine's scratch (_build.wide_scratch of one
     launch)."""
     kind, d, cand, step = _scan_engine(increment, max_taps, out.shape[-2])
     books = (state_in, cfg, out, produced, over, state_out)
@@ -431,8 +431,7 @@ def _wide_scratch(chunks, increment: int, max_taps: int, n_out: int):
     kind, _, _, step = _scan_engine(increment, max_taps, n_out)
     if kind != "wide":
         return None
-    return torch.empty(_build.wide_scratch_ints(max_taps, step, chunks.shape[2]),
-                       dtype=torch.int32, device=chunks.device)
+    return _build.wide_scratch(max_taps, step, chunks.shape[2], chunks.device)
 
 
 def scan_inplace_step(table, chunks, k: int, state, cfg: ConfigScalars, *, radius: int,

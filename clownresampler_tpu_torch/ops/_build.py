@@ -473,6 +473,14 @@ def wide_scratch_ints(max_taps: int, n_out: int, lanes: int) -> int:
     return n_out * wide_slots(max_taps) * (lanes + 1)
 
 
+def wide_scratch(max_taps: int, n_out: int, lanes: int, device) -> torch.Tensor:
+    """A wide launch's int32 scratch on ``device``: wide_scratch_ints ints,
+    for the launch of ``n_out`` frames over ``lanes`` lanes, or for every
+    launch that is no larger."""
+    return torch.empty(wide_scratch_ints(max_taps, n_out, lanes), dtype=torch.int32,
+                       device=device)
+
+
 def wide_launch_args(x, table, table_strided, p0, f0, cfg, partial, *, max_taps: int,
                      n_out: int, d: int, lanes: int, lane_offset: int) -> dict:
     """Check a wide launch (wide_mac_kernel, then wide_fold_kernel) and return
@@ -511,8 +519,7 @@ def wide_mac(x, table, table_strided, p0, f0, cfg, *, max_taps: int, n_out: int,
     (increment >> 16) only sizes the grid. ``n_valid`` and ``frame_offset``
     as for tiled_mac (the fold stores the zeros). Returns (out (n_out, lanes) int32 -- int16 if clamped --, rows
     (n_out,) int32, the unclamped first window rows)."""
-    partial = torch.empty(wide_scratch_ints(max_taps, n_out, lanes), dtype=torch.int32,
-                          device=x.device)
+    partial = wide_scratch(max_taps, n_out, lanes, x.device)
     args = wide_launch_args(x, table, table_strided, p0, f0, cfg, partial, max_taps=max_taps,
                             n_out=n_out, d=d, lanes=lanes, lane_offset=lane_offset)
     out, rows = _allocate_outputs(args, x, n_out, lanes, clamp_s16, n_valid, frame_offset)

@@ -679,7 +679,7 @@ def entry_launch_args(kind: str, table, x, state, *, d: int, cand, max_taps: int
     on a card over all of x's lanes, checked as the entry checks it, for a
     caller that repeats the launch with other pointers (a farm's program).
     ``partial`` is the wide launch's scratch
-    (_build.wide_scratch_ints)."""
+    (_build.wide_scratch)."""
     _check_x(x)
     if n_out % FRAMES_PER_TILE:
         raise ValueError(f"n_out must be a multiple of 8, got {n_out}")

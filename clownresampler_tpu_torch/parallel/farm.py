@@ -43,8 +43,7 @@ from clownresampler_tpu_torch.utils import profiling
 class ShardedStreamFarm(UniformStreamFarm):
     """UniformStreamFarm whose streams split over ``mesh``'s ``dp`` axis.
 
-    ``device`` is the mesh's first device; staging is always a tensor on
-    each shard's device (on a mesh of the CPU too)."""
+    ``device`` is the mesh's first device."""
 
     def __init__(
         self,
@@ -62,25 +61,23 @@ class ShardedStreamFarm(UniformStreamFarm):
         self.mesh = mesh
         super().__init__(n_streams, channels, input_rate, output_rate, low_pass_rate,
                          chunk_frames=chunk_frames, model=model, max_radius=max_radius,
-                         device=mesh.device(0), device_staging=True, clamp_s16=clamp_s16)
+                         device=mesh.device(0), clamp_s16=clamp_s16)
 
-    def _alloc(self, device: Device, device_staging: Optional[bool]) -> None:
+    def _alloc(self, device: Device) -> None:
         """One FarmProgram per non-empty dp shard on its device, holding the
         lanes of its streams (``_programs``; ``_bounds[i]`` is shard i's
-        streams), and one DeviceTables per distinct device."""
+        streams), the programs on one device sharing its DeviceTables."""
         mesh = self.mesh
         self.device = mesh.device(0)
-        self._device_staging = True
         self._bounds = split_bounds(self.n_streams, mesh.shape["dp"])
-        self._consts = {}
-        self._programs = []
+        self._programs, consts = [], {}
         for i, (lo, hi) in enumerate(self._bounds):
             if hi == lo:
                 continue
             with mesh.shard(i) as dev:
-                if dev not in self._consts:
-                    self._consts[dev] = DeviceTables(self.model, dev)
-                self._programs.append((i, lo, hi, self._new_program(self._consts[dev], hi - lo)))
+                if dev not in consts:
+                    consts[dev] = DeviceTables(self.model, dev)
+                self._programs.append((i, lo, hi, self._new_program(consts[dev], hi - lo)))
         self._alloc_host()
 
     @contextlib.contextmanager

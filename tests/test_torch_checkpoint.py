@@ -93,12 +93,11 @@ def test_torch_highlevel_roundtrip_continues():
     assert _finish_highlevel(a, cb).tobytes() == _finish_highlevel(b, cb_b).tobytes()
 
 
-@pytest.mark.parametrize("device_staging", [False, True], ids=["host", "torch"])
-def test_torch_farm_roundtrip_continues(device_staging):
+@pytest.mark.parametrize("rates", [(48000, 44100), (96000, 48000)], ids=["tiled", "strided"])
+def test_torch_farm_roundtrip_continues(rates):
     data = _data(2, 4, 3 * CHUNK, 2)
     chunks = [data[:, i * CHUNK : (i + 1) * CHUNK] for i in range(3)]
-    a = UniformStreamFarm(4, 2, 48000, 44100, chunk_frames=CHUNK, device="cpu",
-                          device_staging=device_staging)
+    a = UniformStreamFarm(4, 2, *rates, chunk_frames=CHUNK, device="cpu")
     a.process(chunks[0])
     snap = ckpt.save_farm(a)
     assert isinstance(snap["staging"], np.ndarray)
@@ -170,8 +169,8 @@ def test_torch_jax_capacity_matches_the_jax_farm(rates):
                 assert ckpt.jax_capacity(p) == j._capacity, (max_radius, chunk, model)
 
 
-@pytest.mark.parametrize("device_staging", [False, True], ids=["host", "torch"])
-def test_torch_farm_snapshot_restores_in_jax(device_staging):
+@pytest.mark.parametrize("rates", [(48000, 44100), (96000, 48000)], ids=["tiled", "strided"])
+def test_torch_farm_snapshot_restores_in_jax(rates):
     """64 stereo streams (128 lanes): the port's snapshot has the JAX farm's
     staging shape and keys, restores with the JAX package's load_farm
     (Pallas in interpret mode on the CPU) and continues over a further
@@ -179,13 +178,12 @@ def test_torch_farm_snapshot_restores_in_jax(device_staging):
     chunk = 300
     data = _data(6, 64, 2 * chunk, 2)
     chunks = [data[:, :chunk], data[:, chunk:]]
-    a = UniformStreamFarm(64, 2, 48000, 44100, chunk_frames=chunk, device="cpu",
-                          device_staging=device_staging)
+    a = UniformStreamFarm(64, 2, *rates, chunk_frames=chunk, device="cpu")
     a.process(chunks[0])
     snap = ckpt.save_farm(a)
-    j = JFarm(64, 2, 48000, 44100, chunk_frames=chunk, interpret=True)
+    j = JFarm(64, 2, *rates, chunk_frames=chunk, interpret=True)
     assert snap["staging"].shape == (j._capacity, 128) and snap["interpret"] is False
-    assert snap["device_staging"] is device_staging
+    assert snap["device_staging"] is False        # the farm's device is the CPU
     b = jckpt.load_farm(dict(snap, interpret=True, device_staging=False))
     np.testing.assert_array_equal(_finish_farm(b, chunks[1:]), _finish_farm(a, chunks[1:]))
 

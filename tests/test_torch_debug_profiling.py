@@ -21,11 +21,11 @@ from clownresampler_tpu_torch.debug import check_launch
 from clownresampler_tpu_torch.lowlevel import make_device_state
 from clownresampler_tpu_torch.models import DEFAULT_MODEL, table_tensor
 from clownresampler_tpu_torch.ops import resample as rs
-from clownresampler_tpu_torch.farm import UniformStreamFarm
+from clownresampler_tpu_torch.farm import MixedStreamFarm, UniformStreamFarm
 from clownresampler_tpu_torch.utils import profiling
 from clownresampler_tpu_torch.utils.profiling import trace
 from tests.test_torch_farm_program import card  # noqa: F401  (fixture)
-from tests.test_torch_farm_program import HOST_STATS, HOST_STATS_CALLS, _CardMixedFarm
+from tests.test_torch_farm_program import HOST_STATS, HOST_STATS_CALLS
 from tests.test_torch_scan_program import ENGINES as SCAN_ENGINES
 from tests.test_torch_scan_program import _case, _program
 
@@ -174,7 +174,7 @@ def _mixed_farm(rng):
     moved to 44.1k -> 8k: five groups; and a chunk list maker."""
     specs = [rates for rates in [(48000, 44100), (44100, 48000), (8000, 48000),
                                  (96000, 48000)] for _ in range(2)]
-    farm = _CardMixedFarm(specs, 2, chunk_frames=128, max_radius=17, device="cpu")
+    farm = MixedStreamFarm(specs, 2, chunk_frames=128, max_radius=17, device="cpu")
     farm.process([rng.integers(-32768, 32768, size=(128, 2)).astype(np.int16) for _ in specs])
     assert farm.adjust_stream(5, 44100, 8000) and len(farm._groups) == 5
     return farm, lambda: [rng.integers(-32768, 32768, size=(128, 2)).astype(np.int16)
@@ -191,8 +191,7 @@ def test_torch_farm_calls_one_row_each(card, mixed):
         farm, chunk = _mixed_farm(rng)
         groups = 5
     else:
-        farm = UniformStreamFarm(6, 2, 48000, 44100, chunk_frames=128, device="cpu",
-                                 device_staging=True)
+        farm = UniformStreamFarm(6, 2, 48000, 44100, chunk_frames=128, device="cpu")
         chunk, groups = (lambda: rng.integers(-32768, 32768, (6, 128, 2)).astype(np.int16)), 1
     before = _closed(FARM)
     del HOST_STATS_CALLS[:]
@@ -210,8 +209,7 @@ def test_torch_farm_calls_one_row_each(card, mixed):
 def test_torch_farm_rows_off(card):
     """With the recorder off a farm call leaves no row and reads no pool
     counters."""
-    farm = UniformStreamFarm(3, 2, 48000, 44100, chunk_frames=64, device="cpu",
-                             device_staging=True)
+    farm = UniformStreamFarm(3, 2, 48000, 44100, chunk_frames=64, device="cpu")
     chunk = np.random.default_rng(91).integers(-32768, 32768, (3, 64, 2)).astype(np.int16)
     before = _closed(FARM)
     profiling.set_tracing(False)
@@ -228,8 +226,8 @@ def test_torch_farm_rows_off(card):
 def test_torch_farm_rows_of_two_threads(card):
     """Two farms fed from two threads at once keep their rows apart: one
     whole row a call, though both threads are inside a call together."""
-    farms = [UniformStreamFarm(b, 2, 48000, 44100, chunk_frames=64, device="cpu",
-                               device_staging=True) for b in (3, 5)]
+    farms = [UniformStreamFarm(b, 2, 48000, 44100, chunk_frames=64, device="cpu")
+             for b in (3, 5)]
     together = threading.Barrier(2, timeout=60)
     for farm in farms:
         stage = farm._stage

@@ -36,7 +36,7 @@ def test_torch_new_classes_dispatch_on_cpu(rates, kind, n, sizes):
                data, sizes)
     for i in range(2):
         np.testing.assert_array_equal(got[i], want[i], err_msg=f"farm stream {i}")
-    assert set(rs.ROUTES) == {(kind, "reference")}
+    assert set(rs.ROUTES) == {(kind, "reference"), ("farm_input", "converted")}
 
 
 def test_torch_wide_launch_tiling_matches_jax(monkeypatch):
@@ -135,7 +135,7 @@ def test_torch_oracle_gather_cap_farm_launch(monkeypatch):
     rs.ROUTES.clear()
     capped = _run(UniformStreamFarm(3, 2, 44100, 8000, chunk_frames=500, device="cpu"), data,
                   sizes)
-    assert set(rs.ROUTES) == {("oracle", "oracle")}
+    assert set(rs.ROUTES) == {("oracle", "oracle"), ("farm_input", "converted")}
     assert max(gathers) == 16 and len(gathers) > rs.ROUTES[("oracle", "oracle")]
     np.testing.assert_array_equal(capped, uncapped)
     for i in range(3):

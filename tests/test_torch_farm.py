@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import torch
 
+from clownresampler_tpu.farm import UniformStreamFarm as JFarm
 from clownresampler_tpu.lowlevel import LowLevelResampler as JLowLevel
 from clownresampler_tpu_torch import UniformStreamFarm
 from clownresampler_tpu_torch import farm as farm_mod
@@ -97,25 +98,32 @@ def test_torch_farm_clamp_s16_is_clamped_int32():
     np.testing.assert_array_equal(narrow, np.clip(wide, -0x7FFF, 0x7FFF))
 
 
-def test_torch_farm_host_and_torch_staging_agree():
-    """Host staging (numpy + the native engine) and torch staging give the
-    same output bytes and the same staged rows."""
+def test_torch_farm_staging_is_its_programs_rows_as_in_jax():
+    """A CPU farm stages in its FarmProgram: its staging is the program's
+    ``rows()``, and after every call and the flush it holds the JAX farm's
+    staged rows, with the JAX farm's output bytes."""
     rng = np.random.default_rng(13)
     data = rng.integers(-32768, 32768, size=(5, sum(SIZES), 2)).astype(np.int16)
-    farms = [UniformStreamFarm(5, 2, 48000, 44100, chunk_frames=256, device="cpu",
-                               device_staging=flag)
-             for flag in (False, True)]
-    assert isinstance(farms[0]._staging, np.ndarray)
-    assert isinstance(farms[1]._staging, torch.Tensor)
+    farm = UniformStreamFarm(5, 2, 48000, 44100, chunk_frames=256, device="cpu")
+    jfarm = JFarm(5, 2, 48000, 44100, chunk_frames=256, interpret=True)
+    (_, lo, hi, program), = farm._programs
+    assert isinstance(program, farm_mod.FarmProgram) and (lo, hi) == (0, 5)
+    assert not program.on_card and program.device == torch.device("cpu")
+
+    def check(got, want, what):
+        assert got.tobytes() == np.asarray(want).tobytes(), what
+        assert farm._fill == jfarm._fill, what
+        rows = program.rows()
+        assert farm._staging.data_ptr() == rows.data_ptr() and farm._staging.shape == rows.shape
+        np.testing.assert_array_equal(rows[: farm._fill].numpy(),
+                                      np.asarray(jfarm._staging)[: farm._fill, :10], err_msg=what)
+
     cursor = 0
-    for size in SIZES:
-        outs = [f.process(data[:, cursor : cursor + size]) for f in farms]
+    for k, size in enumerate(SIZES):
+        chunk = data[:, cursor : cursor + size]
         cursor += size
-        assert outs[0].tobytes() == outs[1].tobytes()
-        assert farms[0]._fill == farms[1]._fill
-        fill = farms[0]._fill
-        np.testing.assert_array_equal(farms[0]._staging[:fill], farms[1]._staging[:fill].numpy())
-    assert farms[0].flush().tobytes() == farms[1].flush().tobytes()
+        check(farm.process(chunk), jfarm.process(chunk), f"call {k}")
+    check(farm.flush(), jfarm.flush(), "flush")
 
 
 def test_torch_farm_launch_tiling_matches_jax_lowlevel(monkeypatch):

@@ -46,7 +46,7 @@ from clownresampler_tpu_torch.ops import _build
 from clownresampler_tpu_torch.ops import resample as rs
 from clownresampler_tpu_torch.parallel import ShardedMixedStreamFarm, ShardedStreamFarm, make_mesh
 from tests.test_torch_farm_program import card  # noqa: F401  (fixture)
-from tests.test_torch_farm_program import _CardMixedFarm, _view
+from tests.test_torch_farm_program import _view
 
 RATES = (48000, 44100)
 CHUNK = 96
@@ -88,8 +88,7 @@ def _same(got, want, what):
 
 
 def _card_farm(b, c, rates=RATES, **kw):
-    farm = UniformStreamFarm(b, c, *rates, chunk_frames=CHUNK, device="cpu",
-                             device_staging=True, **kw)
+    farm = UniformStreamFarm(b, c, *rates, chunk_frames=CHUNK, device="cpu", **kw)
     assert farm._on_card
     return farm
 
@@ -450,7 +449,7 @@ def test_torch_mixed_farm_host_path_matches_jax_mixed_farm(card, sharded):
         farm = ShardedMixedStreamFarm(make_mesh(dp=sharded, devices=["cpu"] * sharded), specs, 2,
                                       chunk_frames=CHUNK, max_radius=17)
     else:
-        farm = _CardMixedFarm(specs, 2, chunk_frames=CHUNK, max_radius=17, device="cpu")
+        farm = MixedStreamFarm(specs, 2, chunk_frames=CHUNK, max_radius=17, device="cpu")
     got, _ = _run_mixed(farm, data, sizes, move)
     for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_array_equal(g, w, err_msg=f"stream {i}")
@@ -483,7 +482,7 @@ def test_torch_mixed_farm_host_path_converts_each_chunk_and_snapshots(card):
                              for i, d in enumerate(data)])
 
     jfarm = JMixed(specs, 2, chunk_frames=CHUNK, interpret=True, max_radius=17)
-    farm = _CardMixedFarm(specs, 2, chunk_frames=CHUNK, max_radius=17, device="cpu")
+    farm = MixedStreamFarm(specs, 2, chunk_frames=CHUNK, max_radius=17, device="cpu")
     for k in range(2):
         got, want = feed(farm, k), feed(jfarm, k)
         for i in range(len(specs)):
@@ -509,7 +508,7 @@ def test_torch_mixed_farm_host_path_refuses_chunks_of_other_shapes(card):
     then goes on as the JAX farm that never saw the bad call."""
     specs = [(48000, 44100)] * 2 + [(96000, 48000)] * 2
     good = _mixed_data(76, 4, 50)
-    farm = _CardMixedFarm(specs, 2, chunk_frames=CHUNK, device="cpu")
+    farm = MixedStreamFarm(specs, 2, chunk_frames=CHUNK, device="cpu")
     jfarm = JMixed(specs, 2, chunk_frames=CHUNK, interpret=True)
     for bad in (np.zeros((49, 2), np.int16), np.zeros((50, 1), np.int16)):
         with pytest.raises(ValueError):
@@ -521,19 +520,25 @@ def test_torch_mixed_farm_host_path_refuses_chunks_of_other_shapes(card):
         np.testing.assert_array_equal(g, np.asarray(w))
 
 
-def test_torch_farm_host_path_keeps_the_plain_versions_on_the_cpu():
-    """On the CPU the farms take no route into pinned memory: no pinned
-    buffer, no host entry, no ``farm_input`` count, outputs as the JAX
-    farms'."""
+def test_torch_farm_host_path_keeps_the_plain_versions_on_the_cpu(monkeypatch):
+    """On the CPU the farms take the card's routes, each step by its plain
+    version: no C entry is called, the input buffer is ordinary memory and
+    no result pool is kept; every route is counted as on the card, and the
+    outputs are the JAX farms'."""
+    def no_entry(name):
+        raise AssertionError(f"a CPU farm called the C entry {name}")
+
+    monkeypatch.setattr(_build, "entry_function", no_entry)
     chunks = _base(77, 3, 2)
+    want = _jax_run(JFarm(3, 2, *RATES, chunk_frames=CHUNK, interpret=True), chunks)
     rs.ROUTES.clear()
-    for staging in (False, True):
-        farm = UniformStreamFarm(3, 2, *RATES, chunk_frames=CHUNK, device="cpu",
-                                 device_staging=staging)
-        assert not farm._on_card and not hasattr(farm, "_input")
-        got = [farm.process(c) for c in chunks] + [farm.flush()]
-        _same(got, _jax_run(JFarm(3, 2, *RATES, chunk_frames=CHUNK, interpret=True), chunks),
-              f"device_staging={staging}")
+    for form in ("int16", "int32_wrapping"):
+        make = (lambda x: x.astype(np.int32)) if form == "int32_wrapping" else FORMS[form][0]
+        farm = UniformStreamFarm(3, 2, *RATES, chunk_frames=CHUNK, device="cpu")
+        assert not farm._on_card and not farm._input.is_pinned()
+        assert not hasattr(farm, "_results")
+        got = [farm.process(make(c)) for c in chunks] + [farm.flush()]
+        _same(got, want, form)
     specs = [(48000, 44100), (96000, 48000)]
     data = _mixed_data(78, 2, 96)
     mixed = MixedStreamFarm(specs, 2, chunk_frames=CHUNK, device="cpu")
@@ -541,5 +546,8 @@ def test_torch_farm_host_path_keeps_the_plain_versions_on_the_cpu():
     want, _ = _run_mixed(JMixed(specs, 2, chunk_frames=CHUNK, interpret=True), data, (96,))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
-    assert not {k for k in rs.ROUTES if k[0] == "farm_input"}
+    assert {k: v for k, v in rs.ROUTES.items() if k[0] == "farm_input"} == {
+        ("farm_input", "direct"): len(chunks), ("farm_input", "converted"): len(chunks),
+        ("farm_input", "stacked"): 2}
+    assert not {k for k in rs.ROUTES if k[1] == "cuda"}
     assert farm_mod._on_card(torch.device("cpu")) is False

@@ -121,14 +121,14 @@ def test_torch_farm_stage_reference_matches_jax_device_programs(b, c):
              (None, 9)]
     for k, (n, consumed) in enumerate(steps):
         if n is None:
-            program.stage(torch.empty((b, 0, c), dtype=torch.int16), 0, fill)
+            program.stage(0, 0, fill)
             jst.zero_rows(halo)
             fill += halo
         else:
             chunk = _chunk(rng, b, n, c)
             parked = program.slide
             before = program.current
-            program.stage(torch.from_numpy(chunk), n, fill)
+            program.stage(chunk.ctypes.data, n, fill)
             assert program.current == (before ^ 1 if parked else before) and not program.slide
             jst.stage(chunk)
             fill += n
@@ -164,6 +164,26 @@ def test_torch_farm_stage_reference_rows_and_refusals():
     assert not src[12:].any()
     with pytest.raises(ValueError, match="in-place"):
         farm_stage_reference(src, src, chunk, keep=8, consumed=2)
+
+
+def test_torch_farm_host_stage_reference_lays_rows_end_to_end():
+    """The host stage's plain version, which a CPU program's upload runs:
+    each row read at its address, zeros for address 0, laid end to end at
+    the pinned address and copied on to the card address; with no card
+    address the copy alone."""
+    rng = np.random.default_rng(4)
+    rows = [rng.integers(-32768, 32768, size=(6, 2)).astype(np.int16) for _ in range(3)]
+    sources = np.array([rows[0].ctypes.data, 0, rows[2].ctypes.data], np.uint64)
+    want = np.stack([rows[0], np.zeros_like(rows[1]), rows[2]])
+    pinned, card = np.full((3, 6, 2), -1, np.int16), np.full((3, 6, 2), -2, np.int16)
+    farm_mod.farm_host_stage_reference(pinned.ctypes.data, sources, rows[0].nbytes,
+                                       card.ctypes.data)
+    np.testing.assert_array_equal(pinned, want)
+    np.testing.assert_array_equal(card, want)
+    alone = np.full((3, 6, 2), -3, np.int16)
+    farm_mod.farm_host_stage_reference(alone.ctypes.data, sources[::-1].copy(), rows[0].nbytes,
+                                       None)
+    np.testing.assert_array_equal(alone, want[::-1])
 
 
 # ---------------------------------------------------------------------------
@@ -410,9 +430,9 @@ def test_torch_farm_program_argument_flow(card, engine, clamp):
     kw = dict(chunk_frames=chunk, device="cpu", clamp_s16=clamp)
     with pytest.MonkeyPatch.context() as plain:
         plain.setattr(farm_mod, "_on_card", lambda device: False)
-        want = _run(UniformStreamFarm(5, 2, *rates, device_staging=True, **kw), chunks)
+        want = _run(UniformStreamFarm(5, 2, *rates, **kw), chunks)
     rs.ROUTES.clear()
-    farm = UniformStreamFarm(5, 2, *rates, device_staging=True, **kw)
+    farm = UniformStreamFarm(5, 2, *rates, **kw)
     assert farm._on_card
     got = _run(farm, chunks)
     _same(got, want, engine)
@@ -431,8 +451,7 @@ def test_torch_farm_program_call_sequence_and_buffer_swap(card):
     rows, then goes to the other buffer with the parked slide; the launches
     read the buffer the stage wrote."""
     chunks = _chunks(42, 4, 2, (100, 256, 256, 256))
-    farm = UniformStreamFarm(4, 2, 48000, 44100, chunk_frames=256, device="cpu",
-                             device_staging=True)
+    farm = UniformStreamFarm(4, 2, 48000, 44100, chunk_frames=256, device="cpu")
     program = farm._programs[0][3]
     buffers = [buf.data_ptr() for buf in program.buffers]
     fill, parked, current = farm._radius_bound, 0, 0
@@ -472,13 +491,11 @@ def test_torch_farm_program_row_offsets_of_several_launches(card, monkeypatch):
     chunks = _chunks(43, 3, 1, (256, 256, 256, 256))
     with pytest.MonkeyPatch.context() as plain:
         plain.setattr(farm_mod, "_on_card", lambda device: False)
-        ref = UniformStreamFarm(3, 1, 48000, 44100, chunk_frames=256, device="cpu",
-                                device_staging=True, max_radius=17)
+        ref = UniformStreamFarm(3, 1, 48000, 44100, chunk_frames=256, device="cpu", max_radius=17)
         want = [ref.process(chunks[0]), ref.process(chunks[1])]
         assert ref.adjust(44100, 8000)
         want += [ref.process(chunks[2]), ref.process(chunks[3]), ref.flush()]
-    farm = UniformStreamFarm(3, 1, 48000, 44100, chunk_frames=256, device="cpu",
-                             device_staging=True, max_radius=17)
+    farm = UniformStreamFarm(3, 1, 48000, 44100, chunk_frames=256, device="cpu", max_radius=17)
     program = farm._programs[0][3]
     got = [farm.process(chunks[0])]
     macs = [a for name, a in card if name == "crt_tiled_mac"]
@@ -501,8 +518,7 @@ def test_torch_farm_program_matches_jax_farm(card):
     interpret mode): 64 stereo streams, 48k -> 44.1k."""
     chunks = _chunks(44, 64, 2, (256, 256, 100))
     want = _run(JFarm(64, 2, 48000, 44100, chunk_frames=256, interpret=True), chunks)
-    farm = UniformStreamFarm(64, 2, 48000, 44100, chunk_frames=256, device="cpu",
-                             device_staging=True)
+    farm = UniformStreamFarm(64, 2, 48000, 44100, chunk_frames=256, device="cpu")
     _same(_run(farm, chunks), want, "jax")
     # 128 lanes: the ring where there are frames, 16-byte stores for the flush
     assert {(a["path"], a["n_in"] > 0) for name, a in card if name == "crt_farm_stage"} == {
@@ -518,8 +534,7 @@ def test_torch_farm_program_converts_chunks_as_ascontiguousarray(card):
                 np.asfortranarray(base.astype(np.int16)), (base % 30000).tolist()]
     for k, chunk in enumerate(variants):
         want = np.ascontiguousarray(chunk, dtype=np.int16)
-        farm = UniformStreamFarm(3, want.shape[2], 48000, 44100, chunk_frames=64, device="cpu",
-                                 device_staging=True)
+        farm = UniformStreamFarm(3, want.shape[2], 48000, 44100, chunk_frames=64, device="cpu")
         del card[:]
         farm.process(chunk)
         np.testing.assert_array_equal(farm._input_array[: want.size], want.reshape(-1),
@@ -536,8 +551,7 @@ def test_torch_farm_program_waits_before_it_reuses_the_input(card):
     """A call that emits nothing returns without waiting for its upload, so
     the next call waits for the card before it writes the pinned input, on
     every route into it."""
-    farm = UniformStreamFarm(2, 2, 44100, 8000, chunk_frames=64, device="cpu",
-                             device_staging=True)
+    farm = UniformStreamFarm(2, 2, 44100, 8000, chunk_frames=64, device="cpu")
     assert farm.process(_chunk(np.random.default_rng(46), 2, 10, 2)).shape == (2, 0, 2)
     assert [name for name, _ in card] == ["crt_farm_sync", "crt_farm_host_stage",
                                           "crt_farm_stage"]
@@ -603,8 +617,9 @@ def test_torch_mixed_farm_program_argument_flow(card):
     with pytest.MonkeyPatch.context() as plain:
         plain.setattr(farm_mod, "_on_card", lambda device: False)
         plain_farm = MixedStreamFarm(specs, 2, chunk_frames=128, max_radius=17, device="cpu")
-        for f, _ in plain_farm._groups:      # the CPU default stages on the host
-            assert not f._device_staging
+        for f, _ in plain_farm._groups:      # each group runs one CPU program
+            assert [type(p) for *_, p in f._programs] == [FarmProgram]
+            assert not f._programs[0][3].on_card
         outs = []
         for k, chunks in enumerate(data):
             if k == 2:
@@ -619,16 +634,6 @@ def test_torch_mixed_farm_program_argument_flow(card):
     kinds = {name for name, _ in card if name in MAC_ENTRIES}
     assert kinds == {"crt_tiled_mac", "crt_strided_mac"}     # 44.1k -> 8k is general: tiled entry
     assert len(sharded._groups) == 4
-
-
-class _CardMixedFarm(MixedStreamFarm):
-    """A mixed farm on the CPU whose groups stage in tensors (the CPU
-    default is the host engine), so that they take the stood-in card path."""
-
-    def _make_group_farm(self, n_streams, rates, max_radius=None):
-        return UniformStreamFarm(n_streams, self.channels, *rates, chunk_frames=self.chunk_frames,
-                                 model=self.model, max_radius=max_radius, device=self.device,
-                                 clamp_s16=self.clamp_s16, device_staging=True)
 
 
 def test_torch_mixed_farm_program_moves_a_stream_under_a_parked_slide(card):
@@ -658,7 +663,7 @@ def test_torch_mixed_farm_program_moves_a_stream_under_a_parked_slide(card):
     with pytest.MonkeyPatch.context() as plain:
         plain.setattr(farm_mod, "_on_card", lambda device: False)
         want = run(MixedStreamFarm(specs, 2, chunk_frames=96, max_radius=8, device="cpu"))
-    got = run(_CardMixedFarm(specs, 2, chunk_frames=96, max_radius=8, device="cpu"), check=True)
+    got = run(MixedStreamFarm(specs, 2, chunk_frames=96, max_radius=8, device="cpu"), check=True)
     for i, (g, w) in enumerate(zip(got, want)):
         np.testing.assert_array_equal(g, w, err_msg=f"stream {i}")
 
@@ -672,8 +677,7 @@ def test_torch_farm_results_are_the_callers(card):
     to the pool only when the output and every view of it are gone, and is
     then reused."""
     chunks = _chunks(52, 4, 2, (256,) * 6)
-    farm = UniformStreamFarm(4, 2, 48000, 44100, chunk_frames=256, device="cpu",
-                             device_staging=True)
+    farm = UniformStreamFarm(4, 2, 48000, 44100, chunk_frames=256, device="cpu")
     kept = [farm.process(c) for c in chunks[:3]]
     copies = [o.copy() for o in kept]
     assert len({o.ctypes.data for o in kept}) == 3 and not farm._results._free
@@ -718,8 +722,7 @@ def test_torch_farm_results_past_the_pool_are_fresh_arrays(card):
     """A caller that keeps every output gets pooled buffers first and then
     fresh arrays copied from the pool's scratch: none is written again."""
     chunks = _chunks(56, 2, 2, (128,) * (farm_mod.RESULT_POOL_BUFFERS + 3))
-    farm = UniformStreamFarm(2, 2, 48000, 44100, chunk_frames=128, device="cpu",
-                             device_staging=True)
+    farm = UniformStreamFarm(2, 2, 48000, 44100, chunk_frames=128, device="cpu")
     kept, copies = [], []
     for c in chunks:
         kept.append(farm.process(c))
@@ -733,18 +736,19 @@ def test_torch_farm_results_past_the_pool_are_fresh_arrays(card):
         _same(kept, [ref.process(c) for c in chunks], "reference")
 
 
-@pytest.mark.parametrize("staging", ["host", "tensor"])
-def test_torch_farm_cpu_outputs_do_not_alias(staging):
-    """On the CPU every call returns a fresh array: outputs kept to the end
+@pytest.mark.parametrize("clamp", [False, True], ids=["int32", "clamp_s16"])
+def test_torch_farm_cpu_outputs_do_not_alias(clamp):
+    """On the CPU every call returns a fresh array, though each program
+    de-interleaves into the same buffer every call: outputs kept to the end
     equal their copies."""
     chunks = _chunks(53, 3, 2, (128,) * 4)
-    farm = UniformStreamFarm(3, 2, 44100, 48000, chunk_frames=128, device="cpu",
-                             device_staging=staging == "tensor")
+    farm = UniformStreamFarm(3, 2, 44100, 48000, chunk_frames=128, device="cpu", clamp_s16=clamp)
     outs, copies = [], []
     for c in chunks:
         outs.append(farm.process(c))
         copies.append(outs[-1].copy())
-    _same(outs, copies, staging)
+    assert len({o.ctypes.data for o in outs}) == len(outs)
+    _same(outs, copies, "clamp_s16" if clamp else "int32")
 
 
 # ---------------------------------------------------------------------------
@@ -758,14 +762,13 @@ def _finish(farm, chunks):
 @pytest.mark.parametrize("path", ["cpu", "card"])
 def test_torch_farm_snapshot_right_after_process_restores_in_both_packages(path, request):
     """A farm saved right after ``process`` holds a parked slide; its
-    snapshot has the slide applied, restores in the port (tensor and host
-    staging) and in the JAX package, and every restored farm continues bit
+    snapshot has the slide applied, restores in the port (on a device and on
+    a mesh) and in the JAX package, and every restored farm continues bit
     for bit with the farm that ran on."""
     if path == "card":
         request.getfixturevalue("card")
     chunks = _chunks(54, 64, 2, (300, 300, 300))
-    a = UniformStreamFarm(64, 2, 48000, 44100, chunk_frames=300, device="cpu",
-                          device_staging=True)
+    a = UniformStreamFarm(64, 2, 48000, 44100, chunk_frames=300, device="cpu")
     a.process(chunks[0])
     assert a._programs[0][3].slide > 0
     snap = ckpt.save_farm(a)
@@ -773,12 +776,12 @@ def test_torch_farm_snapshot_right_after_process_restores_in_both_packages(path,
                                   a._staging[: a._fill].numpy())
     assert not snap["staging"][a._fill :].any()
     restored = ckpt.load_farm(snap, device="cpu")
-    assert not restored._device_staging
-    on_tensor = ckpt.load_farm(snap, mesh=make_mesh(dp=1, devices=["cpu"]))
-    assert on_tensor._device_staging and len(on_tensor._programs) == 1
+    assert type(restored) is UniformStreamFarm and len(restored._programs) == 1
+    on_mesh = ckpt.load_farm(snap, mesh=make_mesh(dp=1, devices=["cpu"]))
+    assert isinstance(on_mesh, ShardedStreamFarm) and len(on_mesh._programs) == 1
     in_jax = jckpt.load_farm(dict(snap, interpret=True, device_staging=False))
     want = _finish(a, chunks[1:])
-    for name, farm in (("host", restored), ("tensor", on_tensor), ("jax", in_jax)):
+    for name, farm in (("device", restored), ("mesh", on_mesh), ("jax", in_jax)):
         np.testing.assert_array_equal(_finish(farm, chunks[1:]), want, err_msg=name)
 
 
@@ -788,8 +791,7 @@ def test_torch_sharded_farm_snapshot_right_after_process(card):
     chunks = _chunks(55, 6, 2, (200, 200))
     mesh = make_mesh(dp=4, devices=["cpu"] * 4)
     sharded = ShardedStreamFarm(mesh, 6, 2, 44100, 48000, chunk_frames=200)
-    plain = UniformStreamFarm(6, 2, 44100, 48000, chunk_frames=200, device="cpu",
-                              device_staging=True)
+    plain = UniformStreamFarm(6, 2, 44100, 48000, chunk_frames=200, device="cpu")
     sharded.process(chunks[0])
     plain.process(chunks[0])
     snap = ckpt.save_farm(sharded)

@@ -116,8 +116,7 @@ def test_torch_farm_stage_path_follows_each_call(card, channels):
     sizes = (64, 63, 0, 20, 5)
     chunks = _chunks(70 + channels, 16, channels, sizes)
     want = _run(JFarm(16, channels, 48000, 44100, chunk_frames=64, interpret=True), chunks)
-    farm = UniformStreamFarm(16, channels, 48000, 44100, chunk_frames=64, device="cpu",
-                             device_staging=True)
+    farm = UniformStreamFarm(16, channels, 48000, 44100, chunk_frames=64, device="cpu")
     _same(_run(farm, chunks), want, f"{channels} channels")
     stages = [a for name, a in card if name == "crt_farm_stage"]
     assert [a["n_in"] for a in stages] == [*sizes, 0]

@@ -69,7 +69,8 @@ def test_torch_mixed_farm_streams_match_jax_lowlevel():
     rs.ROUTES.clear()
     farm = MixedStreamFarm(specs, 2, chunk_frames=256, device="cpu")
     got = _run_mixed(farm, data)
-    assert {k for k, _ in rs.ROUTES} == {"tiled", "strided"}
+    assert set(rs.ROUTES) == {("tiled", "reference"), ("strided", "reference"),
+                              ("farm_input", "stacked")}
     for i, rates in enumerate(specs):
         assert got[i].dtype == np.int32
         np.testing.assert_array_equal(got[i], _jax_host_reference(data[i], 2, *rates,

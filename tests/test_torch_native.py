@@ -111,12 +111,11 @@ def test_torch_native_numpy_versions_match_native():
 
 
 def test_torch_farm_works_with_numpy_versions():
-    """The host-staged farm functions without the C++ toolchain."""
+    """The farm works without the C++ toolchain."""
     rng = np.random.default_rng(6)
     data = rng.integers(-32768, 32768, size=(3, 300, 2)).astype(np.int16)
     with forced_numpy():
-        farm = UniformStreamFarm(3, 2, 48000, 44100, chunk_frames=256, device="cpu",
-                                 device_staging=False)
+        farm = UniformStreamFarm(3, 2, 48000, 44100, chunk_frames=256, device="cpu")
         outs = [farm.process(data[:, :256]), farm.process(data[:, 256:]), farm.flush()]
     got = np.concatenate(outs, axis=1)
     for i in range(3):

@@ -74,7 +74,7 @@ def test_torch_fuzz_wide_kernel_farm_matches_jax_lowlevel(seed):
     farm = UniformStreamFarm(2, 1, in_rate, out_rate, max(in_rate, out_rate),
                              chunk_frames=total, device="cpu")
     got = np.concatenate([farm.process(data), farm.flush()], axis=1)
-    assert set(rs.ROUTES) == {("wide", "reference")}
+    assert set(rs.ROUTES) == {("wide", "reference"), ("farm_input", "direct")}
     for i in range(2):
         want = _jax_host_reference(data[i], 1, in_rate, out_rate, max(in_rate, out_rate))
         np.testing.assert_array_equal(

@@ -50,7 +50,7 @@ def test_torch_sharded_farm_matches_uniform_farm(in_rate, out_rate, kind):
     sh_farm = ShardedStreamFarm(_mesh(), n_streams, channels, in_rate, out_rate,
                                 chunk_frames=chunk)
     got = _run(sh_farm, chunks)
-    assert set(rs.ROUTES) == {(kind, "reference")}
+    assert set(rs.ROUTES) == {(kind, "reference"), ("farm_input", "direct")}
     assert rs.ROUTES[(kind, "reference")] % 8 == 0    # every shard launched its own
     assert [buf.shape for *_, program in sh_farm._programs for buf in program.buffers] == [
         (sh_farm._capacity, 16)] * 16
@@ -66,8 +66,8 @@ def test_torch_sharded_farm_general_ratio_routed_wide():
     ref_farm = UniformStreamFarm(n_streams, channels, 44100, 1000, chunk_frames=chunk,
                                  device="cpu")
     sh_farm = ShardedStreamFarm(_mesh(4), n_streams, channels, 44100, 1000, chunk_frames=chunk)
-    assert sh_farm._launch_specs(8, shard=3)[2][0][0] == "wide"
-    assert ref_farm._launch_specs(8)[2] == sh_farm._launch_specs(8, shard=0)[2]
+    assert sh_farm._launch_specs(8, shard=3)[1][0][0] == "wide"
+    assert ref_farm._launch_specs(8)[1] == sh_farm._launch_specs(8, shard=0)[1]
     np.testing.assert_array_equal(_run(sh_farm, chunks), _run(ref_farm, chunks))
 
 
@@ -153,7 +153,7 @@ def test_torch_sharded_farm_wide_kernel_class():
     rs.ROUTES.clear()
     sh_farm = ShardedStreamFarm(_mesh(), n_streams, channels, 44100, 256, chunk_frames=chunk)
     got = _run(sh_farm, chunks)
-    assert set(rs.ROUTES) == {("wide", "reference")}
+    assert set(rs.ROUTES) == {("wide", "reference"), ("farm_input", "direct")}
     np.testing.assert_array_equal(got, _run(ref_farm, chunks))
 
 
